@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
+                                      failure, and without a card)
+
+Phases, in order, none of them caught:
+  1. device  — card name/count and ``nvidia-smi`` name + power limit;
+  2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
+  3. kernels — each of the four CUDA kernels against its plain PyTorch
+     version on the same card tensors, bit for bit, at L = 32768 and the
+     ragged L in {1, 129, 32767}, nmax in {8, 16}, bcap in {4, 32}, lanes
+     built with numpy from a seed over real generator graphs; times by
+     CUDA events (kernel and plain version) and the bound of each;
+  4. slice   — ``optimize_many`` on ``cuda`` over three streams (the main
+     path), every plan validated and every cost held against the host
+     DPccp oracle (relative 1e-4), ``Counters`` and costs of stream (c)
+     and the first four queries of (a) and (b) against the port's own
+     ``device="cpu"`` run (exact / relative 1e-5), launch counters read
+     around exactly this run; then a ``torch.profiler`` window over
+     stream (a) for kernel time by name and the card's busy share.
+The line before last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.core import batch, dpccp  # noqa: E402
+from repro_torch.core import bitset as bs  # noqa: E402
+from repro_torch.core.plan import validate_plan  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.workloads import generators as gen  # noqa: E402
+
+HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_OPS_S = 132 * 64 * 1.98e9       # 132 SMs x 64 INT32 lanes x 1.98 GHz
+OPS_PER_STEP = 3                      # one set-bit step: ffs, row load, OR
+OPS_PER_LANE = 12                     # per-lane decode, loads, stores
+L_MAIN = 32768                        # CHUNK: lanes per call on the main path
+DEV = torch.device("cuda")
+
+KERNELS = {
+    # name: (inputs, outputs, line of the Pallas kernel it replaces)
+    "bconnectivity": (("S", "qid"), 1, "src/repro/kernels/ccp_eval.py:133"),
+    "bccp_eval": (("S", "sub", "qid"), 3, "src/repro/kernels/ccp_eval.py:142"),
+    "btree_eval": (("S", "ub", "vb", "qid"), 2,
+                   "src/repro/kernels/ccp_eval.py:159"),
+    "bgeneral_eval": (("S", "block", "r", "qid"), 3,
+                      "src/repro/kernels/ccp_eval.py:184"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------- phase 3 --
+
+def kernel_graphs(nmax: int):
+    """32 real generator graphs of the nmax bucket."""
+    if nmax == 16:
+        return gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16))
+    makers = [lambda s: gen.chain(8, s), lambda s: gen.cycle(7, s),
+              lambda s: gen.star(6, s), lambda s: gen.job_like(8, s),
+              lambda s: gen.snowflake(8, s), lambda s: gen.clique(5, s),
+              lambda s: gen.musicbrainz_query(8, 100 + s)]
+    return [makers[i % len(makers)](i) for i in range(32)]
+
+
+def kernel_inputs(graphs, bcap: int, nmax: int, L: int, seed: int):
+    """Lanes over the first bcap graphs: sets inside each query's n bits,
+    random sub/r, block a subset of S, ub/vb the endpoints of real edges."""
+    rng = np.random.default_rng(seed)
+    gs = graphs[:bcap]
+    adj = np.zeros((bcap, nmax), np.int32)
+    for q, g in enumerate(gs):
+        for (u, v) in g.edges:
+            adj[q, u] |= 1 << v
+            adj[q, v] |= 1 << u
+    qid = rng.integers(0, bcap, L).astype(np.int32)
+    n_q = np.array([g.n for g in gs])[qid]
+    S = (rng.integers(1, 1 << 30, L) & ((1 << n_q) - 1)).astype(np.int32)
+    S[S == 0] = 1
+    e_pick = [np.array(g.edges, np.int32) for g in gs]
+    uv = np.stack([e_pick[q][rng.integers(0, len(e_pick[q]))] for q in qid])
+    lanes = {"S": S, "qid": qid,
+             "sub": rng.integers(0, 1 << 16, L).astype(np.int32),
+             "r": rng.integers(0, 1 << 16, L).astype(np.int32),
+             "block": (S & rng.integers(0, 1 << 16, L)).astype(np.int32),
+             "ub": (1 << uv[:, 0]).astype(np.int32),
+             "vb": (1 << uv[:, 1]).astype(np.int32)}
+    return ({k: torch.from_numpy(v).to(DEV) for k, v in lanes.items()},
+            torch.from_numpy(adj).to(DEV))
+
+
+def call(name, lanes, adj, nmax, plain=False):
+    args = [lanes[k] for k in KERNELS[name][0]]
+    fn = getattr(ref, f"{name}_ref") if plain else getattr(ops, name)
+    out = fn(*args, adj, nmax)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def event_ms(fn, reps: int) -> float:
+    """Card time per call of ``fn``.  A sleep kernel queued first keeps the
+    card busy while the host enqueues the calls, so the events time the
+    launches back to back and not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def op_count(name, lanes, adj, nmax) -> int:
+    """int32 operations the kernel's walks need on these inputs: a fixed
+    per-lane cost plus OPS_PER_STEP per set bit visited (pdep over the
+    mask, neighbours over the source, one expansion per reached vertex)."""
+    adjq = adj[lanes["qid"].clamp(0, adj.shape[0] - 1)]
+    pc = bs.popcount
+    S = lanes["S"]
+    nm = (1 << nmax) - 1
+
+    def reach(src, restrict, rows):
+        return pc(bs.grow_rows(src, restrict, rows) & nm)
+
+    def ccp_steps(lb, rb):
+        live = (lb != 0) & (rb != 0)
+        cross = live & ((bs.neighbors_rows(lb, adjq) & rb) != 0)
+        return (pc(lb & nm) * live + cross * (reach(bs.lsb(lb), lb, adjq)
+                                              + reach(bs.lsb(rb), rb, adjq)))
+
+    if name == "bconnectivity":
+        steps = reach(bs.lsb(S), S, adjq)
+    elif name == "bccp_eval":
+        lb = bs.pdep(lanes["sub"], S, nmax)
+        steps = pc(S & nm) + ccp_steps(lb, S & ~lb)
+    elif name == "btree_eval":
+        ub, vb = lanes["ub"], lanes["vb"]
+        sh = torch.arange(nmax, dtype=torch.int32, device=S.device)
+        excl = (torch.where(((ub[:, None] >> sh) & 1) == 1, vb[:, None], 0)
+                | torch.where(((vb[:, None] >> sh) & 1) == 1, ub[:, None], 0))
+        steps = reach(ub, S, adjq & ~excl)
+    else:
+        blk = lanes["block"]
+        lb = bs.pdep(lanes["r"], blk, nmax)
+        rb = blk & ~lb
+        steps = pc(blk & nm) + ccp_steps(lb, rb) + reach(lb, S & ~rb, adjq)
+    return int(steps.to(torch.int64).sum()) * OPS_PER_STEP \
+        + OPS_PER_LANE * S.numel()
+
+
+def phase_kernels():
+    """Bit-exact checks at every shape; times and bounds at the main one."""
+    rows = {}
+    for nmax in (8, 16):
+        graphs = kernel_graphs(nmax)
+        for bcap in (4, 32):
+            for L in (L_MAIN, 1, 129, 32767):
+                lanes, adj = kernel_inputs(graphs, bcap, nmax, L,
+                                           seed=nmax * 1000 + bcap * 10 + L)
+                for name in KERNELS:
+                    got = call(name, lanes, adj, nmax)
+                    want = call(name, lanes, adj, nmax, plain=True)
+                    torch.cuda.synchronize()
+                    err = max(int((a.to(torch.int64) - b.to(torch.int64))
+                                  .abs().max()) if L else 0
+                              for a, b in zip(got, want))
+                    if err != 0 or any(a.dtype != torch.int32 for a in got):
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version at "
+                            f"nmax={nmax} bcap={bcap} L={L}: max |diff| {err}")
+                    row = rows.setdefault(name, {"max_abs_err": 0})
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    if (nmax, bcap, L) == (16, 32, L_MAIN):
+                        n_in, n_out, _ = KERNELS[name]
+                        ms = event_ms(lambda: call(name, lanes, adj, nmax), 100)
+                        plain_ms = event_ms(
+                            lambda: call(name, lanes, adj, nmax, plain=True), 10)
+                        nbytes = 4 * L * (len(n_in) + n_out) + adj.numel() * 4
+                        ops_n = op_count(name, lanes, adj, nmax)
+                        t_b = nbytes / HBM_BYTES_S * 1e3
+                        t_o = ops_n / INT32_OPS_S * 1e3
+                        row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                                   int32_ops=ops_n, bound_ms=max(t_b, t_o),
+                                   bound_by="bytes" if t_b >= t_o else "operations")
+                log(f"kernels ok nmax={nmax} bcap={bcap} L={L}")
+    for name, row in rows.items():
+        log(f"kernel {name}: {row['ms'] * 1e3:.2f} us/launch, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us "
+            f"({row['bound_by']}: {row['bytes']} B, {row['int32_ops']} int32 ops) "
+            f"at L={L_MAIN} nmax=16 bcap=32")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 4 --
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(1.0, abs(b))
+
+
+def ulps(a: float, b: float) -> int:
+    ia = np.array([a], np.float32).view(np.int32)[0]
+    ib = np.array([b], np.float32).view(np.int32)[0]
+    return abs(int(ia) - int(ib))
+
+
+def run_stream(label, graphs, algorithm, n_cpu):
+    """One stream on cuda: timed, validated, held against DPccp and the
+    port's CPU run of its first ``n_cpu`` queries."""
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = batch.optimize_many(graphs, algorithm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"stream {label}: {len(graphs)} queries ({algorithm}) in {wall:.3f} s "
+        f"= {len(graphs) / wall:.2f} queries/s on cuda; launches "
+        + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()}))
+    t1 = time.perf_counter()
+    for g, r in zip(graphs, res):
+        validate_plan(r.plan, g)
+        oracle = dpccp.solve(g)
+        if rel(r.cost, oracle.cost) > 1e-4:
+            raise AssertionError(f"stream {label}: cost {r.cost} vs DPccp "
+                                 f"{oracle.cost} (n={g.n})")
+    log(f"stream {label}: all {len(graphs)} plans valid, costs within 1e-4 "
+        f"of DPccp (host check {time.perf_counter() - t1:.1f} s)")
+    cpu = batch.optimize_many(graphs[:n_cpu], algorithm, device="cpu")
+    worst = 0
+    for i, (r, c) in enumerate(zip(res, cpu)):
+        if (r.counters.evaluated, r.counters.ccp) != (c.counters.evaluated,
+                                                      c.counters.ccp):
+            raise AssertionError(f"stream {label} query {i}: counters "
+                                 f"{r.counters} on cuda vs {c.counters} on cpu")
+        if r.algorithm != c.algorithm or rel(r.cost, c.cost) > 1e-5:
+            raise AssertionError(f"stream {label} query {i}: {r.algorithm} "
+                                 f"{r.cost} on cuda vs {c.algorithm} {c.cost}")
+        worst = max(worst, ulps(r.cost, c.cost))
+    log(f"stream {label}: first {n_cpu} queries match the cpu run "
+        f"(counters exact, costs within 1e-5, max {worst} ulp)")
+    flights = {(r.algorithm, tuple(sorted(r.timings.items()))) for r in res}
+    for algo, stages in sorted(flights):
+        log(f"stream {label}: flight {algo} stage seconds "
+            + json.dumps({k: round(v, 4) for k, v in stages}))
+    return res
+
+
+def profile(graphs, algorithm):
+    """Kernel time by name and the card's busy share over one stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch.optimize_many(graphs, algorithm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}                      # device-side events only: no double count
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in by_name.values())
+    log(f"profile stream a: wall {wall:.3f} s (profiler on), device busy "
+        f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.4f} of the window, "
+        f"{sum(n for n, _ in by_name.values())} device events")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for key, (n, us) in top[:12]:
+        log(f"profile  {us / 1e3:10.2f} ms {n:7d} x  {key[:100]}")
+    for key, (n, us) in top:
+        for k in KERNELS:
+            if f"{k}_kernel" not in key:
+                continue
+            log(f"profile kernel {k}: {n} launches, "
+                f"{us / n:.2f} us each, {us / 1e3:.3f} ms = "
+                f"{us / max(busy_us, 1e-9):.5f} of device time")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {name} x{count}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; nvidia-smi: {smi}")
+
+    build.library()
+    log(f"build: {build.BUILD_INFO['seconds']:.2f} s "
+        f"(cached={build.BUILD_INFO['cached']}) -> {build.BUILD_INFO['path']}")
+    for line in build.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log("ptxas:", line.strip())
+
+    rows = phase_kernels()
+
+    streams = [
+        ("a", gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)), "auto", 4),
+        ("b", gen.mixed_stream(8, seed=1, sizes=(10, 11, 12, 13)), "dpsub", 4),
+        ("c", [gen.chain(8, 1), gen.cycle(7, 2), gen.star(6, 3),
+               gen.job_like(8, 4)], "auto", 4),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for label, graphs, algorithm, n_cpu in streams:
+        run_stream(label, graphs, algorithm, n_cpu)
+    launches = dict(ops.LAUNCHES)
+    log("launches on the main path: " + json.dumps(launches))
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
+
+    profile(streams[0][1], "auto")
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+
+    out = [{"name": k, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
+            "replaces": KERNELS[k][2], "launches": launches[k],
+            "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
+            "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
+            "bound_by": rows[k]["bound_by"], "library_ms": None}
+           for k in KERNELS]
+    print(json.dumps({"kernels": out}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

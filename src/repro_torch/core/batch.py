@@ -1,0 +1,738 @@
+"""Batched multi-query MPDP: B queries through one level-synchronous DP.
+
+The port of ``repro.core.batch``.  ``BatchEngine`` stacks B queries into
+one (NMAX, CHUNK) bucket and folds the batch into the *lane* dimension of
+the unrank -> filter -> evaluate -> prune -> scatter pipeline:
+
+  * ``adj`` becomes ``(bcap, NMAX)`` and the dense memo tables one flat
+    ``(bcap << NMAX)`` buffer per table (query q owns
+    ``[q << NMAX, (q+1) << NMAX)``), all on the engine's torch device;
+  * each DP level concatenates every query's lane space; a lane decodes its
+    query id with a searchsorted over per-query lane offsets;
+  * pruning is one segment-min per (query, set) segment.
+
+Lane spaces: DPSUB (``sets x 2^i``), MPDP:Tree (``sets x m``) and
+MPDP-general (block prefix-sum over phase-A (set, block) pairs); all three
+enumerate the same CCP candidates.  The per-lane bit-twiddling goes
+through ``kernels.ops`` — the CUDA kernels on the card, their plain
+PyTorch versions for CPU tensors.  The level loop is the reference's
+synchronous driver; the memo tensors are updated in place.
+
+Where JAX and torch differ, this module spells out JAX's behaviour:
+out-of-range gather indices are clamped (``_take``), ``mode="drop"``
+scatters drop their padding explicitly, ``segment_min``/``segment_max``
+start from JAX's empty-segment identities (``engine._prune``) and
+``searchsorted(side="right")`` is ``right=True``.
+
+``optimize_many`` is the public entry point.  It serves inner-join queries
+with ``nmax_bucket(n) <= 16``; what the reference serves beyond that
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from math import comb
+
+import numpy as np
+import torch
+
+from . import bitset as bs
+from . import blocks as bl
+from . import cost as cm
+from . import unrank as ur
+from ..kernels import ops
+from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
+                     alias_kwarg, resolve_config)
+from .engine import INF, _cap, _merge_best, _merge_scattered, _prune
+from .joingraph import JoinGraph
+from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
+
+NMAX_BATCH = 16          # memo is (bcap << NMAX): larger queries go solo
+_CLIP = 1 << 30          # offset clip keeps chunk-local offsets int32
+PEND_WINDOW = 8          # un-fetched chunk results kept in flight per level
+_I32 = torch.int32
+
+
+def _bcap(b: int) -> int:
+    return _cap(b, 4)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: ``cuda`` unless the caller names another.
+    Raises when CUDA is asked for (explicitly or by default) and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``buf[idx]`` with JAX's gather semantics (indices clamped)."""
+    return buf[idx.clamp(0, buf.shape[0] - 1)]
+
+
+def _segment_sum(x: torch.Tensor, qid: torch.Tensor, bcap: int) -> torch.Tensor:
+    return torch.zeros(bcap, dtype=_I32, device=x.device).index_add_(
+        0, qid, x.to(_I32))
+
+
+def _lane_qid(off: torch.Tensor, t: torch.Tensor, hi: int) -> torch.Tensor:
+    """Owner of lane t: ``searchsorted(off, t, side="right") - 1``."""
+    return (torch.searchsorted(off, t, right=True, out_int32=True) - 1).clamp(0, hi)
+
+
+# ================================================================= kernels ==
+# Chunk bodies: every tensor lives on the engine's device; ``t`` is the
+# chunk's lane index.
+
+def _bfilter_chunk(foff, k, binom, adj_b, *, nmax: int, chunk: int, bcap: int):
+    """Batched unrank + connectivity filter.
+
+    foff: i32[bcap+1] chunk-local per-query rank offsets (prefix sums of
+    C(n_q, k), minus the chunk base, clipped).  Lane t belongs to query
+    ``searchsorted(foff, t) - 1`` with rank ``t - foff[qid]``.
+    """
+    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
+    qid = _lane_qid(foff, t, bcap - 1)
+    rank = t - foff[qid]
+    live = t < foff[bcap]
+    S = ur.unrank_ksubset(rank.clamp(min=0), k, binom, nmax)
+    conn = (ops.bconnectivity(S, qid, adj_b, nmax) != 0) & live
+    return S, conn, qid
+
+
+def _lane_cost(S, S_left, S_right, ccp, mbase, memo_cost, memo_rows):
+    """Candidate cost of each lane's (S_left, S_right) split (INF off-CCP)."""
+    cl = _take(memo_cost, mbase | S_left)
+    cr = _take(memo_cost, mbase | S_right)
+    jc = cm.join_cost(_take(memo_rows, mbase | S_left),
+                      _take(memo_rows, mbase | S_right),
+                      _take(memo_rows, mbase | S))
+    return torch.where(ccp, cl + cr + jc, float(INF))
+
+
+def _beval_dpsub_chunk(all_sets, eoff, loff, soff, seg0, i, adj_b, memo_cost,
+                       memo_rows, *, nmax: int, chunk: int, nseg: int,
+                       bcap: int):
+    """Batched DPSUB evaluate: lane -> (query, set, subset) decode.
+
+    eoff: i32[bcap+1] chunk-local per-query lane offsets (prefix of ns_q<<i).
+    loff: i32[bcap]   per-query base into all_sets (region + level offset).
+    soff: i32[bcap]   per-query global set-index prefix (segment ids).
+    """
+    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
+    qid = _lane_qid(eoff, t, bcap - 1)
+    local = t - eoff[qid]
+    live = t < eoff[bcap]
+    set_idx = local >> i
+    sub = local & ((1 << i) - 1)
+    S = _take(all_sets, loff[qid] + set_idx)
+    lb, rb, ccp_i = ops.bccp_eval(S, sub, qid, adj_b, nmax)
+    ccp = live & (ccp_i != 0)
+    cand = _lane_cost(S, lb, rb, ccp, qid << nmax, memo_cost, memo_rows)
+    seg = (soff[qid] + set_idx - seg0).clamp(0, nseg - 1)
+    seg_cost, seg_left = _prune(seg, cand, lb, nseg)
+    return (seg_cost, seg_left, _segment_sum(live, qid, bcap),
+            _segment_sum(ccp, qid, bcap))
+
+
+def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
+                      emv_b, memo_cost, memo_rows, *, nmax: int, chunk: int,
+                      nseg: int, bcap: int):
+    """Batched MPDP:Tree evaluate: lane -> (query, set, edge) decode.
+
+    m_b: i32[bcap] per-query edge count (lane-minor dimension);
+    emu_b/emv_b: i32[bcap, emax] per-query edge endpoint bitmaps (0 pad).
+    Every enumerated in-set edge IS a CCP pair (Theorem 3).
+    """
+    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
+    qid = _lane_qid(eoff, t, bcap - 1)
+    local = t - eoff[qid]
+    live = t < eoff[bcap]
+    mq = m_b[qid].clamp(min=1)
+    set_idx = torch.div(local, mq, rounding_mode="floor")
+    e = torch.remainder(local, mq).clamp(0, emu_b.shape[1] - 1)
+    S = _take(all_sets, loff[qid] + set_idx)
+    ub = emu_b[qid, e]
+    vb = emv_b[qid, e]
+    S_left, in_i = ops.btree_eval(S, ub, vb, qid, adj_b, nmax)
+    edge_in = live & (in_i != 0)
+    cand = _lane_cost(S, S_left, S & ~S_left, edge_in, qid << nmax,
+                      memo_cost, memo_rows)
+    seg = (soff[qid] + set_idx - seg0).clamp(0, nseg - 1)
+    seg_cost, seg_left = _prune(seg, cand, S_left, nseg)
+    ev_q = _segment_sum(edge_in, qid, bcap)              # Theorem 3: all CCP
+    return seg_cost, seg_left, ev_q, ev_q.clone()
+
+
+def _beval_general_chunk(pair_set, pair_block, pair_qid, off_local, n_pairs,
+                         lane_count, adj_b, memo_cost, memo_rows, *, nmax: int,
+                         chunk: int, pcap: int, bcap: int):
+    """Batched MPDP-general evaluate: lane -> (query, set, block, rank).
+
+    Phase A compacted every set's blocks into sorted (set, block) pairs;
+    the fused lane space is the block prefix-sum over all queries' pairs.
+    """
+    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
+    live = t < lane_count
+    p = _lane_qid(off_local, t, n_pairs - 1)
+    r = t - off_local[p]
+    S = pair_set[p]
+    block = pair_block[p]
+    qid = pair_qid[p]
+    lb, S_left, ccp_i = ops.bgeneral_eval(S, block, r, qid, adj_b, nmax)
+    rb = block & ~lb
+    enum_ok = live & (lb != 0) & (rb != 0)             # Alg.3 line 6/7
+    ccp_blk = enum_ok & (ccp_i != 0)
+    cand = _lane_cost(S, S_left, S & ~S_left, ccp_blk, qid << nmax,
+                      memo_cost, memo_rows)
+    seg_cost, seg_left = _prune(p, cand, S_left, pcap)
+    return (seg_cost, seg_left, _segment_sum(enum_ok, qid, bcap),
+            _segment_sum(ccp_blk, qid, bcap))
+
+
+def _fetch(seg_cost, seg_left, ev_q, ccp_q):
+    """One device->host copy of a chunk's results."""
+    n = seg_cost.shape[0]
+    buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q, ccp_q]).cpu().numpy()
+    return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + len(ev_q)],
+            buf[2 * n + len(ev_q):])
+
+
+# ============================================================== host driver ==
+
+class BatchEngine:
+    """Level-synchronous DP over a batch of queries in one device pipeline.
+
+    ``algorithm`` selects the evaluate lane space: ``dpsub``, ``mpdp_tree``
+    (every query acyclic) or ``mpdp_general``; all three give the same
+    costs and plans, only the evaluated-lane counts differ.  ``device`` is
+    where the memo and every lane tensor live (``cuda`` by default).
+    """
+
+    def __init__(self, graphs: list[JoinGraph], chunk: int = CHUNK,
+                 algorithm: str = "dpsub", cyc_cap: int = CYC_CAP_DEFAULT,
+                 device=None):
+        if not graphs:
+            raise ValueError("empty batch")
+        if algorithm not in ("dpsub", "mpdp_tree", "mpdp_general"):
+            raise ValueError(f"unknown batched lane space {algorithm!r}")
+        for g in graphs:
+            if g.n < 2:
+                raise ValueError("BatchEngine needs n >= 2 (leaf queries are "
+                                 "handled by optimize_many)")
+            if not g.is_connected():
+                raise ValueError("query graph must be connected (no cross products)")
+            if algorithm == "mpdp_tree" and not g.is_tree():
+                raise ValueError("mpdp_tree lane space needs acyclic queries")
+            if g.typed:
+                raise NotImplementedError(
+                    "typed (non-inner) join edges are not ported yet "
+                    "(ROADMAP.md, queue 1: typed joins)")
+        self.device = resolve_device(device)
+        self.graphs = graphs
+        self.algorithm = algorithm
+        self.cyc_cap = cyc_cap
+        self._wall = 0.0
+        self.B = len(graphs)
+        self.bcap = _bcap(self.B)
+        self.nmax = max(bs.nmax_bucket(g.n) for g in graphs)
+        if self.nmax > NMAX_BATCH:
+            raise ValueError(f"batched path supports nmax <= {NMAX_BATCH}")
+        self.chunk = chunk
+        self.size = 1 << self.nmax
+        self.flat = self.bcap << self.nmax
+        self.binom = self._dev(ur.binom_table(self.nmax))
+        adj = np.zeros((self.bcap, self.nmax), np.int32)
+        for q, g in enumerate(graphs):
+            for (u, v) in g.edges:
+                adj[q, u] |= 1 << v
+                adj[q, v] |= 1 << u
+        self.adj_b = self._dev(adj)
+        # per-query edge arrays: endpoint bitmaps (tree lane decode) and
+        # endpoint indices (general phase A), stacked on a shared EMAX bucket
+        max_m = max(g.m for g in graphs)
+        self.emax = max(8, int(np.ceil(max(max_m, 1) / 8.0)) * 8)
+        emu = np.zeros((self.bcap, self.emax), np.int32)
+        emv = np.zeros((self.bcap, self.emax), np.int32)
+        eui = np.full((self.bcap, self.emax), -1, np.int32)
+        evi = np.full((self.bcap, self.emax), -1, np.int32)
+        eliv = np.zeros((self.bcap, self.emax), bool)
+        for q, g in enumerate(graphs):
+            for i, (u, v) in enumerate(g.edges):
+                emu[q, i] = 1 << u
+                emv[q, i] = 1 << v
+                eui[q, i], evi[q, i], eliv[q, i] = u, v, True
+        self.emu_b = self._dev(emu)
+        self.emv_b = self._dev(emv)
+        self.eu_idx_b = self._dev(eui)
+        self.ev_idx_b = self._dev(evi)
+        self.edge_live_b = self._dev(eliv)
+        self.m_b = self._dev(np.array(
+            [g.m for g in graphs] + [0] * (self.bcap - self.B), np.int32))
+        self.counters = [Counters() for _ in graphs]
+        self.timings: dict[str, float] = {}
+        self._launch0 = dict(ops.LAUNCHES)
+        self._init_memo()
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _time(self, key: str, t0: float) -> None:
+        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
+
+    # ------------------------------------------------------------- memo ----
+    def _init_memo(self):
+        kw = dict(device=self.device)
+        self.memo_cost = torch.full((self.flat,), float(INF), dtype=torch.float32, **kw)
+        self.memo_rows = torch.zeros(self.flat, dtype=torch.float32, **kw)
+        self.memo_left = torch.zeros(self.flat, dtype=_I32, **kw)
+        self.all_sets = torch.zeros(self.flat, dtype=_I32, **kw)
+        self._next_off = [g.n for g in self.graphs]
+        self._level_off = [{1: 0} for _ in self.graphs]
+        idx_l, cost_l, rows_l, pos_l, set_l = [], [], [], [], []
+        for q, g in enumerate(self.graphs):
+            leaves = np.array([1 << v for v in range(g.n)], np.int32)
+            lrows = g.log2_card.astype(np.float32)
+            base = q << self.nmax
+            idx_l.append(base + leaves.astype(np.int64))
+            cost_l.append(cm.np_scan_cost(lrows).astype(np.float32))
+            rows_l.append(lrows)
+            pos_l.append(base + np.arange(g.n, dtype=np.int64))
+            set_l.append(leaves)
+        self._scatter(np.concatenate(idx_l), cost=np.concatenate(cost_l),
+                      rows=np.concatenate(rows_l))
+        self._set_all_sets(np.concatenate(pos_l), np.concatenate(set_l))
+
+    def _scatter(self, idx_np, cost=None, rows=None, left=None):
+        """Memo writes at flat indices; indices past the memo are dropped
+        (JAX's ``mode="drop"``)."""
+        keep = (idx_np >= 0) & (idx_np < self.flat)
+        idx = self._dev(idx_np[keep].astype(np.int64))
+        for buf, val, dt in ((self.memo_cost, cost, np.float32),
+                             (self.memo_rows, rows, np.float32),
+                             (self.memo_left, left, np.int32)):
+            if val is not None:
+                buf[idx] = self._dev(np.asarray(val, dt)[keep])
+
+    def _set_all_sets(self, pos_np, sets_np):
+        keep = (pos_np >= 0) & (pos_np < self.flat)
+        self.all_sets[self._dev(pos_np[keep].astype(np.int64))] = \
+            self._dev(np.asarray(sets_np, np.int32)[keep])
+
+    # ------------------------------------------------------------ stats ----
+    @property
+    def stats(self) -> dict:
+        """Kernel launches made since this engine was built, per kernel
+        (``{"launches": {...}, "pipeline": False}``)."""
+        return {"launches": {k: ops.LAUNCHES[k] - self._launch0[k]
+                             for k in ops.LAUNCHES},
+                "pipeline": False}
+
+    # ------------------------------------------------------------ filter ---
+    def _filter_dispatch(self, i: int) -> dict:
+        """Dispatch level i's unrank+filter chunks, draining all but
+        ``PEND_WINDOW`` of them as newer ones run."""
+        t0 = time.perf_counter()
+        totals = np.array([comb(g.n, i) if g.n >= i else 0
+                           for g in self.graphs], np.int64)
+        foff = np.zeros(self.B + 1, np.int64)
+        np.cumsum(totals, out=foff[1:])
+        total = int(foff[-1])
+        ctx = {"pend": deque(), "per_q": [[] for _ in range(self.B)]}
+        for lane0 in range(0, total, self.chunk):
+            fl = np.clip(foff - lane0, -_CLIP, _CLIP)
+            fpad = np.full(self.bcap + 1, fl[self.B], np.int32)
+            fpad[: self.B + 1] = fl
+            ctx["pend"].append(_bfilter_chunk(
+                self._dev(fpad), i, self.binom, self.adj_b, nmax=self.nmax,
+                chunk=self.chunk, bcap=self.bcap))
+            self._filter_drain(ctx, PEND_WINDOW)
+        self._time("filter", t0)
+        return ctx
+
+    def _filter_drain(self, ctx: dict, limit: int) -> None:
+        """Fetch + compact pending filter chunks down to ``limit``."""
+        pend, per_q = ctx["pend"], ctx["per_q"]
+        while len(pend) > limit:
+            S, conn, qid = pend.popleft()
+            got = torch.stack([S[conn], qid[conn]]).cpu().numpy()
+            Sc, qc = got[0], got[1]
+            for q in np.unique(qc):
+                per_q[q].append(Sc[qc == q])
+
+    def _filter_collect(self, ctx: dict) -> list[np.ndarray]:
+        """Drain the remaining filter chunks into per-query set lists."""
+        t0 = time.perf_counter()
+        self._filter_drain(ctx, 0)
+        sets_by_q = [np.concatenate(l) if l else np.zeros(0, np.int32)
+                     for l in ctx["per_q"]]
+        self._time("filter", t0)
+        return sets_by_q
+
+    def _register_level(self, i: int, sets_by_q: list[np.ndarray]) -> None:
+        """Host rows (canonical helper) + all_sets/memo_rows registration."""
+        t0 = time.perf_counter()
+        idx_l, rows_l, pos_l, set_l = [], [], [], []
+        for q, sets_q in enumerate(sets_by_q):
+            self._level_off[q][i] = self._next_off[q]
+            if not len(sets_q):
+                continue
+            base = q << self.nmax
+            idx_l.append(base + sets_q.astype(np.int64))
+            rows_l.append(cm.np_rows_for_sets(sets_q, self.graphs[q]))
+            pos_l.append(base + self._next_off[q]
+                         + np.arange(len(sets_q), dtype=np.int64))
+            set_l.append(sets_q)
+            self._next_off[q] += len(sets_q)
+        if idx_l:
+            self._scatter(np.concatenate(idx_l), rows=np.concatenate(rows_l))
+            self._set_all_sets(np.concatenate(pos_l), np.concatenate(set_l))
+        self._time("filter", t0)
+
+    # ---------------------------------------------------------- evaluate ---
+    def _commit_best(self, sets_by_q, best_cost, best_left) -> None:
+        """Commit a level: per-query slices of the fused best arrays."""
+        idx_l, cost_l, left_l = [], [], []
+        off = 0
+        for q, sets_q in enumerate(sets_by_q):
+            nsq = len(sets_q)
+            bc = best_cost[off: off + nsq]
+            blft = best_left[off: off + nsq]
+            off += nsq
+            fin = np.isfinite(bc)
+            if fin.any():
+                idx_l.append((q << self.nmax) + sets_q[fin].astype(np.int64))
+                cost_l.append(bc[fin])
+                left_l.append(blft[fin])
+        if idx_l:
+            self._scatter(np.concatenate(idx_l), cost=np.concatenate(cost_l),
+                          left=np.concatenate(left_l))
+
+    def _eval_dispatch(self, i: int, sets_by_q: list[np.ndarray]):
+        """Segmented lane spaces (DPSUB ``sets x 2^i``, tree ``sets x m``):
+        lanes of query q are contiguous, ``ns_q * mult_q`` long."""
+        ns = np.array([len(s) for s in sets_by_q], np.int64)
+        if self.algorithm == "mpdp_tree":
+            mult = np.array([g.m for g in self.graphs], np.int64)
+        else:
+            mult = np.full(self.B, np.int64(1) << i, np.int64)
+        eoff = np.zeros(self.B + 1, np.int64)
+        np.cumsum(ns * mult, out=eoff[1:])
+        total = int(eoff[-1])
+        if total == 0:
+            return None
+        t0 = time.perf_counter()
+        soff = np.zeros(self.B + 1, np.int64)
+        np.cumsum(ns, out=soff[1:])
+        loff = np.zeros(self.bcap, np.int64)
+        for q in range(self.B):
+            loff[q] = (q << self.nmax) + self._level_off[q][i]
+        loff_d = self._dev(loff.astype(np.int32))
+        spad = np.full(self.bcap, soff[self.B], np.int64)
+        spad[: self.B] = soff[: self.B]
+        soff_d = self._dev(spad.astype(np.int32))
+        nseg = self.chunk + 2
+        ctx = {"pend": deque(),
+               "best_cost": np.full(int(soff[-1]), INF, np.float32),
+               "best_left": np.zeros(int(soff[-1]), np.int32),
+               "ev": np.zeros(self.B, np.int64),
+               "ccp": np.zeros(self.B, np.int64)}
+        statics = dict(nmax=self.nmax, chunk=self.chunk, nseg=nseg,
+                       bcap=self.bcap)
+        for lane0 in range(0, total, self.chunk):
+            el = np.clip(eoff - lane0, -_CLIP, _CLIP)
+            epad = np.full(self.bcap + 1, el[self.B], np.int32)
+            epad[: self.B + 1] = el
+            p0 = int(np.searchsorted(eoff, lane0, side="right")) - 1
+            p0 = min(max(p0, 0), self.B - 1)
+            seg0 = int(soff[p0] + (lane0 - eoff[p0]) // mult[p0])
+            if self.algorithm == "mpdp_tree":
+                out = _beval_tree_chunk(
+                    self.all_sets, self._dev(epad), loff_d, soff_d, seg0,
+                    self.m_b, self.adj_b, self.emu_b, self.emv_b,
+                    self.memo_cost, self.memo_rows, **statics)
+            else:
+                out = _beval_dpsub_chunk(
+                    self.all_sets, self._dev(epad), loff_d, soff_d, seg0, i,
+                    self.adj_b, self.memo_cost, self.memo_rows, **statics)
+            ctx["pend"].append((seg0, out))
+            self._eval_drain(ctx, PEND_WINDOW)
+        self._time("evaluate", t0)
+        return ctx
+
+    def _eval_drain(self, ctx: dict, limit: int) -> None:
+        """Fetch pending chunk results down to ``limit``, folding them into
+        the level's best arrays in chunk order."""
+        pend = ctx["pend"]
+        while len(pend) > limit:
+            seg0, out = pend.popleft()
+            sc, sl, ev_q, ccp_q = _fetch(*out)
+            ctx["ev"] += ev_q[: self.B]
+            ctx["ccp"] += ccp_q[: self.B]
+            _merge_best(ctx["best_cost"], ctx["best_left"], seg0, sc, sl)
+
+    def _eval_finalize(self, i: int, sets_by_q: list[np.ndarray], ctx) -> None:
+        """Drain the level's remaining chunk results and commit the level's
+        best (cost, left) per set to the memo."""
+        if ctx is None:
+            return
+        t0 = time.perf_counter()
+        self._eval_drain(ctx, 0)
+        for q in range(self.B):
+            self.counters[q].evaluated += int(ctx["ev"][q])
+            self.counters[q].ccp += int(ctx["ccp"][q])
+        self._commit_best(sets_by_q, ctx["best_cost"], ctx["best_left"])
+        self._time("evaluate", t0)
+
+    # ------------------------------------------------- MPDP-general phase --
+    def _pairs_level(self, sets_by_q: list[np.ndarray]):
+        """Phase A per query, fused into global (set, block, qid, segment)
+        pair arrays."""
+        t0 = time.perf_counter()
+        soff = 0
+        ps_l, pb_l, pq_l, pk_l = [], [], [], []
+        for q, sets_q in enumerate(sets_by_q):
+            if not len(sets_q):
+                continue
+            ps_q, pb_q = bl.np_pairs_for_sets(
+                sets_q, self.graphs[q], self.adj_b[q], self.eu_idx_b[q],
+                self.ev_idx_b[q], self.edge_live_b[q],
+                nmax=self.nmax, emax=self.emax, cyc_cap=self.cyc_cap)
+            ps_l.append(ps_q)
+            pb_l.append(pb_q)
+            pq_l.append(np.full(len(ps_q), q, np.int32))
+            # sets_q is ascending (colex rank order == ascending bitmap)
+            pk_l.append(soff + np.searchsorted(sets_q, ps_q).astype(np.int64))
+            soff += len(sets_q)
+        self._time("blocks", t0)
+        if not ps_l:
+            z = np.zeros(0, np.int32)
+            return z, z, z, np.zeros(0, np.int64)
+        return (np.concatenate(ps_l), np.concatenate(pb_l),
+                np.concatenate(pq_l), np.concatenate(pk_l))
+
+    def _eval_general_dispatch(self, i: int, sets_by_q: list[np.ndarray], pairs):
+        """Dispatch the level's block prefix-sum chunks over the fused pair
+        arrays from ``_pairs_level``."""
+        ps, pb, pq, pk = pairs
+        if not len(ps):
+            return None
+        t0 = time.perf_counter()
+        lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
+        offs = np.zeros(len(ps) + 1, np.int64)
+        np.cumsum(lane_sz, out=offs[1:])
+        total = int(offs[-1])
+        ctx = {"pend": deque(), "pk": pk,
+               "total_sets": sum(len(s) for s in sets_by_q),
+               "ev": np.zeros(self.B, np.int64),
+               "ccp": np.zeros(self.B, np.int64),
+               "k": [], "c": [], "l": []}
+        for lane0 in range(0, total, self.chunk):
+            lane1 = min(lane0 + self.chunk, total)
+            p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
+            p1 = int(np.searchsorted(offs, lane1, side="left"))
+            npair = p1 - p0
+            pcap = _cap(npair, 256)
+            psl = np.zeros(pcap, np.int32)
+            pbl = np.zeros(pcap, np.int32)
+            pql = np.zeros(pcap, np.int32)
+            ofl = np.full(pcap, np.int64(1 << 40), np.int64)
+            psl[:npair] = ps[p0:p1]
+            pbl[:npair] = pb[p0:p1]
+            pql[:npair] = pq[p0:p1]
+            ofl[:npair] = offs[p0:p1] - lane0
+            ofl = np.clip(ofl, -_CLIP, _CLIP).astype(np.int32)
+            out = _beval_general_chunk(
+                self._dev(psl), self._dev(pbl), self._dev(pql), self._dev(ofl),
+                npair, lane1 - lane0, self.adj_b, self.memo_cost,
+                self.memo_rows, nmax=self.nmax, chunk=self.chunk, pcap=pcap,
+                bcap=self.bcap)
+            ctx["pend"].append((p0, npair, out))
+            self._eval_general_drain(ctx, PEND_WINDOW)
+        self._time("evaluate", t0)
+        return ctx
+
+    def _eval_general_drain(self, ctx: dict, limit: int) -> None:
+        """Fetch pending pair chunks down to ``limit``, collecting finite
+        per-pair candidates for the scattered merge."""
+        pend, pk = ctx["pend"], ctx["pk"]
+        while len(pend) > limit:
+            p0, npair, out = pend.popleft()
+            sc, sl, ev_q, ccp_q = _fetch(*out)
+            ctx["ev"] += ev_q[: self.B]
+            ctx["ccp"] += ccp_q[: self.B]
+            scn = sc[:npair]
+            fin = np.isfinite(scn)
+            ctx["k"].append(pk[p0: p0 + npair][fin])
+            ctx["c"].append(scn[fin])
+            ctx["l"].append(sl[:npair][fin])
+
+    def _eval_general_finalize(self, i: int, sets_by_q: list[np.ndarray],
+                               ctx) -> None:
+        if ctx is None:
+            return
+        t0 = time.perf_counter()
+        self._eval_general_drain(ctx, 0)
+        best_cost = np.full(ctx["total_sets"], INF, np.float32)
+        best_left = np.zeros(ctx["total_sets"], np.int32)
+        for q in range(self.B):
+            self.counters[q].evaluated += int(ctx["ev"][q])
+            self.counters[q].ccp += int(ctx["ccp"][q])
+        if ctx["k"]:
+            _merge_scattered(best_cost, best_left, np.concatenate(ctx["k"]),
+                             np.concatenate(ctx["c"]),
+                             np.concatenate(ctx["l"]))
+        self._commit_best(sets_by_q, best_cost, best_left)
+        self._time("evaluate", t0)
+
+    # ------------------------------------------------------------ driver ---
+    def run_levels(self) -> None:
+        """Run the level-synchronous DP; the memo stays on the device."""
+        t0 = time.perf_counter()
+        max_n = max(g.n for g in self.graphs)
+        general = self.algorithm == "mpdp_general"
+        for i in range(2, max_n + 1):
+            sets = self._filter_collect(self._filter_dispatch(i))
+            self._register_level(i, sets)
+            if general:
+                ctx = self._eval_general_dispatch(i, sets, self._pairs_level(sets))
+                self._eval_general_finalize(i, sets, ctx)
+            else:
+                self._eval_finalize(i, sets, self._eval_dispatch(i, sets))
+        self._wall += time.perf_counter() - t0
+
+    def collect(self) -> list[OptimizeResult]:
+        """Fetch the memo and extract one ``OptimizeResult`` per query."""
+        t0 = time.perf_counter()
+        cost_all = self.memo_cost.cpu().numpy()
+        left_all = self.memo_left.cpu().numpy()
+        out = []
+        wall = self._wall + time.perf_counter() - t0
+        for q, g in enumerate(self.graphs):
+            base = q << self.nmax
+            cost = float(cost_all[base + g.full_set])
+            if not np.isfinite(cost):
+                raise RuntimeError(f"no plan found for batch query {q}")
+            p = extract_plan(g.full_set, left_all[base: base + self.size], g)
+            r = OptimizeResult(plan=p, cost=cost, counters=self.counters[q],
+                               algorithm=f"batch_{self.algorithm}",
+                               wall_s=wall / self.B, levels=g.n)
+            r.timings = dict(self.timings)
+            out.append(r)
+        return out
+
+    def run(self) -> list[OptimizeResult]:
+        self.run_levels()
+        return self.collect()
+
+
+# ============================================================ public entry ==
+
+def _lane_space(g: JoinGraph, algorithm: str) -> str | None:
+    """Batched lane space for one query under the requested algorithm, or
+    ``None`` when the reference sends the query to solo ``optimize``."""
+    if algorithm in ("auto", "mpdp"):
+        return "mpdp_tree" if g.is_tree() else "mpdp_general"
+    if algorithm == "dpsub":
+        return "dpsub"
+    if algorithm == "mpdp_general":
+        return "mpdp_general"
+    if algorithm == "mpdp_tree":
+        return "mpdp_tree" if g.is_tree() else None
+    return None
+
+
+def probe_stream(graphs, results, algorithm: str) -> list[int]:
+    """Single-relation short-circuit: fills leaf plans into ``results`` (in
+    place), returns the stream indices that still need an engine."""
+    pending: list[int] = []
+    for qi, g in enumerate(graphs):
+        if results[qi] is not None:
+            continue
+        if g.n == 1:
+            p = leaf_plan(0, g)
+            results[qi] = OptimizeResult(plan=p, cost=p.cost,
+                                         counters=Counters(),
+                                         algorithm=algorithm, levels=1)
+            continue
+        pending.append(qi)
+    return pending
+
+
+def bucket_pending(graphs, pending: list[int], algorithm: str):
+    """Admission grouping: (NMAX bucket, lane space, typed) -> stream
+    indices.  Queries no batched space serves (forced ``mpdp_tree`` on a
+    cyclic graph, ``nmax_bucket(n) > NMAX_BATCH``, a solo-only algorithm)
+    come back in the solo list."""
+    buckets: dict[tuple[int, str, bool], list[int]] = {}
+    solo: list[int] = []
+    for qi in pending:
+        b = bs.nmax_bucket(graphs[qi].n)
+        space = _lane_space(graphs[qi], algorithm)
+        if space is not None and b <= NMAX_BATCH:
+            buckets.setdefault((b, space, graphs[qi].typed), []).append(qi)
+        else:
+            solo.append(qi)
+    return buckets, solo
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
+
+
+def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
+                  cache=UNSET, max_flight=UNSET, devices=UNSET, mesh=UNSET,
+                  pipeline=UNSET, max_batch=UNSET, policy=UNSET, *,
+                  config: OptimizerConfig | None = None,
+                  device=None) -> list[OptimizeResult]:
+    """Optimize a stream of queries, batching compatible ones per device pass.
+
+    Same signature and results as the reference ``optimize_many`` (cost,
+    plan, ``Counters``, ``algorithm``), plus ``device``: where the DP runs,
+    ``cuda`` by default (raises without a card; pass ``device="cpu"`` for
+    the plain PyTorch versions).  ``algorithm`` in {auto, mpdp, dpsub,
+    mpdp_tree, mpdp_general}; ``auto``/``mpdp`` run acyclic buckets in the
+    MPDP:Tree lane space and the rest in MPDP-general.  Results come back
+    in input order.
+    """
+    max_flight = alias_kwarg(max_flight, max_batch, "max_batch", "max_flight")
+    cfg = resolve_config(config, algorithm=algorithm, chunk=chunk,
+                         cache=cache, max_flight=max_flight, devices=devices,
+                         mesh=mesh, pipeline=pipeline, policy=policy)
+    if cfg.cache is not None:
+        raise _not_ported("optimize_many(cache=...)", "plan cache")
+    if cfg.devices is not None or cfg.mesh is not None:
+        raise _not_ported("optimize_many(devices=/mesh=)",
+                          "batch and lattice sharding")
+    if cfg.pipeline:
+        raise _not_ported("optimize_many(pipeline=True)", "pipelined driver")
+    if cfg.policy is not None:
+        raise _not_ported("optimize_many(policy=...)",
+                          "telemetry, policy, deadlines and faults")
+    if cfg.deadline_s is not None:
+        raise _not_ported("optimize_many(deadline_s=...)",
+                          "telemetry, policy, deadlines and faults")
+    algorithm = cfg.algorithm
+    dev = resolve_device(device)
+    results: list[OptimizeResult | None] = [None] * len(graphs)
+    pending = probe_stream(graphs, results, algorithm)
+    if any(graphs[qi].typed for qi in pending):
+        raise _not_ported("typed (non-inner) join edges", "typed joins")
+    buckets, solo = bucket_pending(graphs, pending, algorithm)
+    if solo:
+        raise _not_ported(
+            f"the solo path (queries {solo} under {algorithm!r}: "
+            f"nmax_bucket(n) > {NMAX_BATCH}, mpdp_tree on a cyclic graph, "
+            "or a solo-only algorithm)", "solo optimize")
+    for (_b, space, _typed), idxs in sorted(buckets.items()):
+        for s0 in range(0, len(idxs), cfg.max_flight):
+            group = idxs[s0: s0 + cfg.max_flight]
+            rs = BatchEngine([graphs[qi] for qi in group], chunk=cfg.chunk,
+                             algorithm=space, device=dev).run()
+            for qi, r in zip(group, rs):
+                results[qi] = r
+    return results

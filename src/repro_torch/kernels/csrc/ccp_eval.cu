@@ -1,0 +1,276 @@
+// Batched MPDP filter/evaluate kernels for NVIDIA Hopper (sm_90a).
+//
+// Four kernels, one thread per lane, replacing the batched Pallas TPU
+// kernels of src/repro/kernels/ccp_eval.py:
+//
+//   bconnectivity_kernel  <- bconnectivity_kernel (ccp_eval.py:133)
+//                            per (query, set) lane: is G_q[S] connected
+//   bccp_eval_kernel      <- bccp_eval_kernel     (ccp_eval.py:142)
+//                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp
+//   btree_eval_kernel     <- btree_eval_kernel    (ccp_eval.py:159)
+//                            MPDP:Tree lane: S_left = grow(u) in S minus edge
+//                            (u, v); edge_in = both endpoints in S
+//   bgeneral_eval_kernel  <- bgeneral_eval_kernel (ccp_eval.py:184)
+//                            MPDP-general lane: lb = pdep(r, block),
+//                            ccp(lb, block & ~lb), S_left = grow(lb) in
+//                            S & ~rb
+//
+// What bounds them on this card.  A lane reads 8-16 bytes and writes 4-12
+// (int32 in and out, each once); the int32 work per lane is a handful of
+// set-bit walks of at most nmax (<= 16 on the batched path) steps, each a
+// find-first-set, a shared-memory load and an OR: a few hundred int32
+// operations per lane at most, typically under a hundred.  At the main
+// path's 32768 lanes a call moves about 0.4-0.9 MB and does 0.5-2 million
+// int32 operations, so both the byte bound (3.35 TB/s) and the int32 bound
+// are well under a microsecond: a call is bound by launch latency and by
+// the serial dependency chain of one lane's walks, not by bytes or ALU.
+//
+// What the design does about it.
+//   * One thread per lane, coalesced int32 loads and stores; the kernel
+//     masks the ragged edge itself (no padding to tiles).
+//   * Each block copies the (bcap, nmax) adjacency table (at most 32 x 30
+//     int32, under 4 KB) into shared memory once; a lane reads its query's
+//     row directly.  This replaces the TPU's nb x nmax select loop
+//     (_select_adj_rows) and SMEM scalar prefetch.
+//   * Set walks visit only the set bits (__ffs), and grow() is a frontier
+//     BFS that stops at its fixed point instead of running nmax fixed
+//     sweeps.  The fixed point is the same set, so the bits are the same.
+//   * The ccp test short-circuits: empty sides skip the two grows.
+//
+// Plain C interface (bound with ctypes): each rt_* function launches on the
+// given stream and returns cudaGetLastError() as an int (0 = success).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// ------------------------------------------------------------ lane library --
+
+// Lowest set bit (0 for 0), in unsigned arithmetic so INT_MIN is defined.
+__device__ __forceinline__ int lsb(int x) {
+  unsigned u = static_cast<unsigned>(x);
+  return static_cast<int>(u & (~u + 1u));
+}
+
+// OR of row[v] over the set bits v < nmax of s.
+__device__ __forceinline__ int neighbors(int s, const int* row, int nmask) {
+  unsigned m = static_cast<unsigned>(s & nmask);
+  int acc = 0;
+  while (m) {
+    acc |= row[__ffs(m) - 1];
+    m &= m - 1;
+  }
+  return acc;
+}
+
+// Vertices of `restrict_` reachable from `src & restrict_` inside it.
+__device__ __forceinline__ int grow(int src, int restrict_, const int* row,
+                                    int nmask) {
+  int cur = src & restrict_;
+  int frontier = cur;
+  while (frontier) {
+    int nb = neighbors(frontier, row, nmask) & restrict_ & ~cur;
+    cur |= nb;
+    frontier = nb;
+  }
+  return cur;
+}
+
+// neighbors() on the graph with edge (u, v) deleted (ub/vb one-bit masks;
+// 0 for padding edges, which delete nothing).
+__device__ __forceinline__ int neighbors_excl(int s, const int* row,
+                                              int nmask, int ub, int vb) {
+  unsigned m = static_cast<unsigned>(s & nmask);
+  int acc = 0;
+  while (m) {
+    int v = __ffs(m) - 1;
+    int excl = (((ub >> v) & 1) ? vb : 0) | (((vb >> v) & 1) ? ub : 0);
+    acc |= row[v] & ~excl;
+    m &= m - 1;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ int grow_excl(int src, int restrict_,
+                                         const int* row, int nmask, int ub,
+                                         int vb) {
+  int cur = src & restrict_;
+  int frontier = cur;
+  while (frontier) {
+    int nb = neighbors_excl(frontier, row, nmask, ub, vb) & restrict_ & ~cur;
+    cur |= nb;
+    frontier = nb;
+  }
+  return cur;
+}
+
+// Parallel bit deposit: bit k of rank goes to the k-th set bit of mask.
+__device__ __forceinline__ int pdep(int rank, int mask, int nmask) {
+  unsigned m = static_cast<unsigned>(mask & nmask);
+  int out = 0;
+  int k = 0;
+  while (m) {
+    unsigned b = m & (~m + 1u);
+    if ((rank >> k) & 1) out |= static_cast<int>(b);
+    m ^= b;
+    ++k;
+  }
+  return out;
+}
+
+__device__ __forceinline__ bool connected(int s, const int* row, int nmask) {
+  return grow(lsb(s), s, row, nmask) == s;
+}
+
+__device__ __forceinline__ int ccp(int lb, int rb, const int* row,
+                                   int nmask) {
+  if (lb == 0 || rb == 0) return 0;
+  if ((neighbors(lb, row, nmask) & rb) == 0) return 0;
+  return connected(lb, row, nmask) && connected(rb, row, nmask);
+}
+
+// Stage the (bcap, nmax) table in shared memory; return this lane's row.
+__device__ __forceinline__ const int* stage_rows(int* sadj, const int* adj_b,
+                                                 int bcap, int nmax,
+                                                 const int* qid, int t,
+                                                 int L) {
+  for (int i = threadIdx.x; i < bcap * nmax; i += blockDim.x) sadj[i] = adj_b[i];
+  __syncthreads();
+  if (t >= L) return nullptr;
+  int q = min(max(qid[t], 0), bcap - 1);
+  return sadj + q * nmax;
+}
+
+// ----------------------------------------------------------------- kernels --
+
+__global__ void bconnectivity_kernel(const int* __restrict__ S,
+                                     const int* __restrict__ qid,
+                                     const int* __restrict__ adj_b,
+                                     int* __restrict__ conn, int L, int bcap,
+                                     int nmax) {
+  extern __shared__ int sadj[];
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int* row = stage_rows(sadj, adj_b, bcap, nmax, qid, t, L);
+  if (row == nullptr) return;
+  int nmask = (1 << nmax) - 1;
+  conn[t] = connected(S[t], row, nmask);
+}
+
+__global__ void bccp_eval_kernel(const int* __restrict__ S,
+                                 const int* __restrict__ sub,
+                                 const int* __restrict__ qid,
+                                 const int* __restrict__ adj_b,
+                                 int* __restrict__ lb_out,
+                                 int* __restrict__ rb_out,
+                                 int* __restrict__ ccp_out, int L, int bcap,
+                                 int nmax) {
+  extern __shared__ int sadj[];
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int* row = stage_rows(sadj, adj_b, bcap, nmax, qid, t, L);
+  if (row == nullptr) return;
+  int nmask = (1 << nmax) - 1;
+  int s = S[t];
+  int lb = pdep(sub[t], s, nmask);
+  int rb = s & ~lb;
+  lb_out[t] = lb;
+  rb_out[t] = rb;
+  ccp_out[t] = ccp(lb, rb, row, nmask);
+}
+
+__global__ void btree_eval_kernel(const int* __restrict__ S,
+                                  const int* __restrict__ ub_in,
+                                  const int* __restrict__ vb_in,
+                                  const int* __restrict__ qid,
+                                  const int* __restrict__ adj_b,
+                                  int* __restrict__ sl_out,
+                                  int* __restrict__ in_out, int L, int bcap,
+                                  int nmax) {
+  extern __shared__ int sadj[];
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int* row = stage_rows(sadj, adj_b, bcap, nmax, qid, t, L);
+  if (row == nullptr) return;
+  int nmask = (1 << nmax) - 1;
+  int s = S[t];
+  int ub = ub_in[t];
+  int vb = vb_in[t];
+  sl_out[t] = grow_excl(ub, s, row, nmask, ub, vb);
+  in_out[t] = ((s & ub) != 0) && ((s & vb) != 0);
+}
+
+__global__ void bgeneral_eval_kernel(const int* __restrict__ S,
+                                     const int* __restrict__ block,
+                                     const int* __restrict__ r,
+                                     const int* __restrict__ qid,
+                                     const int* __restrict__ adj_b,
+                                     int* __restrict__ lb_out,
+                                     int* __restrict__ sl_out,
+                                     int* __restrict__ ccp_out, int L,
+                                     int bcap, int nmax) {
+  extern __shared__ int sadj[];
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int* row = stage_rows(sadj, adj_b, bcap, nmax, qid, t, L);
+  if (row == nullptr) return;
+  int nmask = (1 << nmax) - 1;
+  int s = S[t];
+  int blk = block[t];
+  int lb = pdep(r[t], blk, nmask);
+  int rb = blk & ~lb;
+  lb_out[t] = lb;
+  sl_out[t] = grow(lb, s & ~rb, row, nmask);
+  ccp_out[t] = ccp(lb, rb, row, nmask);
+}
+
+inline dim3 grid_for(int L) { return dim3((L + kThreads - 1) / kThreads); }
+
+inline size_t smem_for(int bcap, int nmax) {
+  return static_cast<size_t>(bcap) * nmax * sizeof(int);
+}
+
+}  // namespace
+
+// ------------------------------------------------------------- C interface --
+
+extern "C" {
+
+const char* rt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int rt_bconnectivity(const int* S, const int* qid, const int* adj_b,
+                     int* conn, int L, int bcap, int nmax, void* stream) {
+  bconnectivity_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
+                         static_cast<cudaStream_t>(stream)>>>(
+      S, qid, adj_b, conn, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_bccp_eval(const int* S, const int* sub, const int* qid,
+                 const int* adj_b, int* lb, int* rb, int* ccp_out, int L,
+                 int bcap, int nmax, void* stream) {
+  bccp_eval_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
+                     static_cast<cudaStream_t>(stream)>>>(
+      S, sub, qid, adj_b, lb, rb, ccp_out, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_btree_eval(const int* S, const int* ub, const int* vb, const int* qid,
+                  const int* adj_b, int* sl, int* edge_in, int L, int bcap,
+                  int nmax, void* stream) {
+  btree_eval_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
+                      static_cast<cudaStream_t>(stream)>>>(
+      S, ub, vb, qid, adj_b, sl, edge_in, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_bgeneral_eval(const int* S, const int* block, const int* r,
+                     const int* qid, const int* adj_b, int* lb, int* sl,
+                     int* ccp_out, int L, int bcap, int nmax, void* stream) {
+  bgeneral_eval_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
+                         static_cast<cudaStream_t>(stream)>>>(
+      S, block, r, qid, adj_b, lb, sl, ccp_out, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

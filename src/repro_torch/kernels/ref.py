@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the four batched kernels (bit-exact oracles).
+
+Each function computes what its CUDA kernel in ``csrc/ccp_eval.cu``
+computes, on the port's lane-vectorised ``bitset`` helpers, and equals the
+reference's ``repro.kernels.ref`` bit for bit.  ``ops`` routes CPU tensors
+here; ``chip_smoke.py`` holds each kernel against these on the card.
+
+Lanes are ``int32[L]``; ``adj_b`` is the stacked ``int32[bcap, nmax]``
+adjacency table and ``qid`` each lane's query row.  JAX clamps an
+out-of-range gather index, so ``qid`` is clamped to ``[0, bcap)`` here and
+in the kernels alike.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import bitset as bs
+
+
+def _rows(qid: torch.Tensor, adj_b: torch.Tensor) -> torch.Tensor:
+    return adj_b[qid.clamp(0, adj_b.shape[0] - 1)]
+
+
+def _ccp(lb, rb, adjq):
+    conn_l = bs.is_connected_rows(lb, adjq)
+    conn_r = bs.is_connected_rows(rb, adjq)
+    cross = (bs.neighbors_rows(lb, adjq) & rb) != 0
+    return ((lb != 0) & (rb != 0) & conn_l & conn_r & cross).to(torch.int32)
+
+
+def bconnectivity_ref(S, qid, adj_b, nmax: int):
+    """1 where G_q[S] is connected, per (query, set) lane."""
+    return bs.is_connected_rows(S, _rows(qid, adj_b)).to(torch.int32)
+
+
+def bccp_eval_ref(S, sub, qid, adj_b, nmax: int):
+    """Batched DPSUB lane: ``lb = pdep(sub, S)``, ``rb = S & ~lb``, ccp."""
+    adjq = _rows(qid, adj_b)
+    lb = bs.pdep(sub, S, nmax)
+    rb = S & ~lb
+    return lb, rb, _ccp(lb, rb, adjq)
+
+
+def btree_eval_ref(S, ub, vb, qid, adj_b, nmax: int):
+    """Batched MPDP:Tree lane: ``S_left`` = grow of ``ub`` inside S with the
+    edge (u, v) deleted, and whether both endpoints lie in S."""
+    adjq = _rows(qid, adj_b)
+    edge_in = ((S & ub) != 0) & ((S & vb) != 0)
+    sl = bs.grow_excl_edge_rows(ub, S, adjq, ub, vb)
+    return sl, edge_in.to(torch.int32)
+
+
+def bgeneral_eval_ref(S, block, r, qid, adj_b, nmax: int):
+    """Batched MPDP-general lane: ``lb = pdep(r, block)``, the ccp of
+    (lb, block & ~lb), and ``S_left = grow(lb)`` inside ``S & ~rb``."""
+    adjq = _rows(qid, adj_b)
+    lb = bs.pdep(r, block, nmax)
+    rb = block & ~lb
+    sl = bs.grow_rows(lb, S & ~rb, adjq)
+    return lb, sl, _ccp(lb, rb, adjq)

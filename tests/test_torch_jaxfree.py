@@ -1,0 +1,47 @@
+"""The port stands alone: importing it loads neither JAX nor the reference.
+
+Checked in a fresh interpreter (``sys.modules``) and in the text of every
+source file of ``src/repro_torch`` and of ``chip_smoke.py``.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PKG.rglob("*.py"))
+
+
+def test_module_list_covers_the_port():
+    assert "repro_torch.core.batch" in MODULES
+    assert "repro_torch.kernels.ops" in MODULES
+    assert len(MODULES) >= 18
+
+
+def test_import_leaves_jax_and_reference_unloaded():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(len(sys.modules), bad)\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_name_no_jax_and_import_no_reference():
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
+        [ROOT / "chip_smoke.py"]
+    for f in files:
+        text = f.read_text()
+        assert not re.search(r"\bjax\b", text), f"{f} names jax"
+        assert not re.search(r"^\s*(from|import)\s+repro(\.|\s|$)", text,
+                             re.MULTILINE), f"{f} imports the reference"

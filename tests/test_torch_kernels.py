@@ -1,0 +1,147 @@
+"""The four batched kernels: plain PyTorch versions vs the JAX reference.
+
+* each plain version (``repro_torch.kernels.ref``) equals the reference's
+  jnp oracle (``repro.kernels.ref``) bit for bit, over the graphs of
+  ``tests/test_kernels.py`` and ragged lane counts;
+* one small case per kernel against the Pallas kernel itself, run in
+  interpret mode on the CPU as the reference's own tests run it;
+* the wrappers route CPU tensors to the plain version, count no launch
+  for them, and refuse what the CUDA kernels do not take;
+* ``gpu``-marked tests hold each CUDA kernel against its plain version on
+  the card (they skip without one).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ccp_eval as rpallas, ref as rref
+from repro.workloads import generators as rgen
+from repro_torch.kernels import ops, ref as tref
+
+# (inputs, jnp oracle, port plain version, Pallas wrapper)
+KERNELS = {
+    "bconnectivity": (("S", "qid"), rref.bconnectivity_ref,
+                      tref.bconnectivity_ref, rpallas.bconnectivity),
+    "bccp_eval": (("S", "sub", "qid"), rref.bccp_eval_ref,
+                  tref.bccp_eval_ref, rpallas.bccp_eval),
+    "btree_eval": (("S", "ub", "vb", "qid"), rref.btree_eval_ref,
+                   tref.btree_eval_ref, rpallas.btree_eval),
+    "bgeneral_eval": (("S", "block", "r", "qid"), rref.bgeneral_eval_ref,
+                      tref.bgeneral_eval_ref, rpallas.bgeneral_eval),
+}
+TABLES = {
+    # the tests/test_kernels.py graphs (nmax 16) and small ones (nmax 8)
+    "tk16": (16, lambda: [rgen.musicbrainz_query(12, 7), rgen.star(9, 1),
+                          rgen.clique(7, 2), rgen.chain(14, 3)]),
+    "small8": (8, lambda: [rgen.chain(8, 1), rgen.cycle(7, 2),
+                           rgen.star(6, 3), rgen.job_like(8, 4)]),
+}
+SIZES = [1, 127, 128, 129, 1000]
+
+
+def make_lanes(graphs, nmax: int, L: int, seed: int):
+    """numpy lanes: sets inside each query's n bits, random sub/r, block a
+    subset of S, (ub, vb) the endpoints of one of the query's edges."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((len(graphs), nmax), np.int32)
+    for q, g in enumerate(graphs):
+        for (u, v) in g.edges:
+            adj[q, u] |= 1 << v
+            adj[q, v] |= 1 << u
+    qid = rng.integers(0, len(graphs), L).astype(np.int32)
+    n_q = np.array([g.n for g in graphs])[qid]
+    S = (rng.integers(1, 1 << 30, L) & ((1 << n_q) - 1)).astype(np.int32)
+    edges = [np.array(g.edges) for g in graphs]
+    uv = np.stack([edges[q][rng.integers(0, len(edges[q]))] for q in qid])
+    lanes = {"S": S, "qid": qid,
+             "sub": rng.integers(0, 1 << 16, L).astype(np.int32),
+             "r": rng.integers(0, 1 << 16, L).astype(np.int32),
+             "block": (S & rng.integers(0, 1 << 16, L)).astype(np.int32),
+             "ub": (1 << uv[:, 0]).astype(np.int32),
+             "vb": (1 << uv[:, 1]).astype(np.int32)}
+    return lanes, adj
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("table", list(TABLES))
+@pytest.mark.parametrize("L", SIZES)
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_plain_version_matches_reference(name, L, table):
+    nmax, graphs = TABLES[table]
+    lanes, adj = make_lanes(graphs(), nmax, L, seed=L + 7 * nmax)
+    keys, jref, plain, _ = KERNELS[name]
+    got = _as_tuple(plain(*[torch.from_numpy(lanes[k]) for k in keys],
+                          torch.from_numpy(adj), nmax))
+    want = _as_tuple(jref(*[jnp.asarray(lanes[k]) for k in keys],
+                          jnp.asarray(adj), nmax))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_plain_version_matches_pallas_interpret(name):
+    nmax, nb, L = 8, 4, 129
+    lanes, adj = make_lanes(TABLES["small8"][1](), nmax, L, seed=11)
+    keys, _, plain, pallas = KERNELS[name]
+    got = _as_tuple(plain(*[torch.from_numpy(lanes[k]) for k in keys],
+                          torch.from_numpy(adj), nmax))
+    want = _as_tuple(pallas(*[jnp.asarray(lanes[k]) for k in keys],
+                            jnp.asarray(adj), nmax=nmax, nb=nb,
+                            interpret=True))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_wrapper_routes_cpu_tensors_to_plain_version(name):
+    nmax = 8
+    lanes, adj = make_lanes(TABLES["small8"][1](), nmax, 129, seed=3)
+    keys, _, plain, _ = KERNELS[name]
+    args = [torch.from_numpy(lanes[k]) for k in keys] + [torch.from_numpy(adj)]
+    before = dict(ops.LAUNCHES)
+    got = _as_tuple(getattr(ops, name)(*args, nmax))
+    for a, b in zip(got, _as_tuple(plain(*args, nmax))):
+        assert torch.equal(a, b)
+    assert ops.LAUNCHES == before            # no kernel ran, none counted
+
+
+def test_launch_checks_refuse_bad_inputs():
+    S = torch.zeros(16, dtype=torch.int32)
+    adj = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        ops._launch("bconnectivity", (S.long(), S), adj, 8, 1)
+    with pytest.raises(ValueError, match="adj_b"):
+        ops._launch("bconnectivity", (S, S), adj[:, :4], 8, 1)
+    with pytest.raises(ValueError, match="int32"):
+        ops._launch("bconnectivity", (S, S[:8]), adj, 8, 1)
+    with pytest.raises(ValueError, match="devices"):
+        ops.bconnectivity(S, S.to("meta"), adj, 8)
+
+
+# ----------------------------------------------------------------- card --
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_cuda_kernel_matches_plain_version(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    keys, _, plain, _ = KERNELS[name]
+    for table in TABLES:
+        nmax, graphs = TABLES[table]
+        for L in (1, 129, 32767, 32768):
+            lanes, adj = make_lanes(graphs(), nmax, L, seed=L)
+            args = [torch.from_numpy(lanes[k]).cuda() for k in keys]
+            adj_d = torch.from_numpy(adj).cuda()
+            n0 = ops.LAUNCHES[name]
+            got = _as_tuple(getattr(ops, name)(*args, adj_d, nmax))
+            assert ops.LAUNCHES[name] == n0 + 1
+            want = _as_tuple(plain(*args, adj_d, nmax))
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.is_cuda and torch.equal(a, b), (name, table, L)
