@@ -7,23 +7,35 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the four CUDA kernels against its plain PyTorch
-     version on the same card tensors, bit for bit, at L = 32768 and the
-     ragged L in {1, 129, 32767}, nmax in {8, 16}, bcap in {4, 32}, lanes
-     built with numpy from a seed over real generator graphs; times by
-     CUDA events (kernel and plain version) and the bound of each;
-  4. slice   — ``optimize_many`` on ``cuda`` over three streams (the main
-     path), every plan validated and every cost held against the host
-     DPccp oracle (relative 1e-4), ``Counters`` and costs of stream (c)
-     and the first four queries of (a) and (b) against the port's own
-     ``device="cpu"`` run (exact / relative 1e-5), launch counters read
-     around exactly this run; then a ``torch.profiler`` window over
-     stream (a) for kernel time by name and the card's busy share.
-The line before last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+  3. kernels — each of the seven CUDA kernels against its plain PyTorch
+     version on the same card tensors, bit for bit, lanes built with numpy
+     from a seed over real generator graphs: the four batched kernels at
+     L = 32768 and the ragged L in {1, 129, 32767}, nmax in {8, 16}, bcap
+     in {4, 32}; the three solo-engine kernels, and ``btree_eval`` on the
+     one-row table the solo tree evaluate gives it, at the same L and
+     nmax in {8, 16, 24, 30}.  Times by CUDA events (kernel and plain
+     version) and the bound of each, at L = 32768 with nmax = 16, bcap = 32
+     (batched) or nmax = 24 (solo);
+  4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
+     plan validated and every cost held against the host DPccp oracle
+     (relative 1e-4), ``Counters`` and costs of stream (c) and the first
+     four queries of (a) and (b) against the port's own ``device="cpu"``
+     run (exact / relative 1e-5), launch counters read around exactly
+     this path; then a ``torch.profiler`` window over stream (a);
+  5. solo path — ``engine.optimize`` on ``cuda`` over parts d1-d5 (MPDP-
+     general at nmax 24, MPDP:Tree at nmax 24, DPSUB, the nmax-30 bucket,
+     then dpsize, dpccp, frontier expansion and ``optimize_many``'s solo
+     route), each plan validated and each cost held against DPccp
+     (relative 1e-4), d1, d3 and d5 against the ``device="cpu"`` run
+     (``Counters`` exact, costs relative 1e-5), launch counters read around
+     exactly this path; then a ``torch.profiler`` window over d1.
+The last three lines of standard output are a JSON object with one entry
+per kernel, the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -35,7 +47,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.core import batch, dpccp  # noqa: E402
+from repro_torch.core import batch, dpccp, engine  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core.plan import validate_plan  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -50,6 +62,9 @@ DEV = torch.device("cuda")
 
 KERNELS = {
     # name: (inputs, outputs, line of the Pallas kernel it replaces)
+    "connectivity": (("S",), 1, "src/repro/kernels/ccp_eval.py:81"),
+    "ccp_eval": (("S", "sub"), 3, "src/repro/kernels/ccp_eval.py:65"),
+    "grow_pair": (("S", "lb", "rb"), 2, "src/repro/kernels/ccp_eval.py:88"),
     "bconnectivity": (("S", "qid"), 1, "src/repro/kernels/ccp_eval.py:133"),
     "bccp_eval": (("S", "sub", "qid"), 3, "src/repro/kernels/ccp_eval.py:142"),
     "btree_eval": (("S", "ub", "vb", "qid"), 2,
@@ -57,6 +72,9 @@ KERNELS = {
     "bgeneral_eval": (("S", "block", "r", "qid"), 3,
                       "src/repro/kernels/ccp_eval.py:184"),
 }
+SOLO = ("connectivity", "ccp_eval", "grow_pair")
+BATCHED = ("bconnectivity", "bccp_eval", "btree_eval", "bgeneral_eval")
+SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
 
 
 def log(*a):
@@ -102,6 +120,37 @@ def kernel_inputs(graphs, bcap: int, nmax: int, L: int, seed: int):
             torch.from_numpy(adj).to(DEV))
 
 
+def solo_graphs(nmax: int):
+    """Two real generator graphs of the solo nmax bucket."""
+    return {8: [gen.chain(8, 1), gen.cycle(7, 2)],
+            16: [gen.musicbrainz_query(16, 7), gen.clique(9, 2)],
+            24: [gen.musicbrainz_query(20, 11), gen.snowflake(20, 1)],
+            30: [gen.chain(25, 1), gen.musicbrainz_query(26, 3)]}[nmax]
+
+
+def solo_inputs(g, nmax: int, L: int, seed: int):
+    """Lanes over one query: S inside its n bits, sub any rank below 2^30,
+    lb a subset of S, rb a subset of S & ~lb, (ub, vb) its edges' endpoints
+    and qid 0 (the one-row table of the solo tree evaluate)."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros(nmax, np.int32)
+    for (u, v) in g.edges:
+        adj[u] |= 1 << v
+        adj[v] |= 1 << u
+    S = (rng.integers(1, 1 << 30, L) & ((1 << g.n) - 1)).astype(np.int32)
+    S[S == 0] = 1
+    lb = (S & rng.integers(0, 1 << 30, L)).astype(np.int32)
+    uv = np.array(g.edges, np.int32)[rng.integers(0, g.m, L)]
+    lanes = {"S": S, "sub": rng.integers(0, 1 << 30, L).astype(np.int32),
+             "lb": lb,
+             "rb": (S & ~lb & rng.integers(0, 1 << 30, L)).astype(np.int32),
+             "ub": (1 << uv[:, 0]).astype(np.int32),
+             "vb": (1 << uv[:, 1]).astype(np.int32),
+             "qid": np.zeros(L, np.int32)}
+    return ({k: torch.from_numpy(v).to(DEV) for k, v in lanes.items()},
+            torch.from_numpy(adj).to(DEV))
+
+
 def call(name, lanes, adj, nmax, plain=False):
     args = [lanes[k] for k in KERNELS[name][0]]
     fn = getattr(ref, f"{name}_ref") if plain else getattr(ops, name)
@@ -130,7 +179,7 @@ def op_count(name, lanes, adj, nmax) -> int:
     """int32 operations the kernel's walks need on these inputs: a fixed
     per-lane cost plus OPS_PER_STEP per set bit visited (pdep over the
     mask, neighbours over the source, one expansion per reached vertex)."""
-    adjq = adj[lanes["qid"].clamp(0, adj.shape[0] - 1)]
+    adjq = adj if name in SOLO else adj[lanes["qid"].clamp(0, adj.shape[0] - 1)]
     pc = bs.popcount
     S = lanes["S"]
     nm = (1 << nmax) - 1
@@ -144,9 +193,11 @@ def op_count(name, lanes, adj, nmax) -> int:
         return (pc(lb & nm) * live + cross * (reach(bs.lsb(lb), lb, adjq)
                                               + reach(bs.lsb(rb), rb, adjq)))
 
-    if name == "bconnectivity":
+    if name in ("connectivity", "bconnectivity"):
         steps = reach(bs.lsb(S), S, adjq)
-    elif name == "bccp_eval":
+    elif name == "grow_pair":
+        steps = reach(lanes["lb"], S & ~lanes["rb"], adjq)
+    elif name in ("ccp_eval", "bccp_eval"):
         lb = bs.pdep(lanes["sub"], S, nmax)
         steps = pc(S & nm) + ccp_steps(lb, S & ~lb)
     elif name == "btree_eval":
@@ -164,46 +215,68 @@ def op_count(name, lanes, adj, nmax) -> int:
         + OPS_PER_LANE * S.numel()
 
 
+def check(name, lanes, adj, nmax, where: str) -> int:
+    """Kernel vs plain version on the same card tensors, bit for bit."""
+    got = call(name, lanes, adj, nmax)
+    want = call(name, lanes, adj, nmax, plain=True)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              if a.numel() else 0 for a, b in zip(got, want))
+    if err != 0 or any(a.dtype != torch.int32 for a in got):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{where}: max |diff| {err}")
+    return err
+
+
+def measure(name, lanes, adj, nmax, row: dict) -> None:
+    """Card time per launch, plain-version time and the bound, into row."""
+    n_in, n_out, _ = KERNELS[name]
+    L = lanes["S"].numel()
+    ms = event_ms(lambda: call(name, lanes, adj, nmax), 100)
+    plain_ms = event_ms(lambda: call(name, lanes, adj, nmax, plain=True), 10)
+    nbytes = 4 * L * (len(n_in) + n_out) + adj.numel() * 4
+    ops_n = op_count(name, lanes, adj, nmax)
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    t_o = ops_n / INT32_OPS_S * 1e3
+    row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, int32_ops=ops_n,
+               bound_ms=max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations")
+
+
 def phase_kernels():
     """Bit-exact checks at every shape; times and bounds at the main one."""
-    rows = {}
+    rows = {name: {"max_abs_err": 0} for name in KERNELS}
     for nmax in (8, 16):
         graphs = kernel_graphs(nmax)
         for bcap in (4, 32):
             for L in (L_MAIN, 1, 129, 32767):
                 lanes, adj = kernel_inputs(graphs, bcap, nmax, L,
                                            seed=nmax * 1000 + bcap * 10 + L)
-                for name in KERNELS:
-                    got = call(name, lanes, adj, nmax)
-                    want = call(name, lanes, adj, nmax, plain=True)
-                    torch.cuda.synchronize()
-                    err = max(int((a.to(torch.int64) - b.to(torch.int64))
-                                  .abs().max()) if L else 0
-                              for a, b in zip(got, want))
-                    if err != 0 or any(a.dtype != torch.int32 for a in got):
-                        raise AssertionError(
-                            f"{name} disagrees with its plain version at "
-                            f"nmax={nmax} bcap={bcap} L={L}: max |diff| {err}")
-                    row = rows.setdefault(name, {"max_abs_err": 0})
-                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                for name in BATCHED:
+                    err = check(name, lanes, adj, nmax,
+                                f"nmax={nmax} bcap={bcap} L={L}")
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
                     if (nmax, bcap, L) == (16, 32, L_MAIN):
-                        n_in, n_out, _ = KERNELS[name]
-                        ms = event_ms(lambda: call(name, lanes, adj, nmax), 100)
-                        plain_ms = event_ms(
-                            lambda: call(name, lanes, adj, nmax, plain=True), 10)
-                        nbytes = 4 * L * (len(n_in) + n_out) + adj.numel() * 4
-                        ops_n = op_count(name, lanes, adj, nmax)
-                        t_b = nbytes / HBM_BYTES_S * 1e3
-                        t_o = ops_n / INT32_OPS_S * 1e3
-                        row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                                   int32_ops=ops_n, bound_ms=max(t_b, t_o),
-                                   bound_by="bytes" if t_b >= t_o else "operations")
+                        measure(name, lanes, adj, nmax, rows[name])
                 log(f"kernels ok nmax={nmax} bcap={bcap} L={L}")
+    for nmax in (8, 16, 24, 30):
+        for gi, g in enumerate(solo_graphs(nmax)):
+            for L in (L_MAIN, 1, 129, 32767):
+                lanes, adj = solo_inputs(g, nmax, L, seed=nmax * 1000 + gi * 10 + L)
+                for name in SOLO_CHECKED:
+                    table = adj[None, :].contiguous() if name == "btree_eval" else adj
+                    err = check(name, lanes, table, nmax,
+                                f"nmax={nmax} n={g.n} L={L} (one table)")
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+                    if (nmax, gi, L) == (24, 0, L_MAIN) and name in SOLO:
+                        measure(name, lanes, adj, nmax, rows[name])
+                log(f"solo kernels ok nmax={nmax} n={g.n} L={L}")
     for name, row in rows.items():
+        at = "nmax=24 (one table)" if name in SOLO else "nmax=16 bcap=32"
         log(f"kernel {name}: {row['ms'] * 1e3:.2f} us/launch, plain "
             f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us "
             f"({row['bound_by']}: {row['bytes']} B, {row['int32_ops']} int32 ops) "
-            f"at L={L_MAIN} nmax=16 bcap=32")
+            f"at L={L_MAIN} {at}")
     return rows
 
 
@@ -260,14 +333,14 @@ def run_stream(label, graphs, algorithm, n_cpu):
     return res
 
 
-def profile(graphs, algorithm):
-    """Kernel time by name and the card's busy share over one stream."""
+def profile(label: str, fn, names):
+    """Kernel time by name and the card's busy share over one call of fn."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        batch.optimize_many(graphs, algorithm)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}                      # device-side events only: no double count
@@ -276,19 +349,99 @@ def profile(graphs, algorithm):
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in by_name.values())
-    log(f"profile stream a: wall {wall:.3f} s (profiler on), device busy "
+    log(f"profile {label}: wall {wall:.3f} s (profiler on), device busy "
         f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.4f} of the window, "
         f"{sum(n for n, _ in by_name.values())} device events")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for key, (n, us) in top[:12]:
         log(f"profile  {us / 1e3:10.2f} ms {n:7d} x  {key[:100]}")
     for key, (n, us) in top:
-        for k in KERNELS:
-            if f"{k}_kernel" not in key:
+        for k in names:
+            if not re.search(rf"(^|[^A-Za-z0-9_]){k}_kernel\b", key):
                 continue
             log(f"profile kernel {k}: {n} launches, "
                 f"{us / n:.2f} us each, {us / 1e3:.3f} ms = "
                 f"{us / max(busy_us, 1e-9):.5f} of device time")
+
+
+# ---------------------------------------------------------------- phase 5 --
+
+def solo_parts():
+    """(label, graph, algorithm, options, hold against the cpu run)."""
+    return [
+        ("d1", gen.musicbrainz_query(20, seed=11), "mpdp", {}, True),
+        ("d2", gen.snowflake(20, seed=1), "mpdp", {}, False),
+        ("d3", gen.musicbrainz_query(17, seed=11), "dpsub", {}, True),
+        ("d4", gen.chain(25, seed=1), "mpdp", {}, False),
+        ("d5 dpsize", gen.chain(8, 1), "dpsize", {}, True),
+        ("d5 dpccp", gen.cycle(9, 2), "dpccp", {}, True),
+        ("d5 expand", gen.musicbrainz_query(12, 7), "mpdp", {"enum": "expand"},
+         True),
+    ]
+
+
+def hold(label, g, r, c=None):
+    """Valid plan, cost within 1e-4 of DPccp; against the cpu run c:
+    algorithm, Counters exact and cost within 1e-5.  Returns the ulps."""
+    validate_plan(r.plan, g)
+    oracle = dpccp.solve(g)
+    if rel(r.cost, oracle.cost) > 1e-4:
+        raise AssertionError(f"{label}: cost {r.cost} vs DPccp {oracle.cost} "
+                             f"(n={g.n})")
+    if c is None:
+        return None
+    if (r.algorithm, r.counters.evaluated, r.counters.ccp) != \
+            (c.algorithm, c.counters.evaluated, c.counters.ccp):
+        raise AssertionError(f"{label}: {r.algorithm} {r.counters} on cuda vs "
+                             f"{c.algorithm} {c.counters} on cpu")
+    if rel(r.cost, c.cost) > 1e-5:
+        raise AssertionError(f"{label}: cost {r.cost} on cuda vs {c.cost} on cpu")
+    return ulps(r.cost, c.cost)
+
+
+def run_solo(label, g, algorithm, opts, vs_cpu):
+    """One solo query on cuda: timed, its stages and launches printed, held
+    against DPccp and (vs_cpu) the port's cpu run."""
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = engine.optimize(g, algorithm, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"solo {label}: n={g.n} m={g.m} {r.algorithm} in {wall:.3f} s on cuda; "
+        f"counters {r.counters}; stage seconds "
+        + json.dumps({k: round(v, 4) for k, v in r.timings.items()})
+        + "; launches " + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()
+                                      if v != before[k]}))
+    t1 = time.perf_counter()
+    c = engine.optimize(g, algorithm, device="cpu", **opts) if vs_cpu else None
+    u = hold(f"solo {label}", g, r, c)
+    log(f"solo {label}: plan valid, cost within 1e-4 of DPccp"
+        + (f", matches the cpu run (counters exact, {u} ulp)" if vs_cpu else "")
+        + f" (host check {time.perf_counter() - t1:.1f} s)")
+
+
+def run_solo_many(stream_c):
+    """d5: optimize_many over an n = 20 query and stream (c) — the n = 20
+    query takes the solo route, the rest batch."""
+    graphs = [gen.musicbrainz_query(20, seed=5)] + stream_c
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = batch.optimize_many(graphs, "auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"solo d5 optimize_many: {len(graphs)} queries "
+        f"{[r.algorithm for r in res]} in {wall:.3f} s on cuda; launches "
+        + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()
+                      if v != before[k]}))
+    if res[0].algorithm != "mpdp_general":
+        raise AssertionError(f"the n = 20 query ran {res[0].algorithm}, not solo")
+    cpu = batch.optimize_many(graphs, "auto", device="cpu")
+    worst = max(hold(f"solo d5 optimize_many query {i}", g, r, c)
+                for i, (g, r, c) in enumerate(zip(graphs, res, cpu)))
+    log(f"solo d5 optimize_many: all plans valid, within 1e-4 of DPccp, match "
+        f"the cpu run (counters exact, max {worst} ulp)")
 
 
 def main() -> int:
@@ -312,30 +465,49 @@ def main() -> int:
             log("ptxas:", line.strip())
 
     rows = phase_kernels()
+    log(f"phase kernels done at {time.perf_counter() - t_start:.1f} s")
 
+    stream_c = [gen.chain(8, 1), gen.cycle(7, 2), gen.star(6, 3), gen.job_like(8, 4)]
     streams = [
         ("a", gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)), "auto", 4),
         ("b", gen.mixed_stream(8, seed=1, sizes=(10, 11, 12, 13)), "dpsub", 4),
-        ("c", [gen.chain(8, 1), gen.cycle(7, 2), gen.star(6, 3),
-               gen.job_like(8, 4)], "auto", 4),
+        ("c", stream_c, "auto", 4),
     ]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     for label, graphs, algorithm, n_cpu in streams:
         run_stream(label, graphs, algorithm, n_cpu)
-    launches = dict(ops.LAUNCHES)
-    log("launches on the main path: " + json.dumps(launches))
-    missing = [k for k, v in launches.items() if v <= 0]
+    batched = dict(ops.LAUNCHES)
+    log("launches on the batched path: " + json.dumps(batched))
+    missing = [k for k in BATCHED if batched[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
+        raise AssertionError(f"kernels never launched on the batched path: {missing}")
+    log(f"max_memory_allocated (batched path): "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    profile("stream a", lambda: batch.optimize_many(streams[0][1], "auto"), BATCHED)
+    log(f"phase batched path done at {time.perf_counter() - t_start:.1f} s")
 
-    profile(streams[0][1], "auto")
+    parts = solo_parts()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for label, g, algorithm, opts, vs_cpu in parts:
+        run_solo(label, g, algorithm, opts, vs_cpu)
+    run_solo_many(stream_c)
+    solo = dict(ops.LAUNCHES)
+    log("launches on the solo path: " + json.dumps(solo))
+    missing = [k for k in SOLO_CHECKED if solo[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the solo path: {missing}")
+    log(f"max_memory_allocated (solo path): "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    torch.cuda.empty_cache()
+    d1 = parts[0]
+    profile("solo d1", lambda: engine.optimize(d1[1], d1[2]), SOLO_CHECKED)
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
-            "replaces": KERNELS[k][2], "launches": launches[k],
+            "replaces": KERNELS[k][2], "launches": batched[k] + solo[k],
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

@@ -1,1 +1,1 @@
-"""Exact join-order DP (batched MPDP) on PyTorch tensors."""
+"""Exact join-order DP (solo and batched MPDP) on PyTorch tensors."""

@@ -18,15 +18,19 @@ through ``kernels.ops`` — the CUDA kernels on the card, their plain
 PyTorch versions for CPU tensors.  The level loop is the reference's
 synchronous driver; the memo tensors are updated in place.
 
-Where JAX and torch differ, this module spells out JAX's behaviour:
-out-of-range gather indices are clamped (``_take``), ``mode="drop"``
-scatters drop their padding explicitly, ``segment_min``/``segment_max``
-start from JAX's empty-segment identities (``engine._prune``) and
-``searchsorted(side="right")`` is ``right=True``.
+Where the reference's array semantics and torch differ, this module
+spells them out: out-of-range gather indices are clamped (``_take``),
+``mode="drop"`` scatters drop their padding explicitly,
+``segment_min``/``segment_max`` start from the reference's empty-segment
+identities (``engine._prune``) and ``searchsorted(side="right")`` is
+``right=True``.
 
-``optimize_many`` is the public entry point.  It serves inner-join queries
-with ``nmax_bucket(n) <= 16``; what the reference serves beyond that
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+``optimize_many`` is the public entry point.  It batches inner-join
+queries with ``nmax_bucket(n) <= 16`` and sends the rest (larger queries,
+``dpsize``, ``dpccp``, ``mpdp_tree`` forced on a cyclic graph) to the solo
+``engine.optimize``, as the reference does; what the reference serves
+beyond that raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -40,37 +44,24 @@ import torch
 from . import bitset as bs
 from . import blocks as bl
 from . import cost as cm
+from . import engine as _eng
 from . import unrank as ur
 from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
-from .engine import INF, _cap, _merge_best, _merge_scattered, _prune
+from .engine import (_CLIP, INF, _cap, _fetch, _merge_best,
+                     _merge_scattered, _not_ported, _prune, _scatter_into,
+                     _take, resolve_device)
 from .joingraph import JoinGraph
 from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
 NMAX_BATCH = 16          # memo is (bcap << NMAX): larger queries go solo
-_CLIP = 1 << 30          # offset clip keeps chunk-local offsets int32
 PEND_WINDOW = 8          # un-fetched chunk results kept in flight per level
 _I32 = torch.int32
 
 
 def _bcap(b: int) -> int:
     return _cap(b, 4)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: ``cuda`` unless the caller names another.
-    Raises when CUDA is asked for (explicitly or by default) and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on a CUDA device and none is "
-                           "available; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def _take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``buf[idx]`` with JAX's gather semantics (indices clamped)."""
-    return buf[idx.clamp(0, buf.shape[0] - 1)]
 
 
 def _segment_sum(x: torch.Tensor, qid: torch.Tensor, bcap: int) -> torch.Tensor:
@@ -193,14 +184,6 @@ def _beval_general_chunk(pair_set, pair_block, pair_qid, off_local, n_pairs,
             _segment_sum(ccp_blk, qid, bcap))
 
 
-def _fetch(seg_cost, seg_left, ev_q, ccp_q):
-    """One device->host copy of a chunk's results."""
-    n = seg_cost.shape[0]
-    buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q, ccp_q]).cpu().numpy()
-    return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + len(ev_q)],
-            buf[2 * n + len(ev_q):])
-
-
 # ============================================================== host driver ==
 
 class BatchEngine:
@@ -308,19 +291,14 @@ class BatchEngine:
 
     def _scatter(self, idx_np, cost=None, rows=None, left=None):
         """Memo writes at flat indices; indices past the memo are dropped
-        (JAX's ``mode="drop"``)."""
-        keep = (idx_np >= 0) & (idx_np < self.flat)
-        idx = self._dev(idx_np[keep].astype(np.int64))
-        for buf, val, dt in ((self.memo_cost, cost, np.float32),
-                             (self.memo_rows, rows, np.float32),
-                             (self.memo_left, left, np.int32)):
+        (the reference's ``mode="drop"``)."""
+        for buf, val in ((self.memo_cost, cost), (self.memo_rows, rows),
+                         (self.memo_left, left)):
             if val is not None:
-                buf[idx] = self._dev(np.asarray(val, dt)[keep])
+                _scatter_into(buf, idx_np, val)
 
     def _set_all_sets(self, pos_np, sets_np):
-        keep = (pos_np >= 0) & (pos_np < self.flat)
-        self.all_sets[self._dev(pos_np[keep].astype(np.int64))] = \
-            self._dev(np.asarray(sets_np, np.int32)[keep])
+        _scatter_into(self.all_sets, pos_np, sets_np)
 
     # ------------------------------------------------------------ stats ----
     @property
@@ -679,11 +657,6 @@ def bucket_pending(graphs, pending: list[int], algorithm: str):
     return buckets, solo
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
-
-
 def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
                   cache=UNSET, max_flight=UNSET, devices=UNSET, mesh=UNSET,
                   pipeline=UNSET, max_batch=UNSET, policy=UNSET, *,
@@ -695,9 +668,10 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
     plan, ``Counters``, ``algorithm``), plus ``device``: where the DP runs,
     ``cuda`` by default (raises without a card; pass ``device="cpu"`` for
     the plain PyTorch versions).  ``algorithm`` in {auto, mpdp, dpsub,
-    mpdp_tree, mpdp_general}; ``auto``/``mpdp`` run acyclic buckets in the
-    MPDP:Tree lane space and the rest in MPDP-general.  Results come back
-    in input order.
+    mpdp_tree, mpdp_general, dpsize, dpccp}; ``auto``/``mpdp`` run acyclic
+    buckets in the MPDP:Tree lane space and the rest in MPDP-general.
+    Queries no batched lane space serves run solo (``engine.optimize``).
+    Results come back in input order.
     """
     max_flight = alias_kwarg(max_flight, max_batch, "max_batch", "max_flight")
     cfg = resolve_config(config, algorithm=algorithm, chunk=chunk,
@@ -723,11 +697,6 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
     if any(graphs[qi].typed for qi in pending):
         raise _not_ported("typed (non-inner) join edges", "typed joins")
     buckets, solo = bucket_pending(graphs, pending, algorithm)
-    if solo:
-        raise _not_ported(
-            f"the solo path (queries {solo} under {algorithm!r}: "
-            f"nmax_bucket(n) > {NMAX_BATCH}, mpdp_tree on a cyclic graph, "
-            "or a solo-only algorithm)", "solo optimize")
     for (_b, space, _typed), idxs in sorted(buckets.items()):
         for s0 in range(0, len(idxs), cfg.max_flight):
             group = idxs[s0: s0 + cfg.max_flight]
@@ -735,4 +704,7 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
                              algorithm=space, device=dev).run()
             for qi, r in zip(group, rs):
                 results[qi] = r
+    for qi in solo:
+        results[qi] = _eng.optimize(graphs[qi], algorithm, chunk=cfg.chunk,
+                                    device=dev)
     return results

@@ -7,7 +7,9 @@ Conventions (as in the reference ``repro.core.bitset``)
   is a non-negative int32.
 * ``adj`` is an ``int32[nmax]`` tensor (``adj[v]`` = neighbour bitmap of
   vertex ``v``) or, for the batched engines, per-lane rows ``adjq`` of
-  shape ``(..., nmax)``: lane l sees the adjacency of its own query.
+  shape ``(..., nmax)``: lane l sees the adjacency of its own query.  The
+  ``*_rows`` functions broadcast, so the single-table names (``neighbors``,
+  ``grow``, ``is_connected``) are the same functions.
 
 The torch functions are lane-vectorised (``int32[...] -> int32[...]``) and
 run on whatever device their inputs live on; they are the plain versions

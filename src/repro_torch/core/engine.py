@@ -1,23 +1,59 @@
-"""Shared DP-engine helpers: the in-chunk prune and the host-side merges.
+"""Level-synchronous exact DP over one query (paper Alg. 5), and the helpers
+the batched engine shares.
 
-The port's copy of the helpers that ``repro.core.batch`` imports from
-``repro.core.engine`` (``INF``, ``_cap``, ``_merge_best``,
-``_merge_scattered``, ``_prune``).  The single-query ``ExactEngine`` comes
-with the solo slice of the port.
+The port of ``repro.core.engine``.  The pipeline *unrank -> filter ->
+evaluate -> prune -> scatter* runs on the engine's torch device:
 
-``_prune`` is JAX's ``segment_min``/``segment_max`` pair written as
-``scatter_reduce`` into buffers that start at the identities JAX gives an
-empty segment (``+inf`` for cost, int32 min for the left bitmap).  Min and
-max do not depend on the order of the reduction, so the result is the
-same on the CPU and on the card, run after run.
+  unrank    combinatorial-number-system unranking of a rank chunk; the
+            ``connectivity`` kernel masks the connected sets and the host
+            compacts them (``enum="expand"`` grows the previous level's
+            sets by one neighbour instead)
+  evaluate  one flat lane space per DP level, in fixed-size chunks: DPSUB
+            ``sets x 2^i`` (``ccp_eval`` kernel), MPDP:Tree ``sets x m``
+            (``btree_eval`` with a one-row table), MPDP-general over the
+            block prefix-sum of phase-A (set, block) pairs (``ccp_eval`` on
+            the block, then ``grow_pair``), DPSIZE over level pairs
+  prune     in-chunk segment-min per set + max left bitmap among ties
+  scatter   dense memo tables indexed by subset bitmap
+
+Each evaluate chunk comes back to the host in one device-to-host copy
+(``_fetch``).  Where the reference's array semantics and torch differ, this
+module spells them out: out-of-range gathers clamp (``_take``), memo
+scatters drop indices outside the table (``_scatter_into``),
+``searchsorted(side="right")`` is ``right=True``, and ``_prune`` starts its
+segments from the reference's empty-segment identities (``+inf`` for cost,
+int32 min for the left bitmap).  Min and max do not depend on the order of
+the reduction, so ``_prune`` gives the same result on the CPU and on the
+card, run after run.
+
+``optimize`` is the solo entry point; ``optimize_many`` forwards to
+``batch.optimize_many``.  Both run on ``cuda`` unless the caller passes
+``device``; what the reference serves beyond this port raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
+
+import time
+from math import comb
 
 import numpy as np
 import torch
 
+from . import bitset as bs
+from . import blocks as bl
+from . import cost as cm
+from . import dpccp as _dpccp
+from . import unrank as ur
+from ..kernels import ops
+from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
+                     alias_kwarg, resolve_config)
+from .joingraph import DeviceGraph, JoinGraph
+from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
+
 INF = np.float32(np.inf)
+_I32 = torch.int32
 _I32_MIN = int(np.iinfo(np.int32).min)
+_CLIP = 1 << 30          # offset clip keeps chunk-local offsets int32
 
 
 def _cap(n: int, lo: int = 1024) -> int:
@@ -25,6 +61,44 @@ def _cap(n: int, lo: int = 1024) -> int:
     while c < n:
         c <<= 1
     return c
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: ``cuda`` unless the caller names another.
+    Raises when CUDA is asked for (explicitly or by default) and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
+
+
+def _take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``buf[idx]`` with the reference's gather semantics (indices clamped)."""
+    return buf[idx.clamp(0, buf.shape[0] - 1)]
+
+
+def _scatter_into(buf: torch.Tensor, idx_np: np.ndarray, val_np) -> None:
+    """``buf[idx] = val`` in place; indices outside ``buf`` are dropped (the
+    reference's ``mode="drop"``)."""
+    idx_np = np.asarray(idx_np)
+    keep = (idx_np >= 0) & (idx_np < buf.shape[0])
+    idx = torch.from_numpy(idx_np[keep].astype(np.int64))
+    val = torch.from_numpy(np.asarray(val_np)[keep]).to(buf.dtype)
+    buf[idx.to(buf.device)] = val.to(buf.device)
+
+
+def _fetch(seg_cost, seg_left, ev_q, ccp_q):
+    """One device->host copy of a chunk's results."""
+    n = seg_cost.shape[0]
+    buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q, ccp_q]).cpu().numpy()
+    return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + len(ev_q)],
+            buf[2 * n + len(ev_q):])
 
 
 def _merge_best(best_cost, best_left, base, seg_cost, seg_left):
@@ -59,7 +133,515 @@ def _prune(seg: torch.Tensor, cand_cost: torch.Tensor, cand_left: torch.Tensor,
     seg_cost.scatter_reduce_(0, seg, cand_cost, "amin")
     is_best = cand_cost == seg_cost[seg]
     left_cand = torch.where(is_best & torch.isfinite(cand_cost), cand_left, 0)
-    seg_left = torch.full((nseg,), _I32_MIN, dtype=torch.int32,
+    seg_left = torch.full((nseg,), _I32_MIN, dtype=_I32,
                           device=cand_left.device)
     seg_left.scatter_reduce_(0, seg, left_cand, "amax")
     return seg_cost, seg_left
+
+
+# ============================================================ chunk bodies ==
+# Every tensor lives on the engine's device; ``t`` is the chunk's lane index.
+
+def _lanes(chunk: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(chunk, dtype=_I32, device=like.device)
+
+
+def _filter_chunk(rank0: int, total: int, k: int, binom, adj, *, nmax: int,
+                  chunk: int):
+    """Unrank ranks ``rank0 + t`` of the k-subsets and mask the connected
+    ones (rows are costed on the host afterwards)."""
+    ranks = rank0 + _lanes(chunk, adj)
+    mask = ranks < total
+    S = ur.unrank_ksubset(ranks.clamp(max=total - 1), k, binom, nmax)
+    conn = (ops.connectivity(S, adj, nmax) != 0) & mask
+    return S, conn
+
+
+def _expand_chunk(sets_pad, n_valid: int, adj, *, nmax: int, cap: int):
+    """Grow each live set by one neighbour: ``(cap, nmax)`` candidates, 0
+    where there is none (the host dedups)."""
+    S = sets_pad
+    nbr = bs.neighbors(S, adj) & ~S
+    shifts = torch.arange(nmax, dtype=_I32, device=S.device)
+    has = ((nbr[:, None] >> shifts) & 1) == 1
+    cand = torch.where(has, S[:, None] | (torch.ones_like(shifts) << shifts), 0)
+    live = (torch.arange(cap, device=S.device) < n_valid)[:, None]
+    return torch.where(live, cand, 0)
+
+
+def _lane_cost(S_left, S_right, S_rows, memo_cost, memo_rows):
+    cl = memo_cost[S_left]
+    cr = memo_cost[S_right]
+    jc = cm.join_cost(memo_rows[S_left], memo_rows[S_right], S_rows)
+    return cl + cr + jc
+
+
+def _eval_dpsub_chunk(all_sets, level_off: int, base_set: int, base_sub: int,
+                      i: int, lane_count: int, adj, memo_cost, memo_rows, *,
+                      nmax: int, chunk: int, nseg: int):
+    t = _lanes(chunk, adj)
+    sub_g = base_sub + t
+    set_idx = base_set + (sub_g >> i)
+    sub = sub_g & ((1 << i) - 1)
+    live = t < lane_count
+    S = _take(all_sets, level_off + set_idx)
+    lb, rb, ccp_i = ops.ccp_eval(S, sub, adj, nmax)
+    ccp = live & (ccp_i != 0)
+    cand = torch.where(ccp, _lane_cost(lb, rb, memo_rows[S], memo_cost,
+                                       memo_rows), float(INF))
+    seg_cost, seg_left = _prune(set_idx - base_set, cand, lb, nseg)
+    return seg_cost, seg_left, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
+
+
+def _eval_tree_chunk(all_sets, level_off: int, base_set: int, base_e: int,
+                     m: int, lane_count: int, adj1, qid0, emask_u, emask_v,
+                     memo_cost, memo_rows, *, nmax: int, chunk: int,
+                     nseg: int):
+    """MPDP:Tree lanes through ``btree_eval`` on the one-row table ``adj1``
+    (every lane's ``qid0`` is 0): the same function as the reference's
+    ``grow_excl_edge`` on one query."""
+    t = _lanes(chunk, adj1)
+    e_g = base_e + t
+    set_idx = base_set + torch.div(e_g, m, rounding_mode="floor")
+    e = torch.remainder(e_g, m)
+    live = t < lane_count
+    S = _take(all_sets, level_off + set_idx)
+    S_left, in_i = ops.btree_eval(S, emask_u[e], emask_v[e], qid0, adj1, nmax)
+    # MPDP:Tree — every enumerated pair IS a CCP pair (Theorem 3)
+    edge_in = live & (in_i != 0)
+    cand = torch.where(edge_in, _lane_cost(S_left, S & ~S_left, memo_rows[S],
+                                           memo_cost, memo_rows), float(INF))
+    seg_cost, seg_left = _prune(set_idx - base_set, cand, S_left, nseg)
+    ev = edge_in.sum(dtype=_I32)
+    return seg_cost, seg_left, ev, ev
+
+
+def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj, memo_cost,
+                        memo_rows, *, nmax: int, chunk: int, pcap: int):
+    """MPDP-general lanes: ``pairs`` stacks the chunk's (set, block,
+    chunk-local lane offset) rows, ``int32[3, pcap]``."""
+    pair_set, pair_block, off_local = pairs
+    t = _lanes(chunk, adj)
+    live = t < lane_count
+    p = (torch.searchsorted(off_local, t, right=True, out_int32=True) - 1
+         ).clamp(0, n_pairs - 1)
+    r = t - off_local[p]
+    S = pair_set[p]
+    lb, rb, ccp_i = ops.ccp_eval(pair_block[p], r, adj, nmax)
+    enum_ok = live & (lb != 0) & (rb != 0)                 # Alg.3 line 6/7
+    ccp_blk = enum_ok & (ccp_i != 0)
+    S_left, S_right = ops.grow_pair(S, lb, rb, adj, nmax)  # Alg.3 line 17
+    cand = torch.where(ccp_blk, _lane_cost(S_left, S_right, memo_rows[S],
+                                           memo_cost, memo_rows), float(INF))
+    seg_cost, seg_left = _prune(p, cand, S_left, pcap)
+    return seg_cost, seg_left, enum_ok.sum(dtype=_I32), ccp_blk.sum(dtype=_I32)
+
+
+def _eval_dpsize_chunk(all_sets, off_a: int, off_b: int, count_b: int,
+                       base_a: int, base_b: int, lane_count: int, dg,
+                       memo_cost, memo_rows, *, nmax: int, chunk: int):
+    """DPSIZE: cross product of the level-a and level-b set lists.  Returns
+    per-lane (union set, candidate cost, left set); the host merges (DPSIZE
+    unions are scattered, no contiguous segments)."""
+    t = _lanes(chunk, dg.adj)
+    g = base_b + t
+    ia = base_a + torch.div(g, count_b, rounding_mode="floor")
+    ib = torch.remainder(g, count_b)
+    live = t < lane_count
+    A = _take(all_sets, off_a + ia)
+    B = _take(all_sets, off_b + ib)
+    disjoint = (A & B) == 0
+    cross = (bs.neighbors(A, dg.adj) & B) != 0
+    ccp = live & disjoint & cross                  # A, B connected by construction
+    S = A | B
+    rows = bs.member_matrix(S, nmax).to(torch.float32) @ dg.card_l2
+    inside = (((S[:, None] & dg.emask_u[None, :]) != 0)
+              & ((S[:, None] & dg.emask_v[None, :]) != 0))
+    rows = torch.clamp(rows + torch.where(inside, dg.esel_l2[None, :], 0.0)
+                       .sum(dim=1), min=0.0)
+    cand = torch.where(ccp, _lane_cost(A, B, rows, memo_cost, memo_rows),
+                       float(INF))
+    return S, cand, A, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
+
+
+# ============================================================== host driver ==
+
+class ExactEngine:
+    """Runs one exact algorithm (dpsub / mpdp / dpsize) over a JoinGraph on
+    ``device`` (``cuda`` by default)."""
+
+    def __init__(self, g: JoinGraph, chunk: int = CHUNK,
+                 cyc_cap: int = CYC_CAP_DEFAULT, enum: str = "unrank",
+                 device=None):
+        if not g.is_connected():
+            raise ValueError("query graph must be connected (no cross products)")
+        if g.typed:
+            raise _not_ported("typed (non-inner) join edges", "typed joins")
+        self.g = g
+        self.enum = enum              # "unrank" (paper Alg.5) | "expand"
+        self.device = resolve_device(device)
+        self.dg = DeviceGraph.from_graph(g, self.device)
+        self.n = g.n
+        self.nmax = self.dg.nmax
+        self.emax = self.dg.emax
+        self.chunk = chunk
+        self.cyc_cap = cyc_cap
+        self.size = 1 << self.nmax
+        self.binom = self._dev(ur.binom_table(self.nmax))
+        # edge vertex indices (for block finding)
+        eu = np.full(self.emax, -1, np.int32)
+        ev = np.full(self.emax, -1, np.int32)
+        lv = np.zeros(self.emax, bool)
+        for i, (u, v) in enumerate(g.edges):
+            eu[i], ev[i], lv[i] = u, v, True
+        self.eu_idx = self._dev(eu)
+        self.ev_idx = self._dev(ev)
+        self.edge_live = self._dev(lv)
+        # the solo tree evaluate runs the batched kernel on a one-row table
+        self.adj1 = self.dg.adj.reshape(1, -1).contiguous()
+        self.qid0 = torch.zeros(chunk, dtype=_I32, device=self.device)
+        self.counters = Counters()
+        self.timings: dict[str, float] = {}
+        self._init_memo()
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _time(self, key: str, t0: float) -> None:
+        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
+
+    # ------------------------------------------------------------- memo ----
+    def _init_memo(self):
+        kw = dict(device=self.device)
+        self.memo_cost = torch.full((self.size,), float(INF), dtype=torch.float32, **kw)
+        self.memo_rows = torch.zeros(self.size, dtype=torch.float32, **kw)
+        self.memo_left = torch.zeros(self.size, dtype=_I32, **kw)
+        self.all_sets = torch.zeros(self.size, dtype=_I32, **kw)
+        leaves = np.array([1 << v for v in range(self.n)], np.int32)
+        lrows = self.g.log2_card.astype(np.float32)
+        self._scatter(leaves, cost=cm.np_scan_cost(lrows).astype(np.float32),
+                      rows=lrows)
+        _scatter_into(self.all_sets, np.arange(self.n), leaves)
+        self.level_off = {1: 0}
+        self.level_cnt = {1: self.n}
+        self._next_off = self.n
+
+    def _scatter(self, sets_np, cost=None, rows=None, left=None):
+        for buf, val in ((self.memo_cost, cost), (self.memo_rows, rows),
+                         (self.memo_left, left)):
+            if val is not None:
+                _scatter_into(buf, sets_np, val)
+
+    # ------------------------------------------------------------ filter ---
+    def _level_sets(self, i: int):
+        """Connected sets of level i (unrank+filter, or frontier expansion),
+        ascending."""
+        t0 = time.perf_counter()
+        if self.enum == "expand":
+            sets_np = self._level_sets_expand(i)
+        else:
+            sets_np = self._level_sets_unrank(i)
+        rows_np = cm.np_rows_for_sets(sets_np, self.g)
+        self._prev_level = sets_np
+        # scatter rows for this level; register in the packed level buffer
+        if len(sets_np):
+            self._scatter(sets_np, rows=rows_np)
+            _scatter_into(self.all_sets,
+                          self._next_off + np.arange(len(sets_np)), sets_np)
+        self.level_off[i] = self._next_off
+        self.level_cnt[i] = len(sets_np)
+        self._next_off += len(sets_np)
+        self._time("filter", t0)
+        return sets_np
+
+    def _level_sets_unrank(self, i: int):
+        """Paper Alg.5: unrank the full C(n, i) space, mask connectivity.
+        Colex rank order is ascending bitmap order, and the compaction keeps
+        it."""
+        total = comb(self.n, i)
+        sets_l = []
+        for rank0 in range(0, total, self.chunk):
+            S, conn = _filter_chunk(rank0, total, i, self.binom, self.dg.adj,
+                                    nmax=self.nmax, chunk=self.chunk)
+            got = S[conn].cpu().numpy()
+            if len(got):
+                sets_l.append(got)
+        if sets_l:
+            return np.concatenate(sets_l)
+        return np.zeros(0, np.int32)
+
+    def _level_sets_expand(self, i: int):
+        """Beyond-paper: expand level i-1 connected sets by one neighbour and
+        dedup — O(|L_{i-1}| * deg) instead of O(C(n, i))."""
+        if i == 2:
+            prev = np.array([1 << v for v in range(self.n)], np.int32)
+        else:
+            prev = self._prev_level
+        if not len(prev):
+            return np.zeros(0, np.int32)
+        cand_l = []
+        for s0 in range(0, len(prev), self.chunk):
+            sl = prev[s0: s0 + self.chunk]
+            cap = _cap(len(sl))
+            pad = np.zeros(cap, np.int32)
+            pad[: len(sl)] = sl
+            cand = _expand_chunk(self._dev(pad), len(sl), self.dg.adj,
+                                 nmax=self.nmax, cap=cap)
+            c = cand.cpu().numpy().ravel()
+            cand_l.append(c[c != 0])
+        return np.unique(np.concatenate(cand_l)) if cand_l else np.zeros(0, np.int32)
+
+    # ----------------------------------------------------------- merging ---
+    def _commit_level(self, sets_np, best_cost, best_left):
+        fin = np.isfinite(best_cost)
+        self._scatter(sets_np[fin], cost=best_cost[fin], left=best_left[fin])
+
+    def _count(self, ev, cc) -> None:
+        self.counters.evaluated += int(ev[0])
+        self.counters.ccp += int(cc[0])
+
+    # -------------------------------------------------------------- DPSUB --
+    def run_dpsub(self) -> None:
+        for i in range(2, self.n + 1):
+            sets_np = self._level_sets(i)
+            if not len(sets_np):
+                continue
+            t0 = time.perf_counter()
+            ns = len(sets_np)
+            lanes = ns << i
+            best_cost = np.full(ns, INF, np.float32)
+            best_left = np.zeros(ns, np.int32)
+            off = self.level_off[i]
+            for lane0 in range(0, lanes, self.chunk):
+                cnt = min(self.chunk, lanes - lane0)
+                sc, sl, ev, cc = _eval_dpsub_chunk(
+                    self.all_sets, off, lane0 >> i, lane0 & ((1 << i) - 1), i,
+                    cnt, self.dg.adj, self.memo_cost, self.memo_rows,
+                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1)
+                sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
+                self._count(ev, cc)
+                _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
+            self._commit_level(sets_np, best_cost, best_left)
+            self._time("evaluate", t0)
+
+    # ---------------------------------------------------------- MPDP tree --
+    def run_mpdp_tree(self) -> None:
+        m = self.g.m
+        for i in range(2, self.n + 1):
+            sets_np = self._level_sets(i)
+            if not len(sets_np):
+                continue
+            t0 = time.perf_counter()
+            ns = len(sets_np)
+            lanes = ns * m
+            best_cost = np.full(ns, INF, np.float32)
+            best_left = np.zeros(ns, np.int32)
+            off = self.level_off[i]
+            for lane0 in range(0, lanes, self.chunk):
+                cnt = min(self.chunk, lanes - lane0)
+                sc, sl, ev, cc = _eval_tree_chunk(
+                    self.all_sets, off, lane0 // m, lane0 % m, m, cnt,
+                    self.adj1, self.qid0, self.dg.emask_u, self.dg.emask_v,
+                    self.memo_cost, self.memo_rows,
+                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1)
+                sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
+                self._count(ev, cc)
+                _merge_best(best_cost, best_left, lane0 // m, sc, sl)
+            self._commit_level(sets_np, best_cost, best_left)
+            self._time("evaluate", t0)
+
+    # ------------------------------------------------------- MPDP general --
+    def _find_blocks_host(self, sets_np):
+        """Phase A: per-set blocks -> compacted (set, block) pair arrays
+        (shared host driver in ``blocks.np_pairs_for_sets``)."""
+        t0 = time.perf_counter()
+        ps, pb = bl.np_pairs_for_sets(
+            sets_np, self.g, self.dg.adj, self.eu_idx, self.ev_idx,
+            self.edge_live, nmax=self.nmax, emax=self.emax,
+            cyc_cap=self.cyc_cap)
+        self._time("blocks", t0)
+        return ps, pb
+
+    def run_mpdp_general(self) -> None:
+        for i in range(2, self.n + 1):
+            sets_np = self._level_sets(i)
+            if not len(sets_np):
+                continue
+            ps, pb = self._find_blocks_host(sets_np)
+            if not len(ps):
+                continue
+            t0 = time.perf_counter()
+            lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
+            offs = np.zeros(len(ps) + 1, np.int64)
+            np.cumsum(lane_sz, out=offs[1:])
+            total = int(offs[-1])
+            # sets_np is ascending (colex rank order == ascending bitmap), so
+            # pair -> local set index is a vectorised searchsorted
+            pk = np.searchsorted(sets_np, ps).astype(np.int64)
+            best_cost = np.full(len(sets_np), INF, np.float32)
+            best_left = np.zeros(len(sets_np), np.int32)
+            k_all, c_all, l_all = [], [], []
+            for lane0 in range(0, total, self.chunk):
+                lane1 = min(lane0 + self.chunk, total)
+                p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
+                p1 = int(np.searchsorted(offs, lane1, side="left"))
+                npair = p1 - p0
+                pcap = _cap(npair, 256)
+                pairs = np.zeros((3, pcap), np.int64)
+                pairs[2] = 1 << 40
+                pairs[0, :npair] = ps[p0:p1]
+                pairs[1, :npair] = pb[p0:p1]
+                pairs[2, :npair] = offs[p0:p1] - lane0
+                pairs[2] = np.clip(pairs[2], -_CLIP, _CLIP)
+                sc, sl, ev, cc = _eval_general_chunk(
+                    self._dev(pairs.astype(np.int32)), npair, lane1 - lane0,
+                    self.dg.adj, self.memo_cost, self.memo_rows,
+                    nmax=self.nmax, chunk=self.chunk, pcap=pcap)
+                sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
+                self._count(ev, cc)
+                scn = sc[:npair]
+                fin = np.isfinite(scn)
+                k_all.append(pk[p0:p1][fin])
+                c_all.append(scn[fin])
+                l_all.append(sl[:npair][fin])
+            if k_all:
+                _merge_scattered(best_cost, best_left, np.concatenate(k_all),
+                                 np.concatenate(c_all), np.concatenate(l_all))
+            self._commit_level(sets_np, best_cost, best_left)
+            self._time("evaluate", t0)
+
+    # ------------------------------------------------------------- DPSIZE --
+    def run_dpsize(self) -> None:
+        for i in range(2, self.n + 1):
+            self._level_sets(i)
+            t0 = time.perf_counter()
+            s_all, c_all, l_all = [], [], []
+            for a in range(1, i):
+                b = i - a
+                ca, cb = self.level_cnt[a], self.level_cnt[b]
+                if ca == 0 or cb == 0:
+                    continue
+                lanes = ca * cb
+                for lane0 in range(0, lanes, self.chunk):
+                    cnt = min(self.chunk, lanes - lane0)
+                    S, cand, A, ev, cc = _eval_dpsize_chunk(
+                        self.all_sets, self.level_off[a], self.level_off[b],
+                        cb, lane0 // cb, lane0 % cb, cnt, self.dg,
+                        self.memo_cost, self.memo_rows,
+                        nmax=self.nmax, chunk=self.chunk)
+                    got = torch.cat([S, cand.view(_I32), A, ev.reshape(1),
+                                     cc.reshape(1)]).cpu().numpy()
+                    c = self.chunk
+                    cn = got[c: 2 * c].view(np.float32)
+                    fin = np.isfinite(cn)
+                    self._count(got[3 * c:], got[3 * c + 1:])
+                    s_all.append(got[:c][fin])
+                    c_all.append(cn[fin])
+                    l_all.append(got[2 * c: 3 * c][fin])
+            if s_all:
+                ss = np.concatenate(s_all).astype(np.int64)
+                scratch_c = np.full(1 << self.n, INF, np.float32)
+                scratch_l = np.zeros(1 << self.n, np.int32)
+                _merge_scattered(scratch_c, scratch_l, ss,
+                                 np.concatenate(c_all), np.concatenate(l_all))
+                ks = np.flatnonzero(np.isfinite(scratch_c)).astype(np.int32)
+                self._scatter(ks, cost=scratch_c[ks], left=scratch_l[ks])
+            self._time("evaluate", t0)
+
+    # ------------------------------------------------------------ finish ---
+    def _plan_lefts(self, full: int) -> dict[int, int]:
+        """``memo_left`` at the sets the best plan walks, fetched one plan
+        depth per copy (at most n copies) instead of the whole table."""
+        lefts: dict[int, int] = {}
+        frontier = [full]
+        while frontier:
+            got = self.memo_left[self._dev(np.array(frontier, np.int64))]
+            nxt = []
+            for s, lb in zip(frontier, got.cpu().tolist()):
+                lefts[s] = lb
+                if lb == 0 or (lb & s) != lb:
+                    continue                       # extract_plan raises here
+                nxt += [x for x in (lb, s & ~lb) if x & (x - 1)]
+            frontier = nxt
+        return lefts
+
+    def result(self, algorithm: str, t0: float) -> OptimizeResult:
+        full = self.g.full_set
+        cost = float(self.memo_cost[full])
+        if not np.isfinite(cost):
+            raise RuntimeError("no plan found — disconnected graph?")
+        p = extract_plan(full, self._plan_lefts(full), self.g)
+        return OptimizeResult(plan=p, cost=cost, counters=self.counters,
+                              algorithm=algorithm,
+                              wall_s=time.perf_counter() - t0, levels=self.n)
+
+
+def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
+             enum=UNSET, lattice_devices=UNSET, lattice_mesh=UNSET, *,
+             config: OptimizerConfig | None = None,
+             device=None) -> OptimizeResult:
+    """Exact join-order optimization of one query.
+
+    Same signature and results as the reference ``optimize`` (cost, plan,
+    ``Counters``, ``algorithm``), plus ``device``: where the DP runs,
+    ``cuda`` by default (raises without a card; pass ``device="cpu"`` for
+    the plain PyTorch versions).  ``algorithm`` in {auto, mpdp, mpdp_tree,
+    mpdp_general, dpsub, dpsize, dpccp}; ``enum`` in {unrank (paper
+    Alg.5), expand (frontier growth)}.  The lattice (``config.lattice``,
+    ``lattice_devices=``, ``lattice_mesh=``), ``deadline_s`` and typed
+    graphs raise ``NotImplementedError`` naming their ROADMAP item.
+    """
+    devices = mesh = lattice = UNSET
+    if lattice_devices is not UNSET or lattice_mesh is not UNSET:
+        devices = alias_kwarg(UNSET, lattice_devices,
+                              "lattice_devices", "config.devices")
+        mesh = alias_kwarg(UNSET, lattice_mesh, "lattice_mesh", "config.mesh")
+        # the old kwargs passed None to mean "no lattice": preserve that
+        if (devices is not UNSET and devices is not None) or \
+                (mesh is not UNSET and mesh is not None):
+            lattice = True
+    cfg = resolve_config(config, algorithm=algorithm, chunk=chunk,
+                         cyc_cap=cyc_cap, enum=enum, devices=devices,
+                         mesh=mesh, lattice=lattice)
+    if cfg.lattice:
+        raise _not_ported("optimize(lattice=True)", "batch and lattice sharding")
+    if cfg.deadline_s is not None:
+        raise _not_ported("optimize(deadline_s=...)",
+                          "telemetry, policy, deadlines and faults")
+    if g.typed:
+        raise _not_ported("typed (non-inner) join edges", "typed joins")
+    dev = resolve_device(device)
+    algorithm = cfg.algorithm
+    if algorithm == "dpccp":
+        return _dpccp.solve(g)
+    if g.n == 1:
+        p = leaf_plan(0, g)
+        return OptimizeResult(plan=p, cost=p.cost, counters=Counters(),
+                              algorithm=algorithm, levels=1)
+    t0 = time.perf_counter()
+    algo = algorithm
+    if algorithm in ("auto", "mpdp"):
+        algo = "mpdp_tree" if g.is_tree() else "mpdp_general"
+    runs = {"mpdp_tree": "run_mpdp_tree", "mpdp_general": "run_mpdp_general",
+            "dpsub": "run_dpsub", "dpsize": "run_dpsize"}
+    if algo not in runs:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    eng = ExactEngine(g, chunk=cfg.chunk, cyc_cap=cfg.cyc_cap, enum=cfg.enum,
+                      device=dev)
+    getattr(eng, runs[algo])()
+    res = eng.result(algo, t0)
+    res.timings = dict(eng.timings)
+    return res
+
+
+def optimize_many(graphs, algorithm=UNSET, chunk=UNSET, cache=UNSET,
+                  max_flight=UNSET, devices=UNSET, mesh=UNSET,
+                  pipeline=UNSET, max_batch=UNSET, policy=UNSET, *,
+                  config: OptimizerConfig | None = None, device=None):
+    """Batched multi-query optimization — see ``batch.optimize_many``."""
+    from . import batch as _batch
+    max_flight = alias_kwarg(max_flight, max_batch, "max_batch", "max_flight")
+    cfg = resolve_config(config, algorithm=algorithm, chunk=chunk,
+                         cache=cache, max_flight=max_flight, devices=devices,
+                         mesh=mesh, pipeline=pipeline, policy=policy)
+    return _batch.optimize_many(graphs, config=cfg, device=device)

@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels for the batched DP, their build, wrappers and
+"""Hand-written CUDA kernels for the exact DP (solo and batched), their build, wrappers and
 plain PyTorch versions."""

@@ -1,7 +1,20 @@
-// Batched MPDP filter/evaluate kernels for NVIDIA Hopper (sm_90a).
+// MPDP filter/evaluate kernels for NVIDIA Hopper (sm_90a).
 //
-// Four kernels, one thread per lane, replacing the batched Pallas TPU
-// kernels of src/repro/kernels/ccp_eval.py:
+// Seven kernels, one thread per lane, replacing the Pallas TPU kernels of
+// src/repro/kernels/ccp_eval.py.  Three serve the solo engine and read one
+// query's (nmax,) adjacency table:
+//
+//   ccp_eval_kernel       <- ccp_eval_kernel      (ccp_eval.py:65)
+//                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp;
+//                            also the block-level test of MPDP-general
+//   connectivity_kernel   <- connectivity_kernel  (ccp_eval.py:81)
+//                            filter lane: is G[S] connected
+//   grow_pair_kernel      <- grow_pair_kernel     (ccp_eval.py:88)
+//                            MPDP-general split: S_left = grow(lb) in S & ~rb,
+//                            S_right = S & ~S_left
+//
+// Four serve the batched engine and read the stacked (bcap, nmax) table at
+// each lane's query row:
 //
 //   bconnectivity_kernel  <- bconnectivity_kernel (ccp_eval.py:133)
 //                            per (query, set) lane: is G_q[S] connected
@@ -9,29 +22,31 @@
 //                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp
 //   btree_eval_kernel     <- btree_eval_kernel    (ccp_eval.py:159)
 //                            MPDP:Tree lane: S_left = grow(u) in S minus edge
-//                            (u, v); edge_in = both endpoints in S
+//                            (u, v); edge_in = both endpoints in S (the solo
+//                            tree evaluate calls it with a one-row table)
 //   bgeneral_eval_kernel  <- bgeneral_eval_kernel (ccp_eval.py:184)
 //                            MPDP-general lane: lb = pdep(r, block),
 //                            ccp(lb, block & ~lb), S_left = grow(lb) in
 //                            S & ~rb
 //
-// What bounds them on this card.  A lane reads 8-16 bytes and writes 4-12
+// What bounds them on this card.  A lane reads 4-16 bytes and writes 4-12
 // (int32 in and out, each once); the int32 work per lane is a handful of
-// set-bit walks of at most nmax (<= 16 on the batched path) steps, each a
-// find-first-set, a shared-memory load and an OR: a few hundred int32
-// operations per lane at most, typically under a hundred.  At the main
-// path's 32768 lanes a call moves about 0.4-0.9 MB and does 0.5-2 million
-// int32 operations, so both the byte bound (3.35 TB/s) and the int32 bound
-// are well under a microsecond: a call is bound by launch latency and by
-// the serial dependency chain of one lane's walks, not by bytes or ALU.
+// set-bit walks of at most nmax (<= 30) steps, each a find-first-set, a
+// shared-memory load and an OR: a few hundred int32 operations per lane at
+// most, typically under a hundred.  At the main path's 32768 lanes a call
+// moves about 0.3-0.9 MB and does 0.5-3 million int32 operations, so both
+// the byte bound (3.35 TB/s) and the int32 bound are well under a
+// microsecond: a call is bound by launch latency and by the serial
+// dependency chain of one lane's walks, not by bytes or ALU.
 //
 // What the design does about it.
 //   * One thread per lane, coalesced int32 loads and stores; the kernel
 //     masks the ragged edge itself (no padding to tiles).
-//   * Each block copies the (bcap, nmax) adjacency table (at most 32 x 30
-//     int32, under 4 KB) into shared memory once; a lane reads its query's
-//     row directly.  This replaces the TPU's nb x nmax select loop
-//     (_select_adj_rows) and SMEM scalar prefetch.
+//   * Each block copies the adjacency table (one (nmax,) row of at most
+//     120 bytes, or the (bcap, nmax) stack, under 4 KB) into shared memory
+//     once; a lane reads its row directly.  This replaces the TPU's SMEM
+//     scalar prefetch, its static nmax-step select-OR loop
+//     (_neighbors_smem) and its nb x nmax row select (_select_adj_rows).
 //   * Set walks visit only the set bits (__ffs), and grow() is a frontier
 //     BFS that stops at its fixed point instead of running nmax fixed
 //     sweeps.  The fixed point is the same set, so the bits are the same.
@@ -45,6 +60,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kNmaxHard = 30;   // widest bitmap the exact engines use
 
 // ------------------------------------------------------------ lane library --
 
@@ -143,7 +159,63 @@ __device__ __forceinline__ const int* stage_rows(int* sadj, const int* adj_b,
   return sadj + q * nmax;
 }
 
-// ----------------------------------------------------------------- kernels --
+// Stage one query's (nmax,) table in shared memory.
+__device__ __forceinline__ void stage_table(int* sadj, const int* adj,
+                                            int nmax) {
+  for (int i = threadIdx.x; i < nmax; i += blockDim.x) sadj[i] = adj[i];
+  __syncthreads();
+}
+
+// ------------------------------------------------------- solo-engine kernels --
+
+__global__ void connectivity_kernel(const int* __restrict__ S,
+                                    const int* __restrict__ adj,
+                                    int* __restrict__ conn, int L, int nmax) {
+  __shared__ int sadj[kNmaxHard];
+  stage_table(sadj, adj, nmax);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  int nmask = (1 << nmax) - 1;
+  conn[t] = connected(S[t], sadj, nmask);
+}
+
+__global__ void ccp_eval_kernel(const int* __restrict__ S,
+                                const int* __restrict__ sub,
+                                const int* __restrict__ adj,
+                                int* __restrict__ lb_out,
+                                int* __restrict__ rb_out,
+                                int* __restrict__ ccp_out, int L, int nmax) {
+  __shared__ int sadj[kNmaxHard];
+  stage_table(sadj, adj, nmax);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  int nmask = (1 << nmax) - 1;
+  int s = S[t];
+  int lb = pdep(sub[t], s, nmask);
+  int rb = s & ~lb;
+  lb_out[t] = lb;
+  rb_out[t] = rb;
+  ccp_out[t] = ccp(lb, rb, sadj, nmask);
+}
+
+__global__ void grow_pair_kernel(const int* __restrict__ S,
+                                 const int* __restrict__ lb_in,
+                                 const int* __restrict__ rb_in,
+                                 const int* __restrict__ adj,
+                                 int* __restrict__ sl_out,
+                                 int* __restrict__ sr_out, int L, int nmax) {
+  __shared__ int sadj[kNmaxHard];
+  stage_table(sadj, adj, nmax);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  int nmask = (1 << nmax) - 1;
+  int s = S[t];
+  int sl = grow(lb_in[t], s & ~rb_in[t], sadj, nmask);
+  sl_out[t] = sl;
+  sr_out[t] = s & ~sl;
+}
+
+// ----------------------------------------------------------- batched kernels --
 
 __global__ void bconnectivity_kernel(const int* __restrict__ S,
                                      const int* __restrict__ qid,
@@ -236,6 +308,30 @@ extern "C" {
 
 const char* rt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int rt_connectivity(const int* S, const int* adj, int* conn, int L, int nmax,
+                    void* stream) {
+  connectivity_kernel<<<grid_for(L), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(S, adj, conn, L,
+                                                             nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_ccp_eval(const int* S, const int* sub, const int* adj, int* lb,
+                int* rb, int* ccp_out, int L, int nmax, void* stream) {
+  ccp_eval_kernel<<<grid_for(L), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(S, sub, adj, lb, rb,
+                                                         ccp_out, L, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_grow_pair(const int* S, const int* lb, const int* rb, const int* adj,
+                 int* sl, int* sr, int L, int nmax, void* stream) {
+  grow_pair_kernel<<<grid_for(L), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(S, lb, rb, adj, sl,
+                                                          sr, L, nmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int rt_bconnectivity(const int* S, const int* qid, const int* adj_b,

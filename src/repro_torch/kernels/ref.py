@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the four batched kernels (bit-exact oracles).
+"""Plain PyTorch versions of the seven kernels (bit-exact oracles).
 
 Each function computes what its CUDA kernel in ``csrc/ccp_eval.cu``
 computes, on the port's lane-vectorised ``bitset`` helpers, and equals the
 reference's ``repro.kernels.ref`` bit for bit.  ``ops`` routes CPU tensors
 here; ``chip_smoke.py`` holds each kernel against these on the card.
 
-Lanes are ``int32[L]``; ``adj_b`` is the stacked ``int32[bcap, nmax]``
-adjacency table and ``qid`` each lane's query row.  JAX clamps an
+Lanes are ``int32[L]``.  The solo-engine kernels (``connectivity``,
+``ccp_eval``, ``grow_pair``) take one query's ``int32[nmax]`` adjacency
+table; the batched ones take the stacked ``int32[bcap, nmax]`` table
+``adj_b`` and each lane's query row ``qid``.  The reference clamps an
 out-of-range gather index, so ``qid`` is clamped to ``[0, bcap)`` here and
 in the kernels alike.
 """
@@ -27,6 +29,29 @@ def _ccp(lb, rb, adjq):
     cross = (bs.neighbors_rows(lb, adjq) & rb) != 0
     return ((lb != 0) & (rb != 0) & conn_l & conn_r & cross).to(torch.int32)
 
+
+# -- solo engine: one query's (nmax,) table shared by every lane --------------
+
+def connectivity_ref(S, adj, nmax: int):
+    """1 where G[S] is connected."""
+    return bs.is_connected(S, adj).to(torch.int32)
+
+
+def ccp_eval_ref(S, sub, adj, nmax: int):
+    """DPSUB lane: ``lb = pdep(sub, S)``, ``rb = S & ~lb``, ccp."""
+    lb = bs.pdep(sub, S, nmax)
+    rb = S & ~lb
+    return lb, rb, _ccp(lb, rb, adj)
+
+
+def grow_pair_ref(S, lb, rb, adj, nmax: int):
+    """MPDP-general split: ``S_left = grow(lb)`` inside ``S & ~rb`` and
+    ``S_right = S & ~S_left``."""
+    sl = bs.grow(lb, S & ~rb, adj)
+    return sl, S & ~sl
+
+
+# -- batched engine: per-lane rows of the stacked (bcap, nmax) table ----------
 
 def bconnectivity_ref(S, qid, adj_b, nmax: int):
     """1 where G_q[S] is connected, per (query, set) lane."""

@@ -8,10 +8,14 @@
   to a relative 1e-5 (XLA and torch round ``exp2`` and fused products
   differently), plans equal or a tie broken by that rounding (both plans,
   costed by the port's ``cost_plan``, within 1e-5 of each other);
-* every option the reference serves outside this slice raises
+* the queries no batched lane space serves (``dpsize``, ``dpccp``,
+  ``mpdp_tree`` on a cyclic graph, n > 16) go to the solo engine and give
+  the reference's results, or its error;
+* every option the reference serves outside the ported slices raises
   ``NotImplementedError``, and no card without ``device="cpu"`` raises.
 """
 import math
+import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -212,7 +216,8 @@ def test_leaf_queries_and_stats():
 
 # --------------------------------------------------------- outside the slice --
 
-G6 = port(rgen.cycle(6, 1))
+G6_REF = rgen.cycle(6, 1)
+G6 = port(G6_REF)
 EXCLUDED = {
     "cache": dict(cache=object()),
     "devices": dict(devices=2),
@@ -224,10 +229,30 @@ EXCLUDED = {
     "dpccp": dict(algorithm="dpccp"),
     "tree_on_cycle": dict(algorithm="mpdp_tree"),
 }
+# outside the batched lane spaces, but served by the solo engine
+SOLO_ROUTED = ("dpsize", "dpccp", "tree_on_cycle")
+
+
+def assert_solo_route_matches_reference(graphs, **kw):
+    """The port gives the reference's results, or fails the same way."""
+    try:
+        ref = rbatch.optimize_many(graphs, **kw)
+    except Exception as e:
+        with pytest.raises(type(e), match=re.escape(str(e))):
+            tbatch.optimize_many([port(g) for g in graphs], device="cpu", **kw)
+        return
+    got = tbatch.optimize_many([port(g) for g in graphs], device="cpu", **kw)
+    assert_same_results(graphs, ref, got)
 
 
 @pytest.mark.parametrize("case", list(EXCLUDED))
 def test_outside_slice_raises(case):
+    """Options outside the batched slice: the ones the solo engine serves
+    (``dpsize``, ``dpccp``, ``mpdp_tree`` on a cycle) equal the reference,
+    the rest raise ``NotImplementedError`` naming their ROADMAP item."""
+    if case in SOLO_ROUTED:
+        assert_solo_route_matches_reference([G6_REF], **EXCLUDED[case])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbatch.optimize_many([G6], device="cpu", **EXCLUDED[case])
 
@@ -235,6 +260,11 @@ def test_outside_slice_raises(case):
 @pytest.mark.parametrize("g", [rgen.typed_query(7, seed=2), rgen.chain(17, 1)],
                          ids=["typed", "nmax24"])
 def test_outside_slice_graphs_raise(g):
+    """Graphs outside the batched slice: typed ones raise, an nmax-24 one
+    goes to the solo engine and equals the reference."""
+    if not g.typed:
+        assert_solo_route_matches_reference([g])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbatch.optimize_many([port(g)], device="cpu")
 

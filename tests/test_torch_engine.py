@@ -1,0 +1,141 @@
+"""The solo slice of the port (``ExactEngine`` / ``optimize``) vs the JAX
+reference, on the CPU.
+
+* ``optimize(..., device="cpu")`` equals the reference's ``optimize`` on
+  the ``tests/test_exact.py`` graphs under mpdp, dpsub, dpsize and dpccp,
+  and under the options that change the engine's path (frontier
+  expansion, the host-oracle phase A, chunks smaller than a level, the
+  nmax-24 bucket, forced lane spaces): ``algorithm`` strings and
+  ``Counters`` exactly, costs to a relative 1e-5 (the largest ULP distance
+  is printed), plans equal or a tie broken by rounding;
+* the paper's Theorem 3 (tree: every evaluated pair is a CCP) and Lemma 9
+  (clique: the same for MPDP-general) hold;
+* ``optimize_many`` routes the queries no batched lane space serves to the
+  solo engine, as the reference does;
+* what the port does not serve yet raises ``NotImplementedError`` naming
+  its ROADMAP item, and no card without ``device="cpu"`` raises.
+"""
+import pytest
+import torch
+
+from repro.core import batch as rbatch, engine as reng
+from repro.workloads import generators as rgen
+from repro_torch.core import engine as teng
+from repro_torch.core.config import OptimizerConfig
+from tests.helpers import rand_graph
+from tests.test_torch_batch import assert_same_results, port
+
+CASES = [
+    ("star8", rgen.star(8, 1)),
+    ("snow9", rgen.snowflake(9, 2)),
+    ("chain8", rgen.chain(8, 3)),
+    ("cycle7", rgen.cycle(7, 4)),
+    ("clique6", rgen.clique(6, 5)),
+    ("mb10", rgen.musicbrainz_query(10, 6)),
+    ("rand9", rand_graph(9, 4, 7)),
+]
+GRAPHS = dict(CASES)
+
+
+def check_same(g, **kw):
+    ref = reng.optimize(g, **kw)
+    got = teng.optimize(port(g), device="cpu", **kw)
+    worst = assert_same_results([g], [ref], [got])
+    print(f"{kw}: n={g.n} {got.algorithm} largest cost difference {worst} ulp")
+    return ref, got
+
+
+@pytest.mark.parametrize("name,g", CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("algo", ["mpdp", "dpsub", "dpsize", "dpccp"])
+def test_optimize_matches_reference(name, g, algo):
+    check_same(g, algorithm=algo)
+
+
+OPTIONS = {
+    "expand_mpdp_mb10": (GRAPHS["mb10"], dict(algorithm="mpdp", enum="expand")),
+    "expand_dpsub_rand9": (GRAPHS["rand9"], dict(algorithm="dpsub",
+                                                 enum="expand")),
+    "cyc_cap2_host_oracle": (rand_graph(8, 12, 11), dict(algorithm="mpdp",
+                                                          cyc_cap=2)),
+    "chunk512_general": (GRAPHS["rand9"], dict(algorithm="mpdp", chunk=512)),
+    "chunk512_tree": (GRAPHS["snow9"], dict(algorithm="mpdp", chunk=512)),
+    "chunk512_dpsub": (GRAPHS["mb10"], dict(algorithm="dpsub", chunk=512)),
+    "chunk512_dpsize": (GRAPHS["cycle7"], dict(algorithm="dpsize", chunk=512)),
+    "nmax24_chain17": (rgen.chain(17, 1), dict(algorithm="mpdp")),
+    "tree_forced": (GRAPHS["snow9"], dict(algorithm="mpdp_tree")),
+    "general_forced_on_tree": (GRAPHS["star8"], dict(algorithm="mpdp_general")),
+}
+
+
+@pytest.mark.parametrize("case", list(OPTIONS))
+def test_optimize_options_match_reference(case):
+    g, kw = OPTIONS[case]
+    check_same(g, **kw)
+
+
+def test_theorem3_tree_no_invalid_pairs():
+    ref, got = check_same(rgen.star(10, 2), algorithm="mpdp")
+    assert got.algorithm == "mpdp_tree"
+    assert got.counters.evaluated == got.counters.ccp
+
+
+def test_lemma9_clique_no_invalid_pairs():
+    ref, got = check_same(rgen.clique(7, 3), algorithm="mpdp")
+    assert got.algorithm == "mpdp_general"
+    assert got.counters.evaluated == got.counters.ccp
+
+
+def test_timings_name_the_stages():
+    got = teng.optimize(port(GRAPHS["rand9"]), "mpdp", device="cpu")
+    assert got.algorithm == "mpdp_general"
+    assert set(got.timings) == {"filter", "blocks", "evaluate"}
+    assert all(v >= 0 for v in got.timings.values())
+
+
+def test_leaf_query():
+    one = port(rgen.chain(1, 1))
+    got = teng.optimize(one, device="cpu")
+    assert got.plan.is_leaf and got.algorithm == "auto"
+
+
+# ------------------------------------------------------------ optimize_many --
+
+def test_optimize_many_mixes_batched_and_solo():
+    """n <= 16 queries batch, the 17-relation one goes solo."""
+    graphs = [rgen.chain(8, 1), rgen.cycle(7, 2), rgen.chain(17, 3),
+              rgen.musicbrainz_query(10, 4), rgen.star(6, 5)]
+    ref = rbatch.optimize_many(graphs, "auto")
+    got = teng.optimize_many([port(g) for g in graphs], "auto", device="cpu")
+    assert [r.algorithm for r in got] == \
+        ["batch_mpdp_tree", "batch_mpdp_general", "mpdp_tree",
+         "batch_mpdp_general", "batch_mpdp_tree"]
+    assert_same_results(graphs, ref, got)
+
+
+# --------------------------------------------------------- outside the slice --
+
+G6 = port(rgen.cycle(6, 1))
+OUTSIDE = {
+    "deadline": (G6, dict(config=OptimizerConfig(deadline_s=1.0))),
+    "lattice": (G6, dict(config=OptimizerConfig(lattice=True, devices=2))),
+    "typed": (port(rgen.typed_query(7, seed=2)), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(OUTSIDE))
+def test_outside_slice_raises(case):
+    g, kw = OUTSIDE[case]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        teng.optimize(g, device="cpu", **kw)
+
+
+def test_lattice_devices_kwarg_raises():
+    with pytest.warns(DeprecationWarning):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            teng.optimize(G6, lattice_devices=2, device="cpu")
+
+
+def test_no_card_raises_without_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teng.optimize(G6)

@@ -1,8 +1,10 @@
-"""The four batched kernels: plain PyTorch versions vs the JAX reference.
+"""The seven kernels: plain PyTorch versions vs the JAX reference.
 
 * each plain version (``repro_torch.kernels.ref``) equals the reference's
   jnp oracle (``repro.kernels.ref``) bit for bit, over the graphs of
-  ``tests/test_kernels.py`` and ragged lane counts;
+  ``tests/test_kernels.py`` and ragged lane counts — the batched kernels
+  on stacked tables (``KERNELS``), the solo-engine kernels on one query's
+  table at nmax 8, 16 and 24 (``SOLO_KERNELS``);
 * one small case per kernel against the Pallas kernel itself, run in
   interpret mode on the CPU as the reference's own tests run it;
 * the wrappers route CPU tensors to the plain version, count no launch
@@ -145,3 +147,144 @@ def test_cuda_kernel_matches_plain_version(name):
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert a.is_cuda and torch.equal(a, b), (name, table, L)
+
+
+# ===================================================== solo-engine kernels ==
+# One query's (nmax,) table shared by every lane.
+
+SOLO_KERNELS = {
+    "connectivity": (("S",), rref.connectivity_ref, tref.connectivity_ref,
+                     rpallas.connectivity),
+    "ccp_eval": (("S", "sub"), rref.ccp_eval_ref, tref.ccp_eval_ref,
+                 rpallas.ccp_eval),
+    "grow_pair": (("S", "lb", "rb"), rref.grow_pair_ref, tref.grow_pair_ref,
+                  rpallas.grow_pair),
+}
+# the tests/test_kernels.py graphs that fit each bucket, plus small ones at
+# nmax 8 and a 20-relation query at nmax 24
+TK_GRAPHS = TABLES["tk16"][1]
+SOLO_TABLES = {
+    8: lambda: [rgen.clique(7, 2), rgen.chain(8, 1), rgen.cycle(7, 2)],
+    16: TK_GRAPHS,
+    24: lambda: TK_GRAPHS() + [rgen.musicbrainz_query(20, 11)],
+}
+
+
+def make_solo_lanes(g, nmax: int, L: int, seed: int):
+    """numpy lanes over one query: S nonzero inside its n bits, sub any
+    rank below 2^30, lb a subset of S and rb a subset of S & ~lb."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros(nmax, np.int32)
+    for (u, v) in g.edges:
+        adj[u] |= 1 << v
+        adj[v] |= 1 << u
+    S = (rng.integers(1, 1 << 30, L) & ((1 << g.n) - 1)).astype(np.int32)
+    S[S == 0] = 1
+    lb = (S & rng.integers(0, 1 << 30, L)).astype(np.int32)
+    rb = (S & ~lb & rng.integers(0, 1 << 30, L)).astype(np.int32)
+    lanes = {"S": S, "sub": rng.integers(0, 1 << 30, L).astype(np.int32),
+             "lb": lb, "rb": rb}
+    return lanes, adj
+
+
+@pytest.mark.parametrize("nmax", list(SOLO_TABLES))
+@pytest.mark.parametrize("L", SIZES)
+@pytest.mark.parametrize("name", list(SOLO_KERNELS))
+def test_solo_plain_version_matches_reference(name, L, nmax):
+    # one graph per lane count, round robin: the sweep covers every graph
+    graphs = SOLO_TABLES[nmax]()
+    g = graphs[SIZES.index(L) % len(graphs)]
+    keys, jref, plain, _ = SOLO_KERNELS[name]
+    lanes, adj = make_solo_lanes(g, nmax, L, seed=L + 7 * nmax)
+    got = _as_tuple(plain(*[torch.from_numpy(lanes[k]) for k in keys],
+                          torch.from_numpy(adj), nmax))
+    want = _as_tuple(jref(*[jnp.asarray(lanes[k]) for k in keys],
+                          jnp.asarray(adj), nmax))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", list(SOLO_KERNELS))
+def test_solo_plain_version_matches_pallas_interpret(name):
+    nmax, L = 8, 129
+    lanes, adj = make_solo_lanes(rgen.cycle(7, 2), nmax, L, seed=13)
+    keys, _, plain, pallas = SOLO_KERNELS[name]
+    got = _as_tuple(plain(*[torch.from_numpy(lanes[k]) for k in keys],
+                          torch.from_numpy(adj), nmax))
+    want = _as_tuple(pallas(*[jnp.asarray(lanes[k]) for k in keys],
+                            jnp.asarray(adj), nmax=nmax, interpret=True))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", list(SOLO_KERNELS))
+def test_solo_wrapper_routes_cpu_tensors_to_plain_version(name):
+    nmax = 16
+    lanes, adj = make_solo_lanes(rgen.star(9, 1), nmax, 129, seed=5)
+    keys, _, plain, _ = SOLO_KERNELS[name]
+    args = [torch.from_numpy(lanes[k]) for k in keys] + [torch.from_numpy(adj)]
+    before = dict(ops.LAUNCHES)
+    got = _as_tuple(getattr(ops, name)(*args, nmax))
+    for a, b in zip(got, _as_tuple(plain(*args, nmax))):
+        assert torch.equal(a, b)
+    assert ops.LAUNCHES == before            # no kernel ran, none counted
+
+
+def test_solo_launch_checks_refuse_bad_inputs():
+    S = torch.zeros(16, dtype=torch.int32)
+    adj = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="adj must be"):
+        ops._launch("connectivity", (S,), adj[None, :], 8, 1)
+    with pytest.raises(ValueError, match="adj must be"):
+        ops._launch("ccp_eval", (S, S), adj, 16, 3)
+    with pytest.raises(ValueError, match="int32"):
+        ops._launch("grow_pair", (S, S.long(), S), adj, 8, 2)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops._launch("connectivity", (S,), torch.zeros(31, dtype=torch.int32),
+                    31, 1)
+    with pytest.raises(ValueError, match="devices"):
+        ops.grow_pair(S, S, S.to("meta"), adj, 8)
+
+
+# ----------------------------------------------------------------- card --
+
+SOLO_GPU_TABLES = {8: lambda: [rgen.cycle(7, 2)],
+                   16: lambda: [rgen.musicbrainz_query(12, 7)],
+                   24: lambda: [rgen.musicbrainz_query(20, 11)],
+                   30: lambda: [rgen.chain(25, 1), rgen.musicbrainz_query(26, 3)]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SOLO_KERNELS) + ["btree_eval_one_row"])
+def test_cuda_solo_kernel_matches_plain_version(name):
+    """The solo kernels, and ``btree_eval`` on the one-row table the solo
+    tree evaluate gives it, at every solo bucket up to nmax 30."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for nmax, graphs in SOLO_GPU_TABLES.items():
+        for g in graphs():
+            for L in (1, 129, 32767, 32768):
+                lanes, adj = make_solo_lanes(g, nmax, L, seed=L + nmax)
+                adj_d = torch.from_numpy(adj).cuda()
+                if name == "btree_eval_one_row":
+                    uv = np.array(g.edges)[np.arange(L) % g.m]
+                    args = [torch.from_numpy(x).cuda() for x in (
+                        lanes["S"], (1 << uv[:, 0]).astype(np.int32),
+                        (1 << uv[:, 1]).astype(np.int32),
+                        np.zeros(L, np.int32))]
+                    fn, plain, key = ops.btree_eval, tref.btree_eval_ref, "btree_eval"
+                    adj_d = adj_d[None, :].contiguous()
+                else:
+                    keys, _, plain, _ = SOLO_KERNELS[name]
+                    args = [torch.from_numpy(lanes[k]).cuda() for k in keys]
+                    fn, key = getattr(ops, name), name
+                n0 = ops.LAUNCHES[key]
+                got = _as_tuple(fn(*args, adj_d, nmax))
+                assert ops.LAUNCHES[key] == n0 + 1
+                want = _as_tuple(plain(*args, adj_d, nmax))
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert a.is_cuda and torch.equal(a, b), (name, nmax, g.n, L)
