@@ -7,15 +7,22 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the seven CUDA kernels against its plain PyTorch
-     version on the same card tensors, bit for bit, lanes built with numpy
-     from a seed over real generator graphs: the four batched kernels at
-     L = 32768 and the ragged L in {1, 129, 32767}, nmax in {8, 16}, bcap
-     in {4, 32}; the three solo-engine kernels, and ``btree_eval`` on the
-     one-row table the solo tree evaluate gives it, at the same L and
-     nmax in {8, 16, 24, 30}.  Times by CUDA events (kernel and plain
+  3. kernels — each of the nine CUDA entry points against its plain
+     PyTorch version on the same card tensors, bit for bit, lanes built
+     with numpy from a seed over real generator graphs: the four batched
+     kernels at L = 32768 and the ragged L in {1, 129, 32767}, nmax in
+     {8, 16}, bcap in {4, 32}; the three solo-engine kernels, and
+     ``btree_eval`` on the one-row table the solo tree evaluate gives it,
+     at the same L and nmax in {8, 16, 24, 30}; the two solo forms that
+     build their own lanes (``connectivity_span`` over a rank span,
+     ``ccp_eval_dpsub`` over a DPSUB chunk with dead and clamped lanes) at
+     count or chunk in {1, 129, 32767, 32768} and nmax in {8, 16, 24, 30},
+     and ``connectivity_span`` at d4's largest span (chain(25), level 12,
+     5,200,300 ranks at nmax 30).  Times by CUDA events (kernel and plain
      version) and the bound of each, at L = 32768 with nmax = 16, bcap = 32
-     (batched) or nmax = 24 (solo);
+     (batched) or nmax = 24 (solo); ``ccp_eval_dpsub`` on d3's real level
+     sets, ``connectivity_span`` at L = 32768 (printed) and at d4's span
+     (the JSON line);
   4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
      plan validated and every cost held against the host DPccp oracle
      (relative 1e-4), ``Counters`` and costs of stream (c) and the first
@@ -27,8 +34,9 @@ Phases, in order, none of them caught:
      then dpsize, dpccp, frontier expansion and ``optimize_many``'s solo
      route), each plan validated and each cost held against DPccp
      (relative 1e-4), d1, d3 and d5 against the ``device="cpu"`` run
-     (``Counters`` exact, costs relative 1e-5), launch counters read around
-     exactly this path; then a ``torch.profiler`` window over d1.
+     (``Counters`` exact, costs relative 1e-5), one ``connectivity_span``
+     launch per level span, launch counters read around exactly this
+     path; then a ``torch.profiler`` window over d1.
 The last three lines of standard output are a JSON object with one entry
 per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +47,7 @@ import re
 import subprocess
 import sys
 import time
+from math import comb
 
 import numpy as np
 
@@ -49,6 +58,7 @@ import torch  # noqa: E402
 
 from repro_torch.core import batch, dpccp, engine  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
+from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.plan import validate_plan  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
@@ -57,13 +67,21 @@ HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_S = 132 * 64 * 1.98e9       # 132 SMs x 64 INT32 lanes x 1.98 GHz
 OPS_PER_STEP = 3                      # one set-bit step: ffs, row load, OR
 OPS_PER_LANE = 12                     # per-lane decode, loads, stores
+UNRANK_OPS_PER_STEP = 4               # one unrank step: load C(v,kk), compare,
+                                      # subtract/OR, decrement
+DPSUB_DECODE_OPS = 6                  # add, shift, add, and, add, clamp
 L_MAIN = 32768                        # CHUNK: lanes per call on the main path
 DEV = torch.device("cuda")
 
 KERNELS = {
-    # name: (inputs, outputs, line of the Pallas kernel it replaces)
+    # name: (inputs, outputs, line of the Pallas kernel it replaces); the
+    # two forms that build their own lanes take no lane inputs
     "connectivity": (("S",), 1, "src/repro/kernels/ccp_eval.py:81"),
+    "connectivity_span": ((), 2, "src/repro/kernels/ccp_eval.py:81 + the "
+                          "unrank of src/repro/core/engine.py:72-85"),
     "ccp_eval": (("S", "sub"), 3, "src/repro/kernels/ccp_eval.py:65"),
+    "ccp_eval_dpsub": ((), 3, "src/repro/kernels/ccp_eval.py:65 + the DPSUB "
+                       "decode of src/repro/core/engine.py:179-188"),
     "grow_pair": (("S", "lb", "rb"), 2, "src/repro/kernels/ccp_eval.py:88"),
     "bconnectivity": (("S", "qid"), 1, "src/repro/kernels/ccp_eval.py:133"),
     "bccp_eval": (("S", "sub", "qid"), 3, "src/repro/kernels/ccp_eval.py:142"),
@@ -73,8 +91,13 @@ KERNELS = {
                       "src/repro/kernels/ccp_eval.py:184"),
 }
 SOLO = ("connectivity", "ccp_eval", "grow_pair")
+SPAN_FORMS = ("connectivity_span", "ccp_eval_dpsub")
 BATCHED = ("bconnectivity", "bccp_eval", "btree_eval", "bgeneral_eval")
 SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
+# what the solo path runs: the set-given connectivity left it for the span
+SOLO_PATH = SPAN_FORMS + ("ccp_eval", "grow_pair", "btree_eval")
+SYMBOL = {"connectivity": "connectivity_kernel<false>",
+          "connectivity_span": "connectivity_kernel<true>"}
 
 
 def log(*a):
@@ -133,10 +156,6 @@ def solo_inputs(g, nmax: int, L: int, seed: int):
     lb a subset of S, rb a subset of S & ~lb, (ub, vb) its edges' endpoints
     and qid 0 (the one-row table of the solo tree evaluate)."""
     rng = np.random.default_rng(seed)
-    adj = np.zeros(nmax, np.int32)
-    for (u, v) in g.edges:
-        adj[u] |= 1 << v
-        adj[v] |= 1 << u
     S = (rng.integers(1, 1 << 30, L) & ((1 << g.n) - 1)).astype(np.int32)
     S[S == 0] = 1
     lb = (S & rng.integers(0, 1 << 30, L)).astype(np.int32)
@@ -148,13 +167,70 @@ def solo_inputs(g, nmax: int, L: int, seed: int):
              "vb": (1 << uv[:, 1]).astype(np.int32),
              "qid": np.zeros(L, np.int32)}
     return ({k: torch.from_numpy(v).to(DEV) for k, v in lanes.items()},
-            torch.from_numpy(adj).to(DEV))
+            adj_table(g, nmax))
 
 
-def call(name, lanes, adj, nmax, plain=False):
-    args = [lanes[k] for k in KERNELS[name][0]]
+def adj_table(g, nmax: int):
+    """One query's int32[nmax] adjacency table on the card."""
+    adj = np.zeros(nmax, np.int32)
+    for (u, v) in g.edges:
+        adj[u] |= 1 << v
+        adj[v] |= 1 << u
+    return torch.from_numpy(adj).to(DEV)
+
+
+def binom_on_card(nmax: int):
+    return torch.from_numpy(ur.binom_table(nmax)).to(DEV)
+
+
+def span_inputs(g, nmax: int, count: int, seed: int):
+    """connectivity_span arguments: ``count`` ranks of the query's middle
+    level from a random start (past the level's end where the level is
+    smaller than ``count``: such ranks unrank all the same)."""
+    k = g.n // 2
+    rng = np.random.default_rng(seed)
+    rank0 = int(rng.integers(0, max(1, comb(g.n, k) - count)))
+    return (k, rank0, count, binom_on_card(nmax), adj_table(g, nmax), nmax)
+
+
+def dpsub_inputs(g, nmax: int, chunk: int, seed: int):
+    """ccp_eval_dpsub arguments over a list of 4096 sets inside the query's
+    n bits, from a random (set, subset) start: at small i the chunk runs
+    past the list's end (dead lanes, then the clamped gather)."""
+    rng = np.random.default_rng(seed)
+    i = int(rng.integers(2, g.n + 1))
+    all_sets = rng.integers(1, 1 << g.n, 4096).astype(np.int32)
+    return (torch.from_numpy(all_sets).to(DEV), int(rng.integers(0, 2048)),
+            int(rng.integers(0, 2048)), int(rng.integers(0, 1 << i)), i,
+            adj_table(g, nmax), nmax, chunk)
+
+
+def d4_span():
+    """d4's largest filter span: chain(25), level 12, all 5,200,300 ranks."""
+    g = gen.chain(25, seed=1)
+    return (12, 0, comb(25, 12), binom_on_card(30), adj_table(g, 30), 30)
+
+
+def d3_chunk():
+    """The first chunk of d3's busiest DPSUB level (the most lanes): the
+    level's connected sets as all_sets, as the engine lays them out."""
+    g = gen.musicbrainz_query(17, seed=11)
+    adj, binom = adj_table(g, 24), binom_on_card(24)
+    levels = {}
+    for i in range(2, g.n + 1):
+        S, conn = ref.connectivity_span_ref(i, 0, comb(g.n, i), binom, adj, 24)
+        levels[i] = S[conn != 0]
+    i = max(levels, key=lambda i: len(levels[i]) << i)
+    return (levels[i].contiguous(), 0, 0, 0, i, adj, 24, L_MAIN)
+
+
+def lane_args(name, lanes, adj, nmax):
+    return (*[lanes[k] for k in KERNELS[name][0]], adj, nmax)
+
+
+def call(name, args, plain=False):
     fn = getattr(ref, f"{name}_ref") if plain else getattr(ops, name)
-    out = fn(*args, adj, nmax)
+    out = fn(*args)
     return out if isinstance(out, tuple) else (out,)
 
 
@@ -215,10 +291,10 @@ def op_count(name, lanes, adj, nmax) -> int:
         + OPS_PER_LANE * S.numel()
 
 
-def check(name, lanes, adj, nmax, where: str) -> int:
+def check(name, args, where: str) -> int:
     """Kernel vs plain version on the same card tensors, bit for bit."""
-    got = call(name, lanes, adj, nmax)
-    want = call(name, lanes, adj, nmax, plain=True)
+    got = call(name, args)
+    want = call(name, args, plain=True)
     torch.cuda.synchronize()
     err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
               if a.numel() else 0 for a, b in zip(got, want))
@@ -228,14 +304,47 @@ def check(name, lanes, adj, nmax, where: str) -> int:
     return err
 
 
-def measure(name, lanes, adj, nmax, row: dict) -> None:
-    """Card time per launch, plain-version time and the bound, into row."""
+def lane_work(name, lanes, adj, nmax):
+    """(bytes, int32 operations) of a lane kernel's call on these lanes."""
     n_in, n_out, _ = KERNELS[name]
-    L = lanes["S"].numel()
-    ms = event_ms(lambda: call(name, lanes, adj, nmax), 100)
-    plain_ms = event_ms(lambda: call(name, lanes, adj, nmax, plain=True), 10)
-    nbytes = 4 * L * (len(n_in) + n_out) + adj.numel() * 4
-    ops_n = op_count(name, lanes, adj, nmax)
+    nbytes = 4 * lanes["S"].numel() * (len(n_in) + n_out) + adj.numel() * 4
+    return nbytes, op_count(name, lanes, adj, nmax)
+
+
+def span_work(args):
+    """(bytes, int32 operations) of a connectivity_span call: S and conn
+    written, the tables read; per lane the unrank steps it takes (from
+    v = nmax - 1 down to S's lowest bit, where kk reaches 0) and the
+    connectivity walk."""
+    k, rank0, count, binom, adj, nmax = args
+    S, _ = call("connectivity_span", args, plain=True)
+    tz = bs.popcount(bs.lsb(S) - 1)
+    steps = torch.where(S != 0, nmax - tz, 0)
+    nbytes = 8 * count + 4 * (binom.numel() + adj.numel())
+    return nbytes, (int(steps.to(torch.int64).sum()) * UNRANK_OPS_PER_STEP
+                    + op_count("connectivity", {"S": S}, adj, nmax))
+
+
+def dpsub_work(args):
+    """(bytes, int32 operations) of a ccp_eval_dpsub call: lb, rb and ccp
+    written, each distinct set entry and the table read; per lane the
+    decode and the ccp_eval walks."""
+    all_sets, level_off, base_set, base_sub, i, adj, nmax, chunk = args
+    t = torch.arange(chunk, dtype=torch.int32, device=adj.device)
+    sub_g = base_sub + t
+    idx = (level_off + base_set + (sub_g >> i)).clamp(0, all_sets.numel() - 1)
+    lanes = {"S": all_sets[idx], "sub": sub_g & ((1 << i) - 1)}
+    nbytes = 12 * chunk + 4 * (torch.unique(idx).numel() + adj.numel())
+    return nbytes, (op_count("ccp_eval", lanes, adj, nmax)
+                    + DPSUB_DECODE_OPS * chunk)
+
+
+def measure(name, args, row: dict, work) -> None:
+    """Card time per launch, plain-version time and the bound of
+    ``work = (bytes, int32 operations)``, into row."""
+    nbytes, ops_n = work
+    ms = event_ms(lambda: call(name, args), 100)
+    plain_ms = event_ms(lambda: call(name, args, plain=True), 10)
     t_b = nbytes / HBM_BYTES_S * 1e3
     t_o = ops_n / INT32_OPS_S * 1e3
     row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, int32_ops=ops_n,
@@ -253,11 +362,12 @@ def phase_kernels():
                 lanes, adj = kernel_inputs(graphs, bcap, nmax, L,
                                            seed=nmax * 1000 + bcap * 10 + L)
                 for name in BATCHED:
-                    err = check(name, lanes, adj, nmax,
-                                f"nmax={nmax} bcap={bcap} L={L}")
+                    args = lane_args(name, lanes, adj, nmax)
+                    err = check(name, args, f"nmax={nmax} bcap={bcap} L={L}")
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
                     if (nmax, bcap, L) == (16, 32, L_MAIN):
-                        measure(name, lanes, adj, nmax, rows[name])
+                        measure(name, args, rows[name],
+                                lane_work(name, lanes, adj, nmax))
                 log(f"kernels ok nmax={nmax} bcap={bcap} L={L}")
     for nmax in (8, 16, 24, 30):
         for gi, g in enumerate(solo_graphs(nmax)):
@@ -265,19 +375,52 @@ def phase_kernels():
                 lanes, adj = solo_inputs(g, nmax, L, seed=nmax * 1000 + gi * 10 + L)
                 for name in SOLO_CHECKED:
                     table = adj[None, :].contiguous() if name == "btree_eval" else adj
-                    err = check(name, lanes, table, nmax,
+                    args = lane_args(name, lanes, table, nmax)
+                    err = check(name, args,
                                 f"nmax={nmax} n={g.n} L={L} (one table)")
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
                     if (nmax, gi, L) == (24, 0, L_MAIN) and name in SOLO:
-                        measure(name, lanes, adj, nmax, rows[name])
+                        measure(name, args, rows[name],
+                                lane_work(name, lanes, adj, nmax))
+                for name, args in (("connectivity_span",
+                                    span_inputs(g, nmax, L, seed=L + nmax)),
+                                   ("ccp_eval_dpsub",
+                                    dpsub_inputs(g, nmax, L, seed=L + nmax))):
+                    err = check(name, args, f"nmax={nmax} n={g.n} L={L} "
+                                f"(lanes built in the kernel)")
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+                    if (nmax, gi, L, name) == (24, 0, L_MAIN, "connectivity_span"):
+                        at_l = {}
+                        measure(name, args, at_l, span_work(args))
+                        log_row(name, at_l, f"count={L} k={args[0]} nmax=24")
                 log(f"solo kernels ok nmax={nmax} n={g.n} L={L}")
+    # the main path's own shapes: d4's largest span, d3's busiest level
+    args = d4_span()
+    rows["connectivity_span"]["max_abs_err"] = max(
+        rows["connectivity_span"]["max_abs_err"],
+        check("connectivity_span", args, "d4 level 12 span"))
+    measure("connectivity_span", args, rows["connectivity_span"], span_work(args))
+    args = d3_chunk()
+    rows["ccp_eval_dpsub"]["max_abs_err"] = max(
+        rows["ccp_eval_dpsub"]["max_abs_err"],
+        check("ccp_eval_dpsub", args, "d3 busiest level"))
+    measure("ccp_eval_dpsub", args, rows["ccp_eval_dpsub"], dpsub_work(args))
+    log(f"solo kernels ok at d4's level-12 span and d3's level-{args[4]} chunk")
     for name, row in rows.items():
-        at = "nmax=24 (one table)" if name in SOLO else "nmax=16 bcap=32"
-        log(f"kernel {name}: {row['ms'] * 1e3:.2f} us/launch, plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us "
-            f"({row['bound_by']}: {row['bytes']} B, {row['int32_ops']} int32 ops) "
-            f"at L={L_MAIN} {at}")
+        at = ("nmax=24 (one table)" if name in SOLO else
+              "count=5200300 k=12 nmax=30 (d4's level-12 span)"
+              if name == "connectivity_span" else
+              f"L={L_MAIN} nmax=24 i={args[4]} (d3's busiest level)"
+              if name == "ccp_eval_dpsub" else "nmax=16 bcap=32")
+        log_row(name, row, at)
     return rows
+
+
+def log_row(name, row, at):
+    log(f"kernel {name}: {row['ms'] * 1e3:.2f} us/launch, plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us "
+        f"({row['bound_by']}: {row['bytes']} B, {row['int32_ops']} int32 ops) "
+        f"at {at}")
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -357,7 +500,8 @@ def profile(label: str, fn, names):
         log(f"profile  {us / 1e3:10.2f} ms {n:7d} x  {key[:100]}")
     for key, (n, us) in top:
         for k in names:
-            if not re.search(rf"(^|[^A-Za-z0-9_]){k}_kernel\b", key):
+            sym = re.escape(SYMBOL.get(k, f"{k}_kernel"))
+            if not re.search(rf"(^|[^A-Za-z0-9_]){sym}(?![A-Za-z0-9_])", key):
                 continue
             log(f"profile kernel {k}: {n} launches, "
                 f"{us / n:.2f} us each, {us / 1e3:.3f} ms = "
@@ -413,6 +557,12 @@ def run_solo(label, g, algorithm, opts, vs_cpu):
         + json.dumps({k: round(v, 4) for k, v in r.timings.items()})
         + "; launches " + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()
                                       if v != before[k]}))
+    if algorithm != "dpccp" and opts.get("enum", "unrank") == "unrank":
+        spans = sum(-(-comb(g.n, i) // engine.SPAN) for i in range(2, g.n + 1))
+        got = ops.LAUNCHES["connectivity_span"] - before["connectivity_span"]
+        if got != spans:
+            raise AssertionError(f"solo {label}: {got} connectivity_span "
+                                 f"launches for {spans} level spans")
     t1 = time.perf_counter()
     c = engine.optimize(g, algorithm, device="cpu", **opts) if vs_cpu else None
     u = hold(f"solo {label}", g, r, c)
@@ -495,14 +645,14 @@ def main() -> int:
     run_solo_many(stream_c)
     solo = dict(ops.LAUNCHES)
     log("launches on the solo path: " + json.dumps(solo))
-    missing = [k for k in SOLO_CHECKED if solo[k] <= 0]
+    missing = [k for k in SOLO_PATH if solo[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the solo path: {missing}")
     log(f"max_memory_allocated (solo path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
     torch.cuda.empty_cache()
     d1 = parts[0]
-    profile("solo d1", lambda: engine.optimize(d1[1], d1[2]), SOLO_CHECKED)
+    profile("solo d1", lambda: engine.optimize(d1[1], d1[2]), SOLO_PATH)
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",

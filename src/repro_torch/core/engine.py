@@ -4,12 +4,14 @@ the batched engine shares.
 The port of ``repro.core.engine``.  The pipeline *unrank -> filter ->
 evaluate -> prune -> scatter* runs on the engine's torch device:
 
-  unrank    combinatorial-number-system unranking of a rank chunk; the
-            ``connectivity`` kernel masks the connected sets and the host
-            compacts them (``enum="expand"`` grows the previous level's
-            sets by one neighbour instead)
+  unrank    the ``connectivity_span`` kernel unranks a span of up to
+            ``SPAN`` colex ranks of one level (combinatorial number
+            system) and tests each set's connectivity in one launch; the
+            host compacts the connected ones (``enum="expand"`` grows the
+            previous level's sets by one neighbour instead)
   evaluate  one flat lane space per DP level, in fixed-size chunks: DPSUB
-            ``sets x 2^i`` (``ccp_eval`` kernel), MPDP:Tree ``sets x m``
+            ``sets x 2^i`` (``ccp_eval_dpsub``, which decodes the chunk's
+            lanes itself), MPDP:Tree ``sets x m``
             (``btree_eval`` with a one-row table), MPDP-general over the
             block prefix-sum of phase-A (set, block) pairs (``ccp_eval`` on
             the block, then ``grow_pair``), DPSIZE over level pairs
@@ -54,6 +56,7 @@ INF = np.float32(np.inf)
 _I32 = torch.int32
 _I32_MIN = int(np.iinfo(np.int32).min)
 _CLIP = 1 << 30          # offset clip keeps chunk-local offsets int32
+SPAN = 1 << 24           # ranks per filter launch (S and conn: 128 MiB)
 
 
 def _cap(n: int, lo: int = 1024) -> int:
@@ -146,17 +149,6 @@ def _lanes(chunk: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(chunk, dtype=_I32, device=like.device)
 
 
-def _filter_chunk(rank0: int, total: int, k: int, binom, adj, *, nmax: int,
-                  chunk: int):
-    """Unrank ranks ``rank0 + t`` of the k-subsets and mask the connected
-    ones (rows are costed on the host afterwards)."""
-    ranks = rank0 + _lanes(chunk, adj)
-    mask = ranks < total
-    S = ur.unrank_ksubset(ranks.clamp(max=total - 1), k, binom, nmax)
-    conn = (ops.connectivity(S, adj, nmax) != 0) & mask
-    return S, conn
-
-
 def _expand_chunk(sets_pad, n_valid: int, adj, *, nmax: int, cap: int):
     """Grow each live set by one neighbour: ``(cap, nmax)`` candidates, 0
     where there is none (the host dedups)."""
@@ -180,16 +172,15 @@ def _eval_dpsub_chunk(all_sets, level_off: int, base_set: int, base_sub: int,
                       i: int, lane_count: int, adj, memo_cost, memo_rows, *,
                       nmax: int, chunk: int, nseg: int):
     t = _lanes(chunk, adj)
-    sub_g = base_sub + t
-    set_idx = base_set + (sub_g >> i)
-    sub = sub_g & ((1 << i) - 1)
+    seg = (base_sub + t) >> i                   # lane's set index - base_set
     live = t < lane_count
-    S = _take(all_sets, level_off + set_idx)
-    lb, rb, ccp_i = ops.ccp_eval(S, sub, adj, nmax)
+    lb, rb, ccp_i = ops.ccp_eval_dpsub(all_sets, level_off, base_set,
+                                       base_sub, i, adj, nmax, chunk)
+    S = lb | rb
     ccp = live & (ccp_i != 0)
     cand = torch.where(ccp, _lane_cost(lb, rb, memo_rows[S], memo_cost,
                                        memo_rows), float(INF))
-    seg_cost, seg_left = _prune(set_idx - base_set, cand, lb, nseg)
+    seg_cost, seg_left = _prune(seg, cand, lb, nseg)
     return seg_cost, seg_left, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
 
 
@@ -355,20 +346,17 @@ class ExactEngine:
         return sets_np
 
     def _level_sets_unrank(self, i: int):
-        """Paper Alg.5: unrank the full C(n, i) space, mask connectivity.
-        Colex rank order is ascending bitmap order, and the compaction keeps
-        it."""
+        """Paper Alg.5: unrank the full C(n, i) space, mask connectivity,
+        one ``connectivity_span`` launch and one copy back per ``SPAN``
+        ranks.  Colex rank order is ascending bitmap order, and the
+        compaction keeps it."""
         total = comb(self.n, i)
         sets_l = []
-        for rank0 in range(0, total, self.chunk):
-            S, conn = _filter_chunk(rank0, total, i, self.binom, self.dg.adj,
-                                    nmax=self.nmax, chunk=self.chunk)
-            got = S[conn].cpu().numpy()
-            if len(got):
-                sets_l.append(got)
-        if sets_l:
-            return np.concatenate(sets_l)
-        return np.zeros(0, np.int32)
+        for rank0 in range(0, total, SPAN):
+            S, conn = ops.connectivity_span(i, rank0, min(SPAN, total - rank0),
+                                            self.binom, self.dg.adj, self.nmax)
+            sets_l.append(S[conn != 0].cpu().numpy())
+        return np.concatenate(sets_l)
 
     def _level_sets_expand(self, i: int):
         """Beyond-paper: expand level i-1 connected sets by one neighbour and

@@ -26,7 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rt_connectivity": [_P, _P, _P, _I, _I, _P],
+    "rt_connectivity_span": [_I, _I, _I, _P, _P, _P, _P, _I, _P],
     "rt_ccp_eval": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "rt_ccp_eval_dpsub": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "rt_grow_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rt_bconnectivity": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rt_bccp_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

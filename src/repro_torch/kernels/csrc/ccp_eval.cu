@@ -1,14 +1,23 @@
 // MPDP filter/evaluate kernels for NVIDIA Hopper (sm_90a).
 //
-// Seven kernels, one thread per lane, replacing the Pallas TPU kernels of
-// src/repro/kernels/ccp_eval.py.  Three serve the solo engine and read one
-// query's (nmax,) adjacency table:
+// One thread per lane, replacing the Pallas TPU kernels of
+// src/repro/kernels/ccp_eval.py.  Five entry points serve the solo engine
+// and read one query's (nmax,) adjacency table:
 //
 //   ccp_eval_kernel       <- ccp_eval_kernel      (ccp_eval.py:65)
 //                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp;
 //                            also the block-level test of MPDP-general
+//   ccp_eval_dpsub_kernel <- ccp_eval_kernel      (ccp_eval.py:65) with the
+//                            DPSUB lane decode of the reference's
+//                            _eval_dpsub_chunk (core/engine.py:179-188):
+//                            S = all_sets[clamp(level_off + set_idx)], then
+//                            as ccp_eval_kernel
 //   connectivity_kernel   <- connectivity_kernel  (ccp_eval.py:81)
-//                            filter lane: is G[S] connected
+//     <given>                filter lane: is G[S] connected, S in memory
+//     <ranked>               with the unrank of the reference's
+//                            _filter_chunk (core/engine.py:72-85): S is the
+//                            colex rank rank0 + t of the k-subsets, unranked
+//                            in registers; writes S and conn
 //   grow_pair_kernel      <- grow_pair_kernel     (ccp_eval.py:88)
 //                            MPDP-general split: S_left = grow(lb) in S & ~rb,
 //                            S_right = S & ~S_left
@@ -37,7 +46,11 @@
 // moves about 0.3-0.9 MB and does 0.5-3 million int32 operations, so both
 // the byte bound (3.35 TB/s) and the int32 bound are well under a
 // microsecond: a call is bound by launch latency and by the serial
-// dependency chain of one lane's walks, not by bytes or ALU.
+// dependency chain of one lane's walks, not by bytes or ALU.  The ranked
+// connectivity form reads no lanes at all and writes 8 bytes a lane; its
+// unrank adds up to nmax dependent steps (a shared-memory load of C(v, kk),
+// a compare, a subtract) a lane, so over a whole level (5.2 M ranks at
+// nmax 30) it is bound by int32 operations.
 //
 // What the design does about it.
 //   * One thread per lane, coalesced int32 loads and stores; the kernel
@@ -51,16 +64,35 @@
 //     BFS that stops at its fixed point instead of running nmax fixed
 //     sweeps.  The fixed point is the same set, so the bits are the same.
 //   * The ccp test short-circuits: empty sides skip the two grows.
+//   * The filter unranks in the kernel.  One launch covers a whole level
+//     span (up to 2^24 ranks) with a grid-stride loop over a grid of as
+//     many 256-thread blocks as are resident on the card at once (occupancy
+//     x SM count), so each SM holds its full complement of warps to hide a
+//     lane's dependent shared-memory loads, and the (nmax+1)^2 binomial
+//     table (<= 3,844 bytes) is staged in shared memory once per block.
+//   * The DPSUB evaluate decodes its lanes in the kernel (no index tensors
+//     built around it).  Sets vary slowest, so from i >= 5 the 32 lanes of a
+//     warp share S and the pdep walk over S's bits takes the same trip count
+//     on every lane.
 //
 // Plain C interface (bound with ctypes): each rt_* function launches on the
 // given stream and returns cudaGetLastError() as an int (0 = success).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kNmaxHard = 30;   // widest bitmap the exact engines use
+constexpr int kWideThreads = 256;   // connectivity and ccp_eval_dpsub
+constexpr int kNmaxHard = 30;       // widest bitmap the exact engines use
+constexpr int kBinomHard = (kNmaxHard + 1) * (kNmaxHard + 1);
+
+// int32 addition that wraps as torch's int32 tensors do (two's complement).
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
 
 // ------------------------------------------------------------ lane library --
 
@@ -140,6 +172,25 @@ __device__ __forceinline__ bool connected(int s, const int* row, int nmask) {
   return grow(lsb(s), s, row, nmask) == s;
 }
 
+// Colex unrank (core/unrank.py): the r-th k-subset of {0..nmax-1}, from
+// v = nmax - 1 down, taking v when r >= C(v, kk).  binom is the row-major
+// (nmax+1)^2 table.  The loop stops once kk is 0, where the reference's
+// remaining steps take nothing.
+__device__ __forceinline__ int unrank(int r, int k, const int* binom,
+                                      int nmax) {
+  int out = 0;
+  int kk = k;
+  for (int v = nmax - 1; v >= 0 && kk > 0; --v) {
+    int c = binom[v * (nmax + 1) + kk];
+    if (r >= c) {
+      out |= 1 << v;
+      r -= c;
+      --kk;
+    }
+  }
+  return out;
+}
+
 __device__ __forceinline__ int ccp(int lb, int rb, const int* row,
                                    int nmask) {
   if (lb == 0 || rb == 0) return 0;
@@ -168,15 +219,35 @@ __device__ __forceinline__ void stage_table(int* sadj, const int* adj,
 
 // ------------------------------------------------------- solo-engine kernels --
 
-__global__ void connectivity_kernel(const int* __restrict__ S,
-                                    const int* __restrict__ adj,
-                                    int* __restrict__ conn, int L, int nmax) {
+// Both forms of the filter: the sets given in memory (kRanked false: S_in),
+// or the colex ranks rank0 + t of the k-subsets unranked in registers
+// (kRanked true: binom, S_out).  Grid-stride over L lanes.
+template <bool kRanked>
+__global__ void __launch_bounds__(kWideThreads)
+connectivity_kernel(const int* __restrict__ S_in, int rank0, int k,
+                    const int* __restrict__ binom,
+                    const int* __restrict__ adj, int* __restrict__ S_out,
+                    int* __restrict__ conn, int L, int nmax) {
   __shared__ int sadj[kNmaxHard];
-  stage_table(sadj, adj, nmax);
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= L) return;
-  int nmask = (1 << nmax) - 1;
-  conn[t] = connected(S[t], sadj, nmask);
+  __shared__ int sbinom[kRanked ? kBinomHard : 1];
+  if constexpr (kRanked) {
+    for (int i = threadIdx.x; i < (nmax + 1) * (nmax + 1); i += blockDim.x)
+      sbinom[i] = binom[i];
+  }
+  stage_table(sadj, adj, nmax);          // ends in __syncthreads()
+  const int nmask = (1 << nmax) - 1;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x; t < L; t += stride) {
+    int s;
+    if constexpr (kRanked) {
+      s = unrank(rank0 + static_cast<int>(t), k, sbinom, nmax);
+      S_out[t] = s;
+    } else {
+      s = S_in[t];
+    }
+    conn[t] = connected(s, sadj, nmask);
+  }
 }
 
 __global__ void ccp_eval_kernel(const int* __restrict__ S,
@@ -192,6 +263,33 @@ __global__ void ccp_eval_kernel(const int* __restrict__ S,
   int nmask = (1 << nmax) - 1;
   int s = S[t];
   int lb = pdep(sub[t], s, nmask);
+  int rb = s & ~lb;
+  lb_out[t] = lb;
+  rb_out[t] = rb;
+  ccp_out[t] = ccp(lb, rb, sadj, nmask);
+}
+
+// DPSUB lane t of a chunk: sub_g = base_sub + t, set_idx = base_set +
+// (sub_g >> i), sub = sub_g & (2^i - 1), S = all_sets[clamp(level_off +
+// set_idx, 0, n_sets - 1)] (the reference's clamped gather, int32 wrap as
+// in torch), then the ccp_eval lane.  Dead lanes of the chunk are decoded
+// the same way; the caller masks them.
+__global__ void __launch_bounds__(kWideThreads)
+ccp_eval_dpsub_kernel(const int* __restrict__ all_sets, int n_sets,
+                      int level_off, int base_set, int base_sub, int i,
+                      const int* __restrict__ adj, int* __restrict__ lb_out,
+                      int* __restrict__ rb_out, int* __restrict__ ccp_out,
+                      int L, int nmax) {
+  __shared__ int sadj[kNmaxHard];
+  stage_table(sadj, adj, nmax);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  int nmask = (1 << nmax) - 1;
+  int sub_g = wrap_add(base_sub, t);
+  int set_idx = wrap_add(base_set, sub_g >> i);
+  int sub = sub_g & ((1 << i) - 1);
+  int s = all_sets[min(max(wrap_add(level_off, set_idx), 0), n_sets - 1)];
+  int lb = pdep(sub, s, nmask);
   int rb = s & ~lb;
   lb_out[t] = lb;
   rb_out[t] = rb;
@@ -296,6 +394,28 @@ __global__ void bgeneral_eval_kernel(const int* __restrict__ S,
 
 inline dim3 grid_for(int L) { return dim3((L + kThreads - 1) / kThreads); }
 
+// Grid of a grid-stride kernel: the blocks resident on the card at once
+// (occupancy x SM count, read once per device and kernel), or fewer when L
+// needs fewer.
+struct ResidentGrid {
+  int device = -1;
+  int blocks = 1;
+};
+
+inline dim3 grid_stride_for(const void* kernel, ResidentGrid& cache, int L) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (cache.device != dev) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kWideThreads, 0);
+    cache.blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+    cache.device = dev;
+  }
+  return dim3(std::min(cache.blocks, (L + kWideThreads - 1) / kWideThreads));
+}
+
 inline size_t smem_for(int bcap, int nmax) {
   return static_cast<size_t>(bcap) * nmax * sizeof(int);
 }
@@ -312,9 +432,24 @@ const char* rt_error_string(int code) {
 
 int rt_connectivity(const int* S, const int* adj, int* conn, int L, int nmax,
                     void* stream) {
-  connectivity_kernel<<<grid_for(L), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(S, adj, conn, L,
-                                                             nmax);
+  static ResidentGrid cache;
+  dim3 grid = grid_stride_for(
+      reinterpret_cast<const void*>(&connectivity_kernel<false>), cache, L);
+  connectivity_kernel<false><<<grid, kWideThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      S, 0, 0, nullptr, adj, nullptr, conn, L, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_connectivity_span(int rank0, int k, int count, const int* binom,
+                         const int* adj, int* S, int* conn, int nmax,
+                         void* stream) {
+  static ResidentGrid cache;
+  dim3 grid = grid_stride_for(
+      reinterpret_cast<const void*>(&connectivity_kernel<true>), cache, count);
+  connectivity_kernel<true><<<grid, kWideThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      nullptr, rank0, k, binom, adj, S, conn, count, nmax);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,6 +458,17 @@ int rt_ccp_eval(const int* S, const int* sub, const int* adj, int* lb,
   ccp_eval_kernel<<<grid_for(L), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(S, sub, adj, lb, rb,
                                                          ccp_out, L, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_ccp_eval_dpsub(const int* all_sets, int n_sets, int level_off,
+                      int base_set, int base_sub, int i, const int* adj,
+                      int* lb, int* rb, int* ccp_out, int L, int nmax,
+                      void* stream) {
+  ccp_eval_dpsub_kernel<<<(L + kWideThreads - 1) / kWideThreads, kWideThreads,
+                          0, static_cast<cudaStream_t>(stream)>>>(
+      all_sets, n_sets, level_off, base_set, base_sub, i, adj, lb, rb,
+      ccp_out, L, nmax);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,10 @@
 Each wrapper takes int32 lane tensors and an adjacency table: one query's
 ``int32[nmax]`` for the solo-engine kernels (``connectivity``,
 ``ccp_eval``, ``grow_pair``), the stacked ``int32[bcap, nmax]`` for the
-batched ones.  Tensors on the CPU go to the plain PyTorch version in
+batched ones.  Two solo forms build their lanes in the kernel instead:
+``connectivity_span`` unranks a span of colex ranks (the filter of one
+level), ``ccp_eval_dpsub`` decodes a DPSUB chunk's lanes from the level's
+set list.  Tensors on the CPU go to the plain PyTorch version in
 ``ref``; tensors on a CUDA device go to the kernel, or the wrapper raises
 (wrong dtype, shape, layout or mixed devices, or a refused launch).  There
 is no fallback from one to the other.
@@ -22,11 +25,12 @@ import torch
 
 from . import build, ref
 
-LAUNCHES = {"connectivity": 0, "ccp_eval": 0, "grow_pair": 0,
-            "bconnectivity": 0, "bccp_eval": 0, "btree_eval": 0,
-            "bgeneral_eval": 0}
+LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
+            "ccp_eval_dpsub": 0, "grow_pair": 0, "bconnectivity": 0,
+            "bccp_eval": 0, "btree_eval": 0, "bgeneral_eval": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
 _SMEM_LIMIT = 48 * 1024       # static dynamic-shared-memory budget per block
+_I32_MAX = (1 << 31) - 1
 
 
 def reset_launches() -> None:
@@ -54,29 +58,96 @@ def _launch(name: str, lanes, adj, nmax: int, n_out: int):
                 or not t.is_contiguous():
             raise ValueError(f"{name}: lanes must be contiguous int32[{L}], "
                              f"got {t.dtype}{tuple(t.shape)}")
-    single = name in _SINGLE
-    if adj.dtype != torch.int32 or adj.dim() != (1 if single else 2) \
-            or adj.shape[-1] != nmax or not adj.is_contiguous():
-        spec = f"[{nmax}]" if single else f"[bcap, {nmax}]"
-        raise ValueError(f"{name}: {'adj' if single else 'adj_b'} must be "
-                         f"contiguous int32{spec}, got {adj.dtype}{tuple(adj.shape)}")
-    bcap = 1 if single else adj.shape[0]
-    if not 1 <= nmax <= 30 or bcap < 1 or bcap * nmax * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{name}: unsupported table shape {tuple(adj.shape)}")
+    if name in _SINGLE:
+        _check_table(name, adj, nmax)
+        dims = (L, nmax)
+    else:
+        if adj.dtype != torch.int32 or adj.dim() != 2 \
+                or adj.shape[-1] != nmax or not adj.is_contiguous():
+            raise ValueError(f"{name}: adj_b must be contiguous int32[bcap, "
+                             f"{nmax}], got {adj.dtype}{tuple(adj.shape)}")
+        bcap = adj.shape[0]
+        if not 1 <= nmax <= 30 or bcap < 1 or bcap * nmax * 4 > _SMEM_LIMIT:
+            raise ValueError(f"{name}: unsupported table shape {tuple(adj.shape)}")
+        dims = (L, bcap, nmax)
     outs = [torch.empty_like(lanes[0]) for _ in range(n_out)]
     if L == 0:
         return outs
+    _run(name, lanes[0].device, *[t.data_ptr() for t in lanes],
+         adj.data_ptr(), *[o.data_ptr() for o in outs], *dims)
+    return outs
+
+
+def _run(name: str, device, *args) -> None:
+    """Call ``rt_<name>`` on the current stream; raise if it was refused."""
     lib = build.library()
-    stream = torch.cuda.current_stream(lanes[0].device).cuda_stream
-    dims = (L, nmax) if single else (L, bcap, nmax)
-    rc = getattr(lib, f"rt_{name}")(
-        *[t.data_ptr() for t in lanes], adj.data_ptr(),
-        *[o.data_ptr() for o in outs], *dims, stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, f"rt_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed: "
                            f"{lib.rt_error_string(rc).decode()}")
     LAUNCHES[name] += 1
-    return outs
+
+
+def _check_table(name: str, adj, nmax: int) -> None:
+    if adj.dtype != torch.int32 or adj.dim() != 1 or adj.shape[0] != nmax \
+            or not adj.is_contiguous():
+        raise ValueError(f"{name}: adj must be contiguous int32[{nmax}], "
+                         f"got {adj.dtype}{tuple(adj.shape)}")
+    if not 1 <= nmax <= 30:
+        raise ValueError(f"{name}: unsupported table shape {tuple(adj.shape)}")
+
+
+def _check_int32(name: str, **scalars) -> None:
+    for key, v in scalars.items():
+        if not 0 <= v <= _I32_MAX:
+            raise ValueError(f"{name}: {key} = {v} is outside [0, 2^31)")
+
+
+def _launch_span(k: int, rank0: int, count: int, binom, adj, nmax: int):
+    """Check the arguments, allocate (S, conn) and launch
+    ``rt_connectivity_span``."""
+    name = "connectivity_span"
+    _check_table(name, adj, nmax)
+    if binom.dtype != torch.int32 or tuple(binom.shape) != (nmax + 1, nmax + 1) \
+            or not binom.is_contiguous():
+        raise ValueError(f"{name}: binom must be contiguous int32"
+                         f"[{nmax + 1}, {nmax + 1}], got "
+                         f"{binom.dtype}{tuple(binom.shape)}")
+    if not 0 <= k <= nmax:
+        raise ValueError(f"{name}: k = {k} is outside [0, {nmax}]")
+    _check_int32(name, rank0=rank0, count=count, span_end=rank0 + count)
+    S = torch.empty(count, dtype=torch.int32, device=adj.device)
+    conn = torch.empty_like(S)
+    if count:
+        _run(name, adj.device, rank0, k, count, binom.data_ptr(),
+             adj.data_ptr(), S.data_ptr(), conn.data_ptr(), nmax)
+    return S, conn
+
+
+def _launch_dpsub(all_sets, level_off: int, base_set: int, base_sub: int,
+                  i: int, adj, nmax: int, chunk: int):
+    """Check the arguments, allocate (lb, rb, ccp) and launch
+    ``rt_ccp_eval_dpsub``."""
+    name = "ccp_eval_dpsub"
+    _check_table(name, adj, nmax)
+    if all_sets.dtype != torch.int32 or all_sets.dim() != 1 \
+            or not 1 <= all_sets.numel() <= _I32_MAX \
+            or not all_sets.is_contiguous():
+        raise ValueError(f"{name}: all_sets must be contiguous int32[N], "
+                         f"0 < N < 2^31, got "
+                         f"{all_sets.dtype}{tuple(all_sets.shape)}")
+    if not 0 <= i <= 30:
+        raise ValueError(f"{name}: i = {i} is outside [0, 30]")
+    _check_int32(name, level_off=level_off, base_set=base_set,
+                 base_sub=base_sub, chunk=chunk)
+    outs = [torch.empty(chunk, dtype=torch.int32, device=adj.device)
+            for _ in range(3)]
+    if chunk:
+        _run(name, adj.device, all_sets.data_ptr(), all_sets.numel(),
+             level_off, base_set, base_sub, i, adj.data_ptr(),
+             *[o.data_ptr() for o in outs], chunk, nmax)
+    return tuple(outs)
 
 
 # -- solo engine ---------------------------------------------------------------
@@ -88,11 +159,35 @@ def connectivity(S, adj, nmax: int):
     return _launch("connectivity", (S,), adj, nmax, 1)[0]
 
 
+def connectivity_span(k: int, rank0: int, count: int, binom, adj, nmax: int):
+    """The filter of one level span: colex ranks ``rank0 .. rank0 + count
+    - 1`` of the k-subsets (``binom`` the int32 (nmax+1)^2 table of
+    ``unrank.binom_table``) -> (S, conn int32[count]), conn 1 where G[S]
+    is connected."""
+    if _on_cpu("connectivity_span", (binom,), adj):
+        return ref.connectivity_span_ref(k, rank0, count, binom, adj, nmax)
+    return _launch_span(k, rank0, count, binom, adj, nmax)
+
+
 def ccp_eval(S, sub, adj, nmax: int):
     """DPSUB lanes -> (lb, rb, ccp int32)."""
     if _on_cpu("ccp_eval", (S, sub), adj):
         return ref.ccp_eval_ref(S, sub, adj, nmax)
     return tuple(_launch("ccp_eval", (S, sub), adj, nmax, 3))
+
+
+def ccp_eval_dpsub(all_sets, level_off: int, base_set: int, base_sub: int,
+                   i: int, adj, nmax: int, chunk: int):
+    """The ``chunk`` lanes of a level-i DPSUB chunk -> (lb, rb, ccp int32):
+    lane t is subset rank ``(base_sub + t) & (2^i - 1)`` of set
+    ``all_sets[level_off + base_set + ((base_sub + t) >> i)]`` (index
+    clamped).  Lanes past the chunk's live count are computed all the same;
+    the caller masks them."""
+    if _on_cpu("ccp_eval_dpsub", (all_sets,), adj):
+        return ref.ccp_eval_dpsub_ref(all_sets, level_off, base_set,
+                                      base_sub, i, adj, nmax, chunk)
+    return _launch_dpsub(all_sets, level_off, base_set, base_sub, i, adj,
+                         nmax, chunk)
 
 
 def grow_pair(S, lb, rb, adj, nmax: int):

@@ -1,22 +1,26 @@
-"""Plain PyTorch versions of the seven kernels (bit-exact oracles).
+"""Plain PyTorch versions of the kernels (bit-exact oracles).
 
 Each function computes what its CUDA kernel in ``csrc/ccp_eval.cu``
 computes, on the port's lane-vectorised ``bitset`` helpers, and equals the
-reference's ``repro.kernels.ref`` bit for bit.  ``ops`` routes CPU tensors
-here; ``chip_smoke.py`` holds each kernel against these on the card.
+reference bit for bit: the seven lane kernels its ``repro.kernels.ref``,
+the two solo forms that build their own lanes (``connectivity_span``,
+``ccp_eval_dpsub``) the unrank or DPSUB decode of its jitted chunk bodies
+followed by the lane kernel.  ``ops`` routes CPU tensors here;
+``chip_smoke.py`` holds each kernel against these on the card.
 
-Lanes are ``int32[L]``.  The solo-engine kernels (``connectivity``,
-``ccp_eval``, ``grow_pair``) take one query's ``int32[nmax]`` adjacency
-table; the batched ones take the stacked ``int32[bcap, nmax]`` table
-``adj_b`` and each lane's query row ``qid``.  The reference clamps an
-out-of-range gather index, so ``qid`` is clamped to ``[0, bcap)`` here and
-in the kernels alike.
+Lanes are ``int32[L]``.  The solo-engine kernels take one query's
+``int32[nmax]`` adjacency table; the batched ones take the stacked
+``int32[bcap, nmax]`` table ``adj_b`` and each lane's query row ``qid``.
+The reference clamps an out-of-range gather index, so ``qid`` is clamped
+to ``[0, bcap)``, and the DPSUB set index to ``[0, len(all_sets))``, here
+and in the kernels alike.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import bitset as bs
+from ..core import unrank as ur
 
 
 def _rows(qid: torch.Tensor, adj_b: torch.Tensor) -> torch.Tensor:
@@ -37,11 +41,33 @@ def connectivity_ref(S, adj, nmax: int):
     return bs.is_connected(S, adj).to(torch.int32)
 
 
+def connectivity_span_ref(k: int, rank0: int, count: int, binom, adj,
+                          nmax: int):
+    """Colex ranks ``rank0 + t`` (t < count) of the k-subsets -> (S, 1 where
+    G[S] is connected)."""
+    ranks = rank0 + torch.arange(count, dtype=torch.int32, device=adj.device)
+    S = ur.unrank_ksubset(ranks, k, binom, nmax)
+    return S, connectivity_ref(S, adj, nmax)
+
+
 def ccp_eval_ref(S, sub, adj, nmax: int):
     """DPSUB lane: ``lb = pdep(sub, S)``, ``rb = S & ~lb``, ccp."""
     lb = bs.pdep(sub, S, nmax)
     rb = S & ~lb
     return lb, rb, _ccp(lb, rb, adj)
+
+
+def ccp_eval_dpsub_ref(all_sets, level_off: int, base_set: int,
+                       base_sub: int, i: int, adj, nmax: int, chunk: int):
+    """DPSUB chunk lane t: set ``base_set + ((base_sub + t) >> i)`` of the
+    level at ``level_off`` (clamped gather from ``all_sets``) and subset
+    rank ``(base_sub + t) & (2^i - 1)``, then ``ccp_eval_ref``."""
+    t = torch.arange(chunk, dtype=torch.int32, device=adj.device)
+    sub_g = base_sub + t
+    set_idx = base_set + (sub_g >> i)
+    sub = sub_g & ((1 << i) - 1)
+    S = all_sets[(level_off + set_idx).clamp(0, all_sets.shape[0] - 1)]
+    return ccp_eval_ref(S, sub, adj, nmax)
 
 
 def grow_pair_ref(S, lb, rb, adj, nmax: int):

@@ -1,4 +1,4 @@
-"""The seven kernels: plain PyTorch versions vs the JAX reference.
+"""The kernels: plain PyTorch versions vs the JAX reference.
 
 * each plain version (``repro_torch.kernels.ref``) equals the reference's
   jnp oracle (``repro.kernels.ref``) bit for bit, over the graphs of
@@ -9,6 +9,11 @@
   interpret mode on the CPU as the reference's own tests run it;
 * the wrappers route CPU tensors to the plain version, count no launch
   for them, and refuse what the CUDA kernels do not take;
+* the solo forms that build their own lanes: ``connectivity_span``
+  against the reference's jitted unrank + filter chunks
+  (``repro.core.engine._filter_chunk``, concatenated, masked lanes
+  dropped), ``ccp_eval_dpsub`` against the reference's DPSUB decode with
+  ``pdep`` and the ccp test, dead and clamped lanes included;
 * ``gpu``-marked tests hold each CUDA kernel against its plain version on
   the card (they skip without one).
 """
@@ -17,8 +22,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from math import comb
+
+from repro.core import bitset as rbs, engine as reng, unrank as rur
 from repro.kernels import ccp_eval as rpallas, ref as rref
 from repro.workloads import generators as rgen
+from repro_torch.core import unrank as tur
 from repro_torch.kernels import ops, ref as tref
 
 # (inputs, jnp oracle, port plain version, Pallas wrapper)
@@ -288,3 +297,236 @@ def test_cuda_solo_kernel_matches_plain_version(name):
                 torch.cuda.synchronize()
                 for a, b in zip(got, want):
                     assert a.is_cuda and torch.equal(a, b), (name, nmax, g.n, L)
+
+
+# ================================================ lanes built in the kernel ==
+# connectivity_span: the filter of one level span; ccp_eval_dpsub: a DPSUB
+# chunk decoded from the level's set list.
+
+RCHUNK = 32768                         # the reference filter's chunk
+SPAN_GRAPHS = [(nmax, j) for nmax in (8, 16, 24)
+               for j in range(len(SOLO_TABLES[nmax]()))] + [(30, 0)]
+
+
+def span_graph(nmax: int, j: int):
+    return rgen.chain(25, 1) if nmax == 30 else SOLO_TABLES[nmax]()[j]
+
+
+def adj_of(g, nmax: int) -> np.ndarray:
+    adj = np.zeros(nmax, np.int32)
+    for (u, v) in g.edges:
+        adj[u] |= 1 << v
+        adj[v] |= 1 << u
+    return adj
+
+
+def spans_of(total: int):
+    """Spans that start mid-chunk, cross chunk boundaries (where the level
+    is large enough), end ragged inside the level or at its end."""
+    out = [(total // 3, total - total // 3 - total // 5), (0, total)]
+    if total > 2 * RCHUNK:
+        out = [(RCHUNK - 7, RCHUNK + 20),             # crosses two boundaries
+               (3 * RCHUNK + 1234, 2 * RCHUNK + 77),
+               (total - RCHUNK - 5, RCHUNK + 5)]      # ends at the level's end
+    return [(r0, c) for r0, c in out if c > 0]
+
+
+def reference_filter(k, rank0, count, total, adj, nmax):
+    """The reference's (S, conn) for ranks rank0 .. rank0 + count - 1: its
+    32768-rank chunks, concatenated, masked lanes (rank >= total) dropped."""
+    first = rank0 // RCHUNK * RCHUNK
+    binom = jnp.asarray(rur.binom_table(nmax))
+    S_l, conn_l = [], []
+    for c0 in range(first, rank0 + count, RCHUNK):
+        S, conn = reng._filter_chunk(c0, total, k, binom, jnp.asarray(adj),
+                                     nmax=nmax, chunk=RCHUNK)
+        live = c0 + np.arange(RCHUNK) < total
+        S_l.append(np.asarray(S)[live])
+        conn_l.append(np.asarray(conn)[live])
+    lo = rank0 - first
+    return (np.concatenate(S_l)[lo: lo + count],
+            np.concatenate(conn_l)[lo: lo + count].astype(np.int32))
+
+
+@pytest.mark.parametrize("nmax,j", SPAN_GRAPHS,
+                         ids=[f"nmax{n}-g{j}" for n, j in SPAN_GRAPHS])
+def test_connectivity_span_matches_reference_filter(nmax, j):
+    g = span_graph(nmax, j)
+    adj = adj_of(g, nmax)
+    binom = torch.from_numpy(tur.binom_table(nmax))
+    for k in sorted({1, g.n // 2, g.n}):
+        total = comb(g.n, k)
+        for rank0, count in spans_of(total):
+            S, conn = tref.connectivity_span_ref(k, rank0, count, binom,
+                                                 torch.from_numpy(adj), nmax)
+            want_S, want_conn = reference_filter(k, rank0, count, total,
+                                                 adj, nmax)
+            assert S.dtype == conn.dtype == torch.int32
+            np.testing.assert_array_equal(S.numpy(), want_S, err_msg=(k, rank0))
+            np.testing.assert_array_equal(conn.numpy(), want_conn,
+                                          err_msg=(k, rank0))
+
+
+def reference_dpsub(all_sets, level_off, base_set, base_sub, i, adj, nmax,
+                    chunk):
+    """The reference's DPSUB decode, pdep and ccp test
+    (``repro.core.engine._eval_dpsub_chunk``), every lane of the chunk."""
+    t = jnp.arange(chunk, dtype=jnp.int32)
+    sub_g = base_sub + t
+    set_idx = base_set + (sub_g >> i)
+    sub = sub_g & ((jnp.int32(1) << i) - 1)
+    S = all_sets[level_off + set_idx]
+    lb = rbs.pdep(sub, S, nmax)
+    rb = S & ~lb
+    nonempty = (lb != 0) & (rb != 0)
+    conn_l = rbs.is_connected(lb, adj)
+    conn_r = rbs.is_connected(rb, adj)
+    cross = (rbs.neighbors(lb, adj) & rb) != 0
+    return lb, rb, nonempty & conn_l & conn_r & cross
+
+
+def make_dpsub_case(g, nmax: int, i: int, chunk: int, seed: int):
+    """A level of 257 sets inside the query's n bits at a random offset; the
+    chunk starts at a random (set, subset) so that its lanes run past the
+    level's end (dead lanes, then the clamped gather) where it is long
+    enough."""
+    rng = np.random.default_rng(seed)
+    all_sets = rng.integers(1, 1 << g.n, 257).astype(np.int32)
+    level_off = int(rng.integers(0, 100))
+    base_set = int(rng.integers(0, 100))
+    base_sub = int(rng.integers(0, 1 << i))
+    return all_sets, (level_off, base_set, base_sub, i), adj_of(g, nmax)
+
+
+DPSUB_CASES = [(nmax, i, chunk) for nmax in (8, 16, 24, 30)
+               for i in (2, 5, 7) for chunk in (1, 129, 4096)]
+
+
+@pytest.mark.parametrize("nmax,i,chunk", DPSUB_CASES)
+def test_ccp_eval_dpsub_matches_reference_decode(nmax, i, chunk):
+    g = span_graph(nmax, 0 if nmax == 30 else i % len(SOLO_TABLES[nmax]()))
+    all_sets, dec, adj = make_dpsub_case(g, nmax, i, chunk,
+                                         seed=nmax * 100 + i * 10 + chunk)
+    got = tref.ccp_eval_dpsub_ref(torch.from_numpy(all_sets), *dec,
+                                  torch.from_numpy(adj), nmax, chunk)
+    want = reference_dpsub(jnp.asarray(all_sets), *dec, jnp.asarray(adj),
+                           nmax, chunk)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and a.shape == (chunk,)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int32))
+
+
+def span_args(nmax=16, k=5, rank0=10, count=300, g=None):
+    g = g or rgen.star(9, 1)
+    return (k, rank0, count, torch.from_numpy(tur.binom_table(nmax)),
+            torch.from_numpy(adj_of(g, nmax)), nmax)
+
+
+def dpsub_args(nmax=16, i=5, chunk=300):
+    all_sets, dec, adj = make_dpsub_case(rgen.star(9, 1), nmax, i, chunk, 9)
+    return (torch.from_numpy(all_sets), *dec, torch.from_numpy(adj), nmax,
+            chunk)
+
+
+@pytest.mark.parametrize("name", ["connectivity_span", "ccp_eval_dpsub"])
+def test_lane_building_wrapper_routes_cpu_tensors_to_plain_version(name):
+    args = span_args() if name == "connectivity_span" else dpsub_args()
+    before = dict(ops.LAUNCHES)
+    got = getattr(ops, name)(*args)
+    for a, b in zip(got, getattr(tref, f"{name}_ref")(*args)):
+        assert torch.equal(a, b)
+    assert ops.LAUNCHES == before            # no kernel ran, none counted
+
+
+def test_span_launch_checks_refuse_bad_inputs():
+    k, rank0, count, binom, adj, nmax = span_args()
+    with pytest.raises(ValueError, match="adj must be"):
+        ops._launch_span(k, rank0, count, binom, adj.long(), nmax)
+    with pytest.raises(ValueError, match="binom must be"):
+        ops._launch_span(k, rank0, count, binom[:, :4], adj, nmax)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops._launch_span(k, rank0, count, torch.zeros((32, 32), dtype=torch.int32),
+                         torch.zeros(31, dtype=torch.int32), 31)
+    with pytest.raises(ValueError, match="count"):
+        ops._launch_span(k, rank0, -1, binom, adj, nmax)
+    with pytest.raises(ValueError, match="span_end"):
+        ops._launch_span(k, (1 << 31) - 5, 10, binom, adj, nmax)
+    with pytest.raises(ValueError, match="k = 17"):
+        ops._launch_span(17, rank0, count, binom, adj, nmax)
+    with pytest.raises(ValueError, match="devices"):
+        ops.connectivity_span(k, rank0, count, binom.to("meta"), adj, nmax)
+
+
+def test_dpsub_launch_checks_refuse_bad_inputs():
+    all_sets, level_off, base_set, base_sub, i, adj, nmax, chunk = dpsub_args()
+    with pytest.raises(ValueError, match="all_sets must be"):
+        ops._launch_dpsub(all_sets.long(), level_off, base_set, base_sub, i,
+                          adj, nmax, chunk)
+    with pytest.raises(ValueError, match="all_sets must be"):
+        ops._launch_dpsub(all_sets[:0], level_off, base_set, base_sub, i,
+                          adj, nmax, chunk)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops._launch_dpsub(all_sets, level_off, base_set, base_sub, i,
+                          torch.zeros(0, dtype=torch.int32), 0, chunk)
+    with pytest.raises(ValueError, match="chunk"):
+        ops._launch_dpsub(all_sets, level_off, base_set, base_sub, i, adj,
+                          nmax, -1)
+    with pytest.raises(ValueError, match="i = 31"):
+        ops._launch_dpsub(all_sets, level_off, base_set, base_sub, 31, adj,
+                          nmax, chunk)
+    with pytest.raises(ValueError, match="base_sub"):
+        ops._launch_dpsub(all_sets, level_off, base_set, 1 << 31, i, adj,
+                          nmax, chunk)
+    with pytest.raises(ValueError, match="devices"):
+        ops.ccp_eval_dpsub(all_sets.to("meta"), level_off, base_set, base_sub,
+                           i, adj, nmax, chunk)
+
+
+# ----------------------------------------------------------------- card --
+
+@pytest.mark.gpu
+def test_cuda_connectivity_span_matches_plain_version():
+    """Spans of 1, 129, 32767 and 32768 ranks and a whole level, at every
+    solo bucket up to nmax 30 (chain(25)'s level 12 is the filter's
+    largest span on the main path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for nmax, graphs in SOLO_GPU_TABLES.items():
+        for g in graphs():
+            k = g.n // 2
+            total = comb(g.n, k)
+            binom = torch.from_numpy(tur.binom_table(nmax)).cuda()
+            adj = torch.from_numpy(adj_of(g, nmax)).cuda()
+            for count in (1, 129, 32767, 32768, total):
+                rank0 = max(0, total - count) // 2
+                n0 = ops.LAUNCHES["connectivity_span"]
+                got = ops.connectivity_span(k, rank0, count, binom, adj, nmax)
+                assert ops.LAUNCHES["connectivity_span"] == n0 + 1
+                want = tref.connectivity_span_ref(k, rank0, count, binom, adj,
+                                                  nmax)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert a.is_cuda and torch.equal(a, b), (nmax, g.n, count)
+
+
+@pytest.mark.gpu
+def test_cuda_ccp_eval_dpsub_matches_plain_version():
+    """Chunks of 1, 129, 32767 and 32768 lanes at every solo bucket up to
+    nmax 30, with dead and clamped lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for nmax, graphs in SOLO_GPU_TABLES.items():
+        for g in graphs():
+            for i in (2, 5, min(g.n, 12)):
+                for chunk in (1, 129, 32767, 32768):
+                    all_sets, dec, adj = make_dpsub_case(g, nmax, i, chunk,
+                                                         seed=chunk + i)
+                    args = (torch.from_numpy(all_sets).cuda(), *dec,
+                            torch.from_numpy(adj).cuda(), nmax, chunk)
+                    n0 = ops.LAUNCHES["ccp_eval_dpsub"]
+                    got = ops.ccp_eval_dpsub(*args)
+                    assert ops.LAUNCHES["ccp_eval_dpsub"] == n0 + 1
+                    want = tref.ccp_eval_dpsub_ref(*args)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        assert a.is_cuda and torch.equal(a, b), (nmax, i, chunk)
