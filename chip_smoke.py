@@ -7,36 +7,47 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the nine CUDA entry points against its plain
+  3. kernels — each of the eleven CUDA entry points against its plain
      PyTorch version on the same card tensors, bit for bit, lanes built
      with numpy from a seed over real generator graphs: the four batched
-     kernels at L = 32768 and the ragged L in {1, 129, 32767}, nmax in
-     {8, 16}, bcap in {4, 32}; the three solo-engine kernels, and
-     ``btree_eval`` on the one-row table the solo tree evaluate gives it,
-     at the same L and nmax in {8, 16, 24, 30}; the two solo forms that
-     build their own lanes (``connectivity_span`` over a rank span,
-     ``ccp_eval_dpsub`` over a DPSUB chunk with dead and clamped lanes) at
-     count or chunk in {1, 129, 32767, 32768} and nmax in {8, 16, 24, 30},
-     and ``connectivity_span`` at d4's largest span (chain(25), level 12,
-     5,200,300 ranks at nmax 30).  Times by CUDA events (kernel and plain
-     version) and the bound of each, at L = 32768 with nmax = 16, bcap = 32
-     (batched) or nmax = 24 (solo); ``ccp_eval_dpsub`` on d3's real level
-     sets, ``connectivity_span`` at L = 32768 (printed) and at d4's span
-     (the JSON line);
+     kernels and the two batched forms that build their own lanes
+     (``bconnectivity_span`` over a level span, ``btree_eval_decode`` over
+     an MPDP:Tree chunk, both with dead and clamped lanes) at L or count
+     = 32768 and the ragged 1, 129, 32767, nmax in {8, 16}, bcap in {4,
+     32}; the three solo-engine kernels, and ``btree_eval`` and
+     ``btree_eval_decode`` on the one-row tables the solo tree evaluate
+     gives them, at the same L and nmax in {8, 16, 24, 30}; the two solo
+     forms that build their own lanes (``connectivity_span`` over a rank
+     span, ``ccp_eval_dpsub`` over a DPSUB chunk with dead and clamped
+     lanes) at count or chunk in {1, 129, 32767, 32768} and nmax in {8,
+     16, 24, 30}, and ``connectivity_span`` at d4's largest span
+     (chain(25), level 12, 5,200,300 ranks at nmax 30).  Then stream (a)
+     once, with its ``bconnectivity_span`` and ``btree_eval_decode`` calls
+     held against their plain versions and the busiest of each kept.
+     Times by CUDA events (kernel and plain version) and the bound of
+     each, at L = 32768 with nmax = 16, bcap = 32 (batched) or nmax = 24
+     (solo); ``ccp_eval_dpsub`` on d3's real level sets,
+     ``connectivity_span`` at L = 32768 (printed) and at d4's span (the
+     JSON line), the two batched forms at L = 32768, nmax 16, bcap 32
+     (printed) and at stream (a)'s busiest level span and tree chunk (the
+     JSON line);
   4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
      plan validated and every cost held against the host DPccp oracle
      (relative 1e-4), ``Counters`` and costs of stream (c) and the first
      four queries of (a) and (b) against the port's own ``device="cpu"``
-     run (exact / relative 1e-5), launch counters read around exactly
-     this path; then a ``torch.profiler`` window over stream (a);
+     run (exact / relative 1e-5), one ``bconnectivity_span`` launch per
+     level and flight, launch counters read around exactly this path;
+     then a ``torch.profiler`` window over stream (a);
   5. solo path — ``engine.optimize`` on ``cuda`` over parts d1-d5 (MPDP-
      general at nmax 24, MPDP:Tree at nmax 24, DPSUB, the nmax-30 bucket,
      then dpsize, dpccp, frontier expansion and ``optimize_many``'s solo
      route), each plan validated and each cost held against DPccp
      (relative 1e-4), d1, d3 and d5 against the ``device="cpu"`` run
      (``Counters`` exact, costs relative 1e-5), one ``connectivity_span``
-     launch per level span, launch counters read around exactly this
-     path; then a ``torch.profiler`` window over d1.
+     launch per level span, and in d5's ``optimize_many`` one
+     ``bconnectivity_span`` launch per level and flight, launch counters
+     read around exactly this path; then a ``torch.profiler`` window over
+     d1.
 The last three lines of standard output are a JSON object with one entry
 per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +70,7 @@ import torch  # noqa: E402
 from repro_torch.core import batch, dpccp, engine  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
+from repro_torch.core.config import MAX_FLIGHT  # noqa: E402
 from repro_torch.core.plan import validate_plan  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
@@ -70,6 +82,11 @@ OPS_PER_LANE = 12                     # per-lane decode, loads, stores
 UNRANK_OPS_PER_STEP = 4               # one unrank step: load C(v,kk), compare,
                                       # subtract/OR, decrement
 DPSUB_DECODE_OPS = 6                  # add, shift, add, and, add, clamp
+SEARCH_OPS = 4                        # one binary-search step: load, compare,
+                                      # select, halve
+TREE_DECODE_OPS = 30                  # subtract, max, int32 division (about
+                                      # 20 instructions), floor fix-up, clamps,
+                                      # adds, two edge loads, the seg clamp
 L_MAIN = 32768                        # CHUNK: lanes per call on the main path
 DEV = torch.device("cuda")
 
@@ -84,18 +101,25 @@ KERNELS = {
                        "decode of src/repro/core/engine.py:179-188"),
     "grow_pair": (("S", "lb", "rb"), 2, "src/repro/kernels/ccp_eval.py:88"),
     "bconnectivity": (("S", "qid"), 1, "src/repro/kernels/ccp_eval.py:133"),
+    "bconnectivity_span": ((), 3, "src/repro/kernels/ccp_eval.py:133 + the "
+                           "batched unrank of src/repro/core/batch.py:110-127"),
     "bccp_eval": (("S", "sub", "qid"), 3, "src/repro/kernels/ccp_eval.py:142"),
     "btree_eval": (("S", "ub", "vb", "qid"), 2,
                    "src/repro/kernels/ccp_eval.py:159"),
+    "btree_eval_decode": ((), 5, "src/repro/kernels/ccp_eval.py:159 + the "
+                          "MPDP:Tree decode of src/repro/core/batch.py:202-214"),
     "bgeneral_eval": (("S", "block", "r", "qid"), 3,
                       "src/repro/kernels/ccp_eval.py:184"),
 }
 SOLO = ("connectivity", "ccp_eval", "grow_pair")
 SPAN_FORMS = ("connectivity_span", "ccp_eval_dpsub")
 BATCHED = ("bconnectivity", "bccp_eval", "btree_eval", "bgeneral_eval")
+BATCHED_FORMS = ("bconnectivity_span", "btree_eval_decode")
 SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
-# what the solo path runs: the set-given connectivity left it for the span
-SOLO_PATH = SPAN_FORMS + ("ccp_eval", "grow_pair", "btree_eval")
+# what each path runs: the set-given connectivity, bconnectivity and
+# btree_eval left it for the forms that build their own lanes
+BATCHED_PATH = BATCHED_FORMS + ("bccp_eval", "bgeneral_eval")
+SOLO_PATH = SPAN_FORMS + ("ccp_eval", "grow_pair", "btree_eval_decode")
 SYMBOL = {"connectivity": "connectivity_kernel<false>",
           "connectivity_span": "connectivity_kernel<true>"}
 
@@ -224,12 +248,114 @@ def d3_chunk():
     return (levels[i].contiguous(), 0, 0, 0, i, adj, 24, L_MAIN)
 
 
+def bspan_inputs(graphs, bcap: int, nmax: int, count: int, seed: int):
+    """bconnectivity_span arguments over the first bcap graphs: the global
+    rank prefix of a random level k, ``count`` lanes from 0 (past the
+    level's end where it is smaller: dead lanes)."""
+    rng = np.random.default_rng(seed)
+    gs = graphs[:bcap]
+    k = int(rng.integers(2, nmax + 1))
+    foff = np.zeros(bcap + 1, np.int64)
+    np.cumsum([comb(g.n, k) for g in gs], out=foff[1:])
+    adj = np.stack([adj_table(g, nmax).cpu().numpy() for g in gs])
+    return (k, torch.from_numpy(foff.astype(np.int32)).to(DEV), count,
+            binom_on_card(nmax), torch.from_numpy(adj).to(DEV), nmax)
+
+
+def tree_inputs(graphs, bcap: int, nmax: int, chunk: int, seed: int):
+    """btree_eval_decode arguments laid out as ``BatchEngine._eval_dispatch``
+    lays them out, over bcap - 1 graphs (one padding query): per-query set
+    lists inside each query's n bits packed back to back in ``all_sets``,
+    the chunk at a random lane of the level, so that its lanes may run past
+    the level's end (dead lanes, the padding query, the clamped gather)."""
+    rng = np.random.default_rng(seed)
+    gs = graphs[: bcap - 1]
+    B = len(gs)
+    emax = max(8, -(-max(g.m for g in gs) // 8) * 8)
+    m = np.zeros(bcap, np.int32)
+    emu = np.zeros((bcap, emax), np.int32)
+    emv = np.zeros((bcap, emax), np.int32)
+    adj = np.zeros((bcap, nmax), np.int32)
+    for q, g in enumerate(gs):
+        m[q] = g.m
+        adj[q] = adj_table(g, nmax).cpu().numpy()
+        for j, (u, v) in enumerate(g.edges):
+            emu[q, j], emv[q, j] = 1 << u, 1 << v
+    ns = rng.integers(1, 2000, B)
+    all_sets = np.concatenate([rng.integers(1, 1 << g.n, c)
+                               for g, c in zip(gs, ns)]).astype(np.int32)
+    soff = np.zeros(B + 1, np.int64)
+    np.cumsum(ns, out=soff[1:])
+    loff = np.zeros(bcap, np.int32)
+    loff[:B] = soff[:B]
+    spad = np.full(bcap, soff[B], np.int32)
+    spad[:B] = soff[:B]
+    eoff = np.zeros(B + 1, np.int64)
+    np.cumsum(ns * m[:B], out=eoff[1:])
+    lane0 = int(rng.integers(0, eoff[-1]))
+    epad = np.full(bcap + 1, eoff[B] - lane0, np.int32)
+    epad[: B + 1] = eoff - lane0
+    p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0), B - 1)
+    seg0 = int(soff[p0] + (lane0 - eoff[p0]) // m[p0])
+    card = [torch.from_numpy(a).to(DEV) for a in
+            (all_sets, epad, loff, spad, m, emu, emv, adj)]
+    return (*card[:4], seg0, *card[4:], nmax, chunk + 2, chunk)
+
+
+def solo_tree_inputs(g, nmax: int, chunk: int, seed: int):
+    """btree_eval_decode arguments on the one-row tables of the solo tree
+    evaluate (``engine._tree_offsets``): 4096 sets inside the query's n
+    bits, a random level offset, set, edge and live count."""
+    rng = np.random.default_rng(seed)
+    offs = engine._tree_offsets(int(rng.integers(0, 4096)),
+                                int(rng.integers(0, 1024)),
+                                int(rng.integers(0, g.m)),
+                                int(rng.integers(0, chunk + 1)))
+    emax = max(8, -(-g.m // 8) * 8)
+    emu = np.zeros((1, emax), np.int32)
+    emv = np.zeros((1, emax), np.int32)
+    for j, (u, v) in enumerate(g.edges):
+        emu[0, j], emv[0, j] = 1 << u, 1 << v
+    card = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in
+            (rng.integers(1, 1 << g.n, 4096).astype(np.int32), offs[0:2],
+             offs[2:3], offs[3:4], np.array([g.m], np.int32), emu, emv)]
+    return (*card[:4], 0, *card[4:], adj_table(g, nmax)[None].contiguous(),
+            nmax, chunk + 1, chunk)
+
+
+def busiest_stream_calls(graphs):
+    """Run ``optimize_many(graphs, "auto")`` once with both batched forms
+    held against their plain versions on every call; return the arguments
+    of the busiest ``bconnectivity_span`` call (most ranks) and
+    ``btree_eval_decode`` call (most live lanes)."""
+    real = {k: getattr(ops, k) for k in BATCHED_FORMS}
+    seen = {k: [] for k in BATCHED_FORMS}
+
+    def spy(name):
+        def run(*args):
+            check(name, args, "stream (a) call", fn=real[name])
+            seen[name].append(args)
+            return real[name](*args)
+        return run
+
+    try:
+        for k in BATCHED_FORMS:
+            setattr(ops, k, spy(k))
+        batch.optimize_many(graphs, "auto")
+    finally:
+        for k in BATCHED_FORMS:
+            setattr(ops, k, real[k])
+    return (max(seen["bconnectivity_span"], key=lambda a: a[2]),
+            max(seen["btree_eval_decode"],
+                key=lambda a: min(int(a[1][-1]), a[-1])), seen)
+
+
 def lane_args(name, lanes, adj, nmax):
     return (*[lanes[k] for k in KERNELS[name][0]], adj, nmax)
 
 
-def call(name, args, plain=False):
-    fn = getattr(ref, f"{name}_ref") if plain else getattr(ops, name)
+def call(name, args, plain=False, fn=None):
+    fn = fn or (getattr(ref, f"{name}_ref") if plain else getattr(ops, name))
     out = fn(*args)
     return out if isinstance(out, tuple) else (out,)
 
@@ -291,9 +417,9 @@ def op_count(name, lanes, adj, nmax) -> int:
         + OPS_PER_LANE * S.numel()
 
 
-def check(name, args, where: str) -> int:
+def check(name, args, where: str, fn=None) -> int:
     """Kernel vs plain version on the same card tensors, bit for bit."""
-    got = call(name, args)
+    got = call(name, args, fn=fn)
     want = call(name, args, plain=True)
     torch.cuda.synchronize()
     err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
@@ -339,6 +465,50 @@ def dpsub_work(args):
                     + DPSUB_DECODE_OPS * chunk)
 
 
+def search_steps(bcap: int) -> int:
+    """Iterations of the binary search over bcap + 1 offsets."""
+    return (bcap + 1).bit_length()
+
+
+def bspan_work(args):
+    """(bytes, int32 operations) of a bconnectivity_span call: S, conn and
+    qid written, the tables read; per lane the binary search and the
+    unrank steps (bit nmax - 1 down to S's lowest bit), and on live lanes
+    the connectivity walk."""
+    k, foff, count, binom, adj_b, nmax = args
+    S, _, qid = call("bconnectivity_span", args, plain=True)
+    live = torch.arange(count, device=DEV) < foff[-1]
+    tz = bs.popcount(bs.lsb(S) - 1)
+    steps = torch.where(S != 0, nmax - tz, 0)
+    nbytes = 12 * count + 4 * (foff.numel() + binom.numel() + adj_b.numel())
+    walk = op_count("bconnectivity", {"S": S[live], "qid": qid[live]}, adj_b,
+                    nmax)
+    return nbytes, (int(steps.to(torch.int64).sum()) * UNRANK_OPS_PER_STEP
+                    + SEARCH_OPS * search_steps(adj_b.shape[0]) * count
+                    + OPS_PER_LANE * int((~live).sum()) + walk)
+
+
+def tree_decode_work(args):
+    """(bytes, int32 operations) of a btree_eval_decode call: five lane
+    outputs written, each distinct ``all_sets`` entry and the tables read;
+    per lane the binary search, the decode and the btree_eval walk."""
+    all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax, nseg, \
+        chunk = args
+    S, _, _, qid, _ = call("btree_eval_decode", args, plain=True)
+    t = torch.arange(chunk, dtype=torch.int32, device=DEV)
+    local = t - eoff[qid]
+    mq = m_b[qid].clamp(min=1)
+    e = torch.remainder(local, mq).clamp(0, emu_b.shape[1] - 1)
+    idx = (loff[qid] + torch.div(local, mq, rounding_mode="floor")).clamp(
+        0, all_sets.numel() - 1)
+    lanes = {"S": S, "ub": emu_b[qid, e], "vb": emv_b[qid, e], "qid": qid}
+    tables = sum(x.numel() for x in (eoff, loff, soff, m_b, emu_b, emv_b, adj_b))
+    nbytes = 20 * chunk + 4 * (torch.unique(idx).numel() + tables)
+    return nbytes, (op_count("btree_eval", lanes, adj_b, nmax)
+                    + (TREE_DECODE_OPS + SEARCH_OPS * search_steps(
+                        adj_b.shape[0])) * chunk)
+
+
 def measure(name, args, row: dict, work) -> None:
     """Card time per launch, plain-version time and the bound of
     ``work = (bytes, int32 operations)``, into row."""
@@ -368,6 +538,22 @@ def phase_kernels():
                     if (nmax, bcap, L) == (16, 32, L_MAIN):
                         measure(name, args, rows[name],
                                 lane_work(name, lanes, adj, nmax))
+                seed = nmax * 1000 + bcap * 10 + L
+                for name, args, work in (
+                        ("bconnectivity_span",
+                         bspan_inputs(graphs, bcap, nmax, L, seed), bspan_work),
+                        ("btree_eval_decode",
+                         tree_inputs(graphs, bcap, nmax, L, seed),
+                         tree_decode_work)):
+                    err = check(name, args, f"nmax={nmax} bcap={bcap} L={L} "
+                                f"(lanes built in the kernel)")
+                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+                    if (nmax, bcap, L) == (16, 32, L_MAIN):
+                        at_l = {}
+                        measure(name, args, at_l, work(args))
+                        log_row(name, at_l, f"L={L} nmax=16 bcap=32 (random "
+                                f"level k={args[0]})" if name == "bconnectivity_span"
+                                else f"L={L} nmax=16 bcap=32 (random sets)")
                 log(f"kernels ok nmax={nmax} bcap={bcap} L={L}")
     for nmax in (8, 16, 24, 30):
         for gi, g in enumerate(solo_graphs(nmax)):
@@ -382,6 +568,11 @@ def phase_kernels():
                     if (nmax, gi, L) == (24, 0, L_MAIN) and name in SOLO:
                         measure(name, args, rows[name],
                                 lane_work(name, lanes, adj, nmax))
+                rows["btree_eval_decode"]["max_abs_err"] = max(
+                    rows["btree_eval_decode"]["max_abs_err"],
+                    check("btree_eval_decode",
+                          solo_tree_inputs(g, nmax, L, seed=L + nmax + gi),
+                          f"nmax={nmax} n={g.n} L={L} (one-row tables)"))
                 for name, args in (("connectivity_span",
                                     span_inputs(g, nmax, L, seed=L + nmax)),
                                    ("ccp_eval_dpsub",
@@ -406,12 +597,26 @@ def phase_kernels():
         check("ccp_eval_dpsub", args, "d3 busiest level"))
     measure("ccp_eval_dpsub", args, rows["ccp_eval_dpsub"], dpsub_work(args))
     log(f"solo kernels ok at d4's level-12 span and d3's level-{args[4]} chunk")
+    span, tree, seen = busiest_stream_calls(
+        gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)))
+    for name, a, work in (("bconnectivity_span", span, bspan_work),
+                          ("btree_eval_decode", tree, tree_decode_work)):
+        measure(name, a, rows[name], work(a))
+    log(f"batched kernels ok on stream (a)'s {len(seen['bconnectivity_span'])} "
+        f"bconnectivity_span and {len(seen['btree_eval_decode'])} "
+        f"btree_eval_decode calls")
+    at_main = {
+        "connectivity_span": "count=5200300 k=12 nmax=30 (d4's level-12 span)",
+        "ccp_eval_dpsub": f"L={L_MAIN} nmax=24 i={args[4]} (d3's busiest level)",
+        "bconnectivity_span": f"count={span[2]} k={span[0]} nmax=16 "
+                              f"bcap={span[4].shape[0]} (stream a's busiest "
+                              f"level span)",
+        "btree_eval_decode": f"L={tree[-1]} live={int(tree[1][-1])} nmax=16 "
+                             f"bcap={tree[8].shape[0]} (stream a's busiest "
+                             f"tree chunk)"}
     for name, row in rows.items():
-        at = ("nmax=24 (one table)" if name in SOLO else
-              "count=5200300 k=12 nmax=30 (d4's level-12 span)"
-              if name == "connectivity_span" else
-              f"L={L_MAIN} nmax=24 i={args[4]} (d3's busiest level)"
-              if name == "ccp_eval_dpsub" else "nmax=16 bcap=32")
+        at = at_main.get(name, "nmax=24 (one table)" if name in SOLO
+                         else "nmax=16 bcap=32")
         log_row(name, row, at)
     return rows
 
@@ -435,6 +640,30 @@ def ulps(a: float, b: float) -> int:
     return abs(int(ia) - int(ib))
 
 
+def bspan_launches(graphs, algorithm) -> int:
+    """``bconnectivity_span`` launches ``optimize_many`` makes: one per
+    level span (``engine.SPAN`` ranks) of every batched flight."""
+    pending = batch.probe_stream(graphs, [None] * len(graphs), algorithm)
+    buckets, _ = batch.bucket_pending(graphs, pending, algorithm)
+    want = 0
+    for idxs in buckets.values():
+        for s0 in range(0, len(idxs), MAX_FLIGHT):
+            ns = [graphs[q].n for q in idxs[s0: s0 + MAX_FLIGHT]]
+            want += sum(-(-sum(comb(n, i) for n in ns) // engine.SPAN)
+                        for i in range(2, max(ns) + 1))
+    return want
+
+
+def check_bspan(label, graphs, algorithm, before) -> None:
+    """Raise unless the batched filter made one launch per level and
+    flight."""
+    got = ops.LAUNCHES["bconnectivity_span"] - before["bconnectivity_span"]
+    want = bspan_launches(graphs, algorithm)
+    if got != want:
+        raise AssertionError(f"{label}: {got} bconnectivity_span launches for "
+                             f"{want} levels and flights")
+
+
 def run_stream(label, graphs, algorithm, n_cpu):
     """One stream on cuda: timed, validated, held against DPccp and the
     port's CPU run of its first ``n_cpu`` queries."""
@@ -447,6 +676,7 @@ def run_stream(label, graphs, algorithm, n_cpu):
     log(f"stream {label}: {len(graphs)} queries ({algorithm}) in {wall:.3f} s "
         f"= {len(graphs) / wall:.2f} queries/s on cuda; launches "
         + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()}))
+    check_bspan(f"stream {label}", graphs, algorithm, before)
     t1 = time.perf_counter()
     for g, r in zip(graphs, res):
         validate_plan(r.plan, g)
@@ -587,6 +817,7 @@ def run_solo_many(stream_c):
                       if v != before[k]}))
     if res[0].algorithm != "mpdp_general":
         raise AssertionError(f"the n = 20 query ran {res[0].algorithm}, not solo")
+    check_bspan("solo d5 optimize_many", graphs, "auto", before)
     cpu = batch.optimize_many(graphs, "auto", device="cpu")
     worst = max(hold(f"solo d5 optimize_many query {i}", g, r, c)
                 for i, (g, r, c) in enumerate(zip(graphs, res, cpu)))
@@ -629,12 +860,13 @@ def main() -> int:
         run_stream(label, graphs, algorithm, n_cpu)
     batched = dict(ops.LAUNCHES)
     log("launches on the batched path: " + json.dumps(batched))
-    missing = [k for k in BATCHED if batched[k] <= 0]
+    missing = [k for k in BATCHED_PATH if batched[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the batched path: {missing}")
     log(f"max_memory_allocated (batched path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    profile("stream a", lambda: batch.optimize_many(streams[0][1], "auto"), BATCHED)
+    profile("stream a", lambda: batch.optimize_many(streams[0][1], "auto"),
+            BATCHED_PATH)
     log(f"phase batched path done at {time.perf_counter() - t_start:.1f} s")
 
     parts = solo_parts()

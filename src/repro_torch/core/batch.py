@@ -15,8 +15,11 @@ Lane spaces: DPSUB (``sets x 2^i``), MPDP:Tree (``sets x m``) and
 MPDP-general (block prefix-sum over phase-A (set, block) pairs); all three
 enumerate the same CCP candidates.  The per-lane bit-twiddling goes
 through ``kernels.ops`` — the CUDA kernels on the card, their plain
-PyTorch versions for CPU tensors.  The level loop is the reference's
-synchronous driver; the memo tensors are updated in place.
+PyTorch versions for CPU tensors; the filter's unrank
+(``bconnectivity_span``, one launch per level) and the MPDP:Tree lane
+decode (``btree_eval_decode``) run inside the kernels.  The level loop
+is the reference's synchronous driver; the memo tensors are updated in
+place.
 
 Where the reference's array semantics and torch differ, this module
 spells them out: out-of-range gather indices are clamped (``_take``),
@@ -49,7 +52,7 @@ from . import unrank as ur
 from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
-from .engine import (_CLIP, INF, _cap, _fetch, _merge_best,
+from .engine import (_CLIP, INF, SPAN, _cap, _fetch, _merge_best,
                      _merge_scattered, _not_ported, _prune, _scatter_into,
                      _take, resolve_device)
 from .joingraph import JoinGraph
@@ -77,22 +80,6 @@ def _lane_qid(off: torch.Tensor, t: torch.Tensor, hi: int) -> torch.Tensor:
 # ================================================================= kernels ==
 # Chunk bodies: every tensor lives on the engine's device; ``t`` is the
 # chunk's lane index.
-
-def _bfilter_chunk(foff, k, binom, adj_b, *, nmax: int, chunk: int, bcap: int):
-    """Batched unrank + connectivity filter.
-
-    foff: i32[bcap+1] chunk-local per-query rank offsets (prefix sums of
-    C(n_q, k), minus the chunk base, clipped).  Lane t belongs to query
-    ``searchsorted(foff, t) - 1`` with rank ``t - foff[qid]``.
-    """
-    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
-    qid = _lane_qid(foff, t, bcap - 1)
-    rank = t - foff[qid]
-    live = t < foff[bcap]
-    S = ur.unrank_ksubset(rank.clamp(min=0), k, binom, nmax)
-    conn = (ops.bconnectivity(S, qid, adj_b, nmax) != 0) & live
-    return S, conn, qid
-
 
 def _lane_cost(S, S_left, S_right, ccp, mbase, memo_cost, memo_rows):
     """Candidate cost of each lane's (S_left, S_right) split (INF off-CCP)."""
@@ -132,27 +119,20 @@ def _beval_dpsub_chunk(all_sets, eoff, loff, soff, seg0, i, adj_b, memo_cost,
 def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
                       emv_b, memo_cost, memo_rows, *, nmax: int, chunk: int,
                       nseg: int, bcap: int):
-    """Batched MPDP:Tree evaluate: lane -> (query, set, edge) decode.
+    """Batched MPDP:Tree evaluate: the ``btree_eval_decode`` kernel decodes
+    each lane's (query, set, edge) and splits S; the cost and the prune
+    stay here.
 
     m_b: i32[bcap] per-query edge count (lane-minor dimension);
     emu_b/emv_b: i32[bcap, emax] per-query edge endpoint bitmaps (0 pad).
     Every enumerated in-set edge IS a CCP pair (Theorem 3).
     """
-    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
-    qid = _lane_qid(eoff, t, bcap - 1)
-    local = t - eoff[qid]
-    live = t < eoff[bcap]
-    mq = m_b[qid].clamp(min=1)
-    set_idx = torch.div(local, mq, rounding_mode="floor")
-    e = torch.remainder(local, mq).clamp(0, emu_b.shape[1] - 1)
-    S = _take(all_sets, loff[qid] + set_idx)
-    ub = emu_b[qid, e]
-    vb = emv_b[qid, e]
-    S_left, in_i = ops.btree_eval(S, ub, vb, qid, adj_b, nmax)
-    edge_in = live & (in_i != 0)
+    S, S_left, in_i, qid, seg = ops.btree_eval_decode(
+        all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax,
+        nseg, chunk)
+    edge_in = in_i != 0
     cand = _lane_cost(S, S_left, S & ~S_left, edge_in, qid << nmax,
                       memo_cost, memo_rows)
-    seg = (soff[qid] + set_idx - seg0).clamp(0, nseg - 1)
     seg_cost, seg_left = _prune(seg, cand, S_left, nseg)
     ev_q = _segment_sum(edge_in, qid, bcap)              # Theorem 3: all CCP
     return seg_cost, seg_left, ev_q, ev_q.clone()
@@ -311,7 +291,9 @@ class BatchEngine:
 
     # ------------------------------------------------------------ filter ---
     def _filter_dispatch(self, i: int) -> dict:
-        """Dispatch level i's unrank+filter chunks, draining all but
+        """Dispatch level i's unrank+filter: one ``bconnectivity_span``
+        launch per ``SPAN`` ranks of the flight's level (one launch at nmax
+        <= 16, bcap <= 32: at most 32 x C(16, 8) ranks), draining all but
         ``PEND_WINDOW`` of them as newer ones run."""
         t0 = time.perf_counter()
         totals = np.array([comb(g.n, i) if g.n >= i else 0
@@ -320,23 +302,25 @@ class BatchEngine:
         np.cumsum(totals, out=foff[1:])
         total = int(foff[-1])
         ctx = {"pend": deque(), "per_q": [[] for _ in range(self.B)]}
-        for lane0 in range(0, total, self.chunk):
+        for lane0 in range(0, total, SPAN):
             fl = np.clip(foff - lane0, -_CLIP, _CLIP)
             fpad = np.full(self.bcap + 1, fl[self.B], np.int32)
             fpad[: self.B + 1] = fl
-            ctx["pend"].append(_bfilter_chunk(
-                self._dev(fpad), i, self.binom, self.adj_b, nmax=self.nmax,
-                chunk=self.chunk, bcap=self.bcap))
+            ctx["pend"].append(ops.bconnectivity_span(
+                i, self._dev(fpad), min(SPAN, total - lane0), self.binom,
+                self.adj_b, self.nmax))
             self._filter_drain(ctx, PEND_WINDOW)
         self._time("filter", t0)
         return ctx
 
     def _filter_drain(self, ctx: dict, limit: int) -> None:
-        """Fetch + compact pending filter chunks down to ``limit``."""
+        """Compact pending filter spans on the device and fetch them, down
+        to ``limit``; lane order is rank order within each query."""
         pend, per_q = ctx["pend"], ctx["per_q"]
         while len(pend) > limit:
             S, conn, qid = pend.popleft()
-            got = torch.stack([S[conn], qid[conn]]).cpu().numpy()
+            keep = conn != 0
+            got = torch.stack([S[keep], qid[keep]]).cpu().numpy()
             Sc, qc = got[0], got[1]
             for q in np.unique(qc):
                 per_q[q].append(Sc[qc == q])

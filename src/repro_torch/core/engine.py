@@ -12,7 +12,8 @@ evaluate -> prune -> scatter* runs on the engine's torch device:
   evaluate  one flat lane space per DP level, in fixed-size chunks: DPSUB
             ``sets x 2^i`` (``ccp_eval_dpsub``, which decodes the chunk's
             lanes itself), MPDP:Tree ``sets x m``
-            (``btree_eval`` with a one-row table), MPDP-general over the
+            (``btree_eval_decode`` on a one-row table, which decodes the
+            chunk's lanes itself), MPDP-general over the
             block prefix-sum of phase-A (set, block) pairs (``ccp_eval`` on
             the block, then ``grow_pair``), DPSIZE over level pairs
   prune     in-chunk segment-min per set + max left bitmap among ties
@@ -184,25 +185,30 @@ def _eval_dpsub_chunk(all_sets, level_off: int, base_set: int, base_sub: int,
     return seg_cost, seg_left, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
 
 
-def _eval_tree_chunk(all_sets, level_off: int, base_set: int, base_e: int,
-                     m: int, lane_count: int, adj1, qid0, emask_u, emask_v,
-                     memo_cost, memo_rows, *, nmax: int, chunk: int,
-                     nseg: int):
-    """MPDP:Tree lanes through ``btree_eval`` on the one-row table ``adj1``
-    (every lane's ``qid0`` is 0): the same function as the reference's
-    ``grow_excl_edge`` on one query."""
-    t = _lanes(chunk, adj1)
-    e_g = base_e + t
-    set_idx = base_set + torch.div(e_g, m, rounding_mode="floor")
-    e = torch.remainder(e_g, m)
-    live = t < lane_count
-    S = _take(all_sets, level_off + set_idx)
-    S_left, in_i = ops.btree_eval(S, emask_u[e], emask_v[e], qid0, adj1, nmax)
+def _tree_offsets(level_off: int, base_set: int, base_e: int,
+                  lane_count: int) -> np.ndarray:
+    """The one-row offset tables of a solo MPDP:Tree chunk, stacked as
+    ``[eoff (2), loff (1), soff (1)]``: lane t is edge-space lane ``base_e
+    + t`` of set ``level_off + base_set`` on, live below ``lane_count``;
+    its segment is its set index minus ``base_set``.  Every entry stays
+    inside int32 at nmax 30, where the level's lane index need not."""
+    return np.array([-base_e, lane_count, level_off + base_set, 0], np.int32)
+
+
+def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
+                     memo_rows, *, nmax: int, chunk: int, nseg: int):
+    """MPDP:Tree lanes through ``btree_eval_decode`` on the one-row tables
+    ``adj1``, ``m1``, ``emu1``, ``emv1`` and ``offs`` (``_tree_offsets``):
+    the same function as the reference's decode and ``grow_excl_edge`` on
+    one query."""
+    S, S_left, in_i, _, seg = ops.btree_eval_decode(
+        all_sets, offs[0:2], offs[2:3], offs[3:4], 0, m1, emu1, emv1, adj1,
+        nmax, nseg, chunk)
     # MPDP:Tree — every enumerated pair IS a CCP pair (Theorem 3)
-    edge_in = live & (in_i != 0)
+    edge_in = in_i != 0
     cand = torch.where(edge_in, _lane_cost(S_left, S & ~S_left, memo_rows[S],
                                            memo_cost, memo_rows), float(INF))
-    seg_cost, seg_left = _prune(set_idx - base_set, cand, S_left, nseg)
+    seg_cost, seg_left = _prune(seg, cand, S_left, nseg)
     ev = edge_in.sum(dtype=_I32)
     return seg_cost, seg_left, ev, ev
 
@@ -288,9 +294,11 @@ class ExactEngine:
         self.eu_idx = self._dev(eu)
         self.ev_idx = self._dev(ev)
         self.edge_live = self._dev(lv)
-        # the solo tree evaluate runs the batched kernel on a one-row table
+        # the solo tree evaluate runs the batched kernel on one-row tables
         self.adj1 = self.dg.adj.reshape(1, -1).contiguous()
-        self.qid0 = torch.zeros(chunk, dtype=_I32, device=self.device)
+        self.emu1 = self.dg.emask_u.reshape(1, -1).contiguous()
+        self.emv1 = self.dg.emask_v.reshape(1, -1).contiguous()
+        self.m1 = self._dev(np.array([g.m], np.int32))
         self.counters = Counters()
         self.timings: dict[str, float] = {}
         self._init_memo()
@@ -427,10 +435,10 @@ class ExactEngine:
             off = self.level_off[i]
             for lane0 in range(0, lanes, self.chunk):
                 cnt = min(self.chunk, lanes - lane0)
+                offs = self._dev(_tree_offsets(off, lane0 // m, lane0 % m, cnt))
                 sc, sl, ev, cc = _eval_tree_chunk(
-                    self.all_sets, off, lane0 // m, lane0 % m, m, cnt,
-                    self.adj1, self.qid0, self.dg.emask_u, self.dg.emask_v,
-                    self.memo_cost, self.memo_rows,
+                    self.all_sets, offs, self.m1, self.emu1, self.emv1,
+                    self.adj1, self.memo_cost, self.memo_rows,
                     nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1)
                 sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
                 self._count(ev, cc)

@@ -31,8 +31,11 @@ _SIGNATURES = {
     "rt_ccp_eval_dpsub": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P],
     "rt_grow_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rt_bconnectivity": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_bconnectivity_span": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "rt_bccp_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rt_btree_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_btree_eval_decode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                             _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_bgeneral_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

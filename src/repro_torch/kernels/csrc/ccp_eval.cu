@@ -22,17 +22,34 @@
 //                            MPDP-general split: S_left = grow(lb) in S & ~rb,
 //                            S_right = S & ~S_left
 //
-// Four serve the batched engine and read the stacked (bcap, nmax) table at
-// each lane's query row:
+// Six serve the batched engine (and, on a one-row table, the solo tree
+// evaluate) and read the stacked (bcap, nmax) table at each lane's query
+// row:
 //
 //   bconnectivity_kernel  <- bconnectivity_kernel (ccp_eval.py:133)
 //                            per (query, set) lane: is G_q[S] connected
+//   bconnectivity_span_kernel
+//                         <- bconnectivity_kernel (ccp_eval.py:133) with the
+//                            batched unrank of the reference's
+//                            _bfilter_chunk (core/batch.py:110-127): lane t
+//                            finds its query q by a binary search of the
+//                            per-query rank prefix foff, unranks colex rank
+//                            t - foff[q] in registers, writes S, conn, q
 //   bccp_eval_kernel      <- bccp_eval_kernel     (ccp_eval.py:142)
 //                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp
 //   btree_eval_kernel     <- btree_eval_kernel    (ccp_eval.py:159)
 //                            MPDP:Tree lane: S_left = grow(u) in S minus edge
-//                            (u, v); edge_in = both endpoints in S (the solo
-//                            tree evaluate calls it with a one-row table)
+//                            (u, v); edge_in = both endpoints in S
+//   btree_eval_decode_kernel
+//                         <- btree_eval_kernel    (ccp_eval.py:159) with the
+//                            MPDP:Tree lane decode of the reference's
+//                            _beval_tree_chunk (core/batch.py:202-214):
+//                            (query, set, edge) from the chunk's offset
+//                            tables, the clamped set gather, then as
+//                            btree_eval_kernel; writes S, S_left, edge_in,
+//                            q and the lane's segment (the batched and the
+//                            solo tree evaluate, the latter on a one-row
+//                            table)
 //   bgeneral_eval_kernel  <- bgeneral_eval_kernel (ccp_eval.py:184)
 //                            MPDP-general lane: lb = pdep(r, block),
 //                            ccp(lb, block & ~lb), S_left = grow(lb) in
@@ -74,6 +91,15 @@
 //     built around it).  Sets vary slowest, so from i >= 5 the 32 lanes of a
 //     warp share S and the pdep walk over S's bits takes the same trip count
 //     on every lane.
+//   * The batched filter and the MPDP:Tree evaluate do the same for a
+//     stack of queries: each block stages the per-query offset tables
+//     (<= 33 ints each), the (bcap, nmax) adjacency stack and, for the
+//     filter, the binomial table in dynamic shared memory, and a lane
+//     finds its query by a binary search there (searchsorted(side=
+//     "right"), <= 6 steps at bcap 32).  The filter covers a whole level
+//     of every query of a flight (<= 411,840 ranks at nmax 16, bcap 32) in
+//     one grid-stride launch, as the solo span form does; the tree decode
+//     adds one int32 division (floor quotient and modulo) a lane.
 //
 // Plain C interface (bound with ctypes): each rt_* function launches on the
 // given stream and returns cudaGetLastError() as an int (0 = success).
@@ -92,6 +118,10 @@ constexpr int kBinomHard = (kNmaxHard + 1) * (kNmaxHard + 1);
 // int32 addition that wraps as torch's int32 tensors do (two's complement).
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // ------------------------------------------------------------ lane library --
@@ -196,6 +226,28 @@ __device__ __forceinline__ int ccp(int lb, int rb, const int* row,
   if (lb == 0 || rb == 0) return 0;
   if ((neighbors(lb, row, nmask) & rb) == 0) return 0;
   return connected(lb, row, nmask) && connected(rb, row, nmask);
+}
+
+// Entries of off[0, n) that are <= t, for a non-decreasing off: the
+// reference's searchsorted(off, t, side="right").
+__device__ __forceinline__ int upper_bound(const int* off, int n, int t) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (off[mid] <= t) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Owner of lane t: clamp(searchsorted(off, t, side="right") - 1, 0,
+// bcap - 1) over the (bcap + 1)-entry prefix off.
+__device__ __forceinline__ int lane_query(const int* off, int bcap, int t) {
+  return min(max(upper_bound(off, bcap + 1, t) - 1, 0), bcap - 1);
+}
+
+// Copy n ints to shared memory (the caller syncs).
+__device__ __forceinline__ void stage(int* dst, const int* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
 // Stage the (bcap, nmax) table in shared memory; return this lane's row.
@@ -328,6 +380,38 @@ __global__ void bconnectivity_kernel(const int* __restrict__ S,
   conn[t] = connected(S[t], row, nmask);
 }
 
+// The batched filter of one level span: lane t belongs to query q =
+// lane_query(foff, t), unranks colex rank max(t - foff[q], 0) of the
+// k-subsets, and is live below foff[bcap].  Grid-stride over count lanes.
+// Shared memory: foff (bcap + 1), binom ((nmax + 1)^2), adj_b (bcap x nmax).
+__global__ void __launch_bounds__(kWideThreads)
+bconnectivity_span_kernel(int k, const int* __restrict__ foff, int count,
+                          const int* __restrict__ binom,
+                          const int* __restrict__ adj_b,
+                          int* __restrict__ S_out, int* __restrict__ conn,
+                          int* __restrict__ qid_out, int bcap, int nmax) {
+  extern __shared__ int smem[];
+  int* sfoff = smem;
+  int* sbinom = sfoff + bcap + 1;
+  int* sadj = sbinom + (nmax + 1) * (nmax + 1);
+  stage(sfoff, foff, bcap + 1);
+  stage(sbinom, binom, (nmax + 1) * (nmax + 1));
+  stage(sadj, adj_b, bcap * nmax);
+  __syncthreads();
+  const int nmask = (1 << nmax) - 1;
+  const int live_end = sfoff[bcap];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long tl = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x; tl < count; tl += stride) {
+    const int t = static_cast<int>(tl);
+    const int q = lane_query(sfoff, bcap, t);
+    const int s = unrank(max(wrap_sub(t, sfoff[q]), 0), k, sbinom, nmax);
+    S_out[t] = s;
+    conn[t] = t < live_end && connected(s, sadj + q * nmax, nmask);
+    qid_out[t] = q;
+  }
+}
+
 __global__ void bccp_eval_kernel(const int* __restrict__ S,
                                  const int* __restrict__ sub,
                                  const int* __restrict__ qid,
@@ -369,6 +453,64 @@ __global__ void btree_eval_kernel(const int* __restrict__ S,
   in_out[t] = ((s & ub) != 0) && ((s & vb) != 0);
 }
 
+// MPDP:Tree chunk lane t: query q = lane_query(eoff, t), local = t -
+// eoff[q], mq = max(m_b[q], 1), set_idx = floor(local / mq), e =
+// clamp(local mod mq, 0, emax - 1), S = all_sets[clamp(loff[q] + set_idx,
+// 0, n_sets - 1)], (ub, vb) = edge e of query q, then the btree_eval lane;
+// edge_in masked by t < eoff[bcap], seg = clamp(soff[q] + set_idx - seg0,
+// 0, nseg - 1).  int32 adds wrap as torch's do.  Every lane is decoded,
+// dead ones included.  Shared memory: eoff (bcap + 1), loff, soff, m_b
+// (bcap each), adj_b (bcap x nmax); the edge tables are read through the
+// read-only cache.
+__global__ void __launch_bounds__(kWideThreads)
+btree_eval_decode_kernel(const int* __restrict__ all_sets, int n_sets,
+                         const int* __restrict__ eoff,
+                         const int* __restrict__ loff,
+                         const int* __restrict__ soff, int seg0,
+                         const int* __restrict__ m_b,
+                         const int* __restrict__ emu_b,
+                         const int* __restrict__ emv_b, int emax,
+                         const int* __restrict__ adj_b,
+                         int* __restrict__ S_out, int* __restrict__ sl_out,
+                         int* __restrict__ in_out, int* __restrict__ qid_out,
+                         int* __restrict__ seg_out, int L, int bcap, int nmax,
+                         int nseg) {
+  extern __shared__ int smem[];
+  int* seoff = smem;
+  int* sloff = seoff + bcap + 1;
+  int* ssoff = sloff + bcap;
+  int* sm = ssoff + bcap;
+  int* sadj = sm + bcap;
+  stage(seoff, eoff, bcap + 1);
+  stage(sloff, loff, bcap);
+  stage(ssoff, soff, bcap);
+  stage(sm, m_b, bcap);
+  stage(sadj, adj_b, bcap * nmax);
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  const int nmask = (1 << nmax) - 1;
+  const int q = lane_query(seoff, bcap, t);
+  const int local = wrap_sub(t, seoff[q]);
+  const int mq = max(sm[q], 1);
+  int set_idx = local / mq;              // floor quotient and modulo (mq > 0)
+  int e = local - set_idx * mq;
+  if (e < 0) {
+    e += mq;
+    --set_idx;
+  }
+  e = min(e, emax - 1);
+  const int s = all_sets[min(max(wrap_add(sloff[q], set_idx), 0), n_sets - 1)];
+  const int ub = __ldg(emu_b + q * emax + e);
+  const int vb = __ldg(emv_b + q * emax + e);
+  S_out[t] = s;
+  sl_out[t] = grow_excl(ub, s, sadj + q * nmax, nmask, ub, vb);
+  in_out[t] = t < seoff[bcap] && (s & ub) != 0 && (s & vb) != 0;
+  qid_out[t] = q;
+  seg_out[t] = min(max(wrap_sub(wrap_add(ssoff[q], set_idx), seg0), 0),
+                   nseg - 1);
+}
+
 __global__ void bgeneral_eval_kernel(const int* __restrict__ S,
                                      const int* __restrict__ block,
                                      const int* __restrict__ r,
@@ -399,19 +541,22 @@ inline dim3 grid_for(int L) { return dim3((L + kThreads - 1) / kThreads); }
 // needs fewer.
 struct ResidentGrid {
   int device = -1;
+  size_t smem = 0;
   int blocks = 1;
 };
 
-inline dim3 grid_stride_for(const void* kernel, ResidentGrid& cache, int L) {
+inline dim3 grid_stride_for(const void* kernel, ResidentGrid& cache, int L,
+                            size_t smem = 0) {
   int dev = 0;
   cudaGetDevice(&dev);
-  if (cache.device != dev) {
+  if (cache.device != dev || cache.smem != smem) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                  kWideThreads, 0);
+                                                  kWideThreads, smem);
     cache.blocks = sms * per_sm > 0 ? sms * per_sm : 1;
     cache.device = dev;
+    cache.smem = smem;
   }
   return dim3(std::min(cache.blocks, (L + kWideThreads - 1) / kWideThreads));
 }
@@ -488,6 +633,22 @@ int rt_bconnectivity(const int* S, const int* qid, const int* adj_b,
   return static_cast<int>(cudaGetLastError());
 }
 
+int rt_bconnectivity_span(int k, const int* foff, int count,
+                          const int* binom, const int* adj_b, int* S,
+                          int* conn, int* qid, int bcap, int nmax,
+                          void* stream) {
+  static ResidentGrid cache;
+  size_t smem = static_cast<size_t>(bcap + 1 + (nmax + 1) * (nmax + 1)
+                                    + bcap * nmax) * sizeof(int);
+  dim3 grid = grid_stride_for(
+      reinterpret_cast<const void*>(&bconnectivity_span_kernel), cache, count,
+      smem);
+  bconnectivity_span_kernel<<<grid, kWideThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      k, foff, count, binom, adj_b, S, conn, qid, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int rt_bccp_eval(const int* S, const int* sub, const int* qid,
                  const int* adj_b, int* lb, int* rb, int* ccp_out, int L,
                  int bcap, int nmax, void* stream) {
@@ -503,6 +664,21 @@ int rt_btree_eval(const int* S, const int* ub, const int* vb, const int* qid,
   btree_eval_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
                       static_cast<cudaStream_t>(stream)>>>(
       S, ub, vb, qid, adj_b, sl, edge_in, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_btree_eval_decode(const int* all_sets, int n_sets, const int* eoff,
+                         const int* loff, const int* soff, int seg0,
+                         const int* m_b, const int* emu_b, const int* emv_b,
+                         int emax, const int* adj_b, int* S, int* sl,
+                         int* edge_in, int* qid, int* seg, int L, int bcap,
+                         int nmax, int nseg, void* stream) {
+  size_t smem = static_cast<size_t>(4 * bcap + 1 + bcap * nmax) * sizeof(int);
+  btree_eval_decode_kernel<<<(L + kWideThreads - 1) / kWideThreads,
+                             kWideThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      all_sets, n_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, emax, adj_b,
+      S, sl, edge_in, qid, seg, L, bcap, nmax, nseg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,14 @@
 Each wrapper takes int32 lane tensors and an adjacency table: one query's
 ``int32[nmax]`` for the solo-engine kernels (``connectivity``,
 ``ccp_eval``, ``grow_pair``), the stacked ``int32[bcap, nmax]`` for the
-batched ones.  Two solo forms build their lanes in the kernel instead:
-``connectivity_span`` unranks a span of colex ranks (the filter of one
-level), ``ccp_eval_dpsub`` decodes a DPSUB chunk's lanes from the level's
-set list.  Tensors on the CPU go to the plain PyTorch version in
+batched ones.  Four forms build their lanes in the kernel instead:
+``connectivity_span`` unranks a span of colex ranks (the solo filter of
+one level), ``ccp_eval_dpsub`` decodes a DPSUB chunk's lanes from the
+level's set list, ``bconnectivity_span`` unranks a level span of every
+query of a flight (the batched filter) and ``btree_eval_decode`` decodes
+an MPDP:Tree chunk's (query, set, edge) lanes from its offset tables (the
+batched and the solo tree evaluate).  Tensors on the CPU go to the plain
+PyTorch version in
 ``ref``; tensors on a CUDA device go to the kernel, or the wrapper raises
 (wrong dtype, shape, layout or mixed devices, or a refused launch).  There
 is no fallback from one to the other.
@@ -27,7 +31,8 @@ from . import build, ref
 
 LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
             "ccp_eval_dpsub": 0, "grow_pair": 0, "bconnectivity": 0,
-            "bccp_eval": 0, "btree_eval": 0, "bgeneral_eval": 0}
+            "bconnectivity_span": 0, "bccp_eval": 0, "btree_eval": 0,
+            "btree_eval_decode": 0, "bgeneral_eval": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
 _SMEM_LIMIT = 48 * 1024       # static dynamic-shared-memory budget per block
 _I32_MAX = (1 << 31) - 1
@@ -62,14 +67,7 @@ def _launch(name: str, lanes, adj, nmax: int, n_out: int):
         _check_table(name, adj, nmax)
         dims = (L, nmax)
     else:
-        if adj.dtype != torch.int32 or adj.dim() != 2 \
-                or adj.shape[-1] != nmax or not adj.is_contiguous():
-            raise ValueError(f"{name}: adj_b must be contiguous int32[bcap, "
-                             f"{nmax}], got {adj.dtype}{tuple(adj.shape)}")
-        bcap = adj.shape[0]
-        if not 1 <= nmax <= 30 or bcap < 1 or bcap * nmax * 4 > _SMEM_LIMIT:
-            raise ValueError(f"{name}: unsupported table shape {tuple(adj.shape)}")
-        dims = (L, bcap, nmax)
+        dims = (L, _check_stack(name, adj, nmax, 0), nmax)
     outs = [torch.empty_like(lanes[0]) for _ in range(n_out)]
     if L == 0:
         return outs
@@ -96,6 +94,29 @@ def _check_table(name: str, adj, nmax: int) -> None:
                          f"got {adj.dtype}{tuple(adj.shape)}")
     if not 1 <= nmax <= 30:
         raise ValueError(f"{name}: unsupported table shape {tuple(adj.shape)}")
+
+
+def _check_stack(name: str, adj_b, nmax: int, per_query: int,
+                 fixed: int = 0) -> int:
+    """Check the stacked (bcap, nmax) table and that it, ``per_query``
+    more ints a query and ``fixed`` more fit the shared-memory budget;
+    return bcap."""
+    if adj_b.dtype != torch.int32 or adj_b.dim() != 2 \
+            or adj_b.shape[-1] != nmax or not adj_b.is_contiguous():
+        raise ValueError(f"{name}: adj_b must be contiguous int32[bcap, "
+                         f"{nmax}], got {adj_b.dtype}{tuple(adj_b.shape)}")
+    bcap = adj_b.shape[0]
+    if not 1 <= nmax <= 30 or bcap < 1 \
+            or 4 * (bcap * (nmax + per_query) + fixed) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: unsupported table shape {tuple(adj_b.shape)}")
+    return bcap
+
+
+def _check_vec(name: str, key: str, t, shape: tuple) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: {key} must be contiguous int32{list(shape)}, "
+                         f"got {t.dtype}{tuple(t.shape)}")
 
 
 def _check_int32(name: str, **scalars) -> None:
@@ -147,6 +168,59 @@ def _launch_dpsub(all_sets, level_off: int, base_set: int, base_sub: int,
         _run(name, adj.device, all_sets.data_ptr(), all_sets.numel(),
              level_off, base_set, base_sub, i, adj.data_ptr(),
              *[o.data_ptr() for o in outs], chunk, nmax)
+    return tuple(outs)
+
+
+def _launch_bspan(k: int, foff, count: int, binom, adj_b, nmax: int):
+    """Check the arguments, allocate (S, conn, qid) and launch
+    ``rt_bconnectivity_span``."""
+    name = "bconnectivity_span"
+    bcap = _check_stack(name, adj_b, nmax, 1, 1 + (nmax + 1) ** 2)
+    _check_vec(name, "foff", foff, (bcap + 1,))
+    _check_vec(name, "binom", binom, (nmax + 1, nmax + 1))
+    if not 0 <= k <= nmax:
+        raise ValueError(f"{name}: k = {k} is outside [0, {nmax}]")
+    _check_int32(name, count=count)
+    outs = [torch.empty(count, dtype=torch.int32, device=adj_b.device)
+            for _ in range(3)]
+    if count:
+        _run(name, adj_b.device, k, foff.data_ptr(), count, binom.data_ptr(),
+             adj_b.data_ptr(), *[o.data_ptr() for o in outs], bcap, nmax)
+    return tuple(outs)
+
+
+def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
+                        emv_b, adj_b, nmax: int, nseg: int, chunk: int):
+    """Check the arguments, allocate (S, S_left, edge_in, qid, seg) and
+    launch ``rt_btree_eval_decode``."""
+    name = "btree_eval_decode"
+    bcap = _check_stack(name, adj_b, nmax, 4, 1)
+    if all_sets.dtype != torch.int32 or all_sets.dim() != 1 \
+            or not 1 <= all_sets.numel() <= _I32_MAX \
+            or not all_sets.is_contiguous():
+        raise ValueError(f"{name}: all_sets must be contiguous int32[N], "
+                         f"0 < N < 2^31, got "
+                         f"{all_sets.dtype}{tuple(all_sets.shape)}")
+    _check_vec(name, "eoff", eoff, (bcap + 1,))
+    for key, t in (("loff", loff), ("soff", soff), ("m_b", m_b)):
+        _check_vec(name, key, t, (bcap,))
+    emax = emu_b.shape[-1] if emu_b.dim() == 2 else 0
+    if emax < 1:
+        raise ValueError(f"{name}: emu_b must be int32[{bcap}, emax], emax > 0, "
+                         f"got {emu_b.dtype}{tuple(emu_b.shape)}")
+    _check_vec(name, "emu_b", emu_b, (bcap, emax))
+    _check_vec(name, "emv_b", emv_b, (bcap, emax))
+    _check_int32(name, seg0=seg0, nseg=nseg, chunk=chunk)
+    if nseg < 1:
+        raise ValueError(f"{name}: nseg = {nseg} must be positive")
+    outs = [torch.empty(chunk, dtype=torch.int32, device=adj_b.device)
+            for _ in range(5)]
+    if chunk:
+        _run(name, adj_b.device, all_sets.data_ptr(), all_sets.numel(),
+             eoff.data_ptr(), loff.data_ptr(), soff.data_ptr(), seg0,
+             m_b.data_ptr(), emu_b.data_ptr(), emv_b.data_ptr(), emax,
+             adj_b.data_ptr(), *[o.data_ptr() for o in outs], chunk, bcap,
+             nmax, nseg)
     return tuple(outs)
 
 
@@ -206,6 +280,18 @@ def bconnectivity(S, qid, adj_b, nmax: int):
     return _launch("bconnectivity", (S, qid), adj_b, nmax, 1)[0]
 
 
+def bconnectivity_span(k: int, foff, count: int, binom, adj_b, nmax: int):
+    """The batched filter of one level span: lane t < count belongs to
+    query ``q = searchsorted(foff, t, side="right") - 1`` (``foff`` the
+    int32[bcap+1] prefix of C(n_q, k), padded with its last value) and
+    unranks colex rank ``t - foff[q]`` of the k-subsets (``binom`` as for
+    ``connectivity_span``) -> (S, conn, qid int32[count]), conn 1 where
+    ``t < foff[bcap]`` and G_q[S] is connected."""
+    if _on_cpu("bconnectivity_span", (foff, binom), adj_b):
+        return ref.bconnectivity_span_ref(k, foff, count, binom, adj_b, nmax)
+    return _launch_bspan(k, foff, count, binom, adj_b, nmax)
+
+
 def bccp_eval(S, sub, qid, adj_b, nmax: int):
     """Batched DPSUB lanes -> (lb, rb, ccp int32)."""
     if _on_cpu("bccp_eval", (S, sub, qid), adj_b):
@@ -218,6 +304,27 @@ def btree_eval(S, ub, vb, qid, adj_b, nmax: int):
     if _on_cpu("btree_eval", (S, ub, vb, qid), adj_b):
         return ref.btree_eval_ref(S, ub, vb, qid, adj_b, nmax)
     return tuple(_launch("btree_eval", (S, ub, vb, qid), adj_b, nmax, 2))
+
+
+def btree_eval_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
+                      emv_b, adj_b, nmax: int, nseg: int, chunk: int):
+    """The ``chunk`` lanes of an MPDP:Tree chunk -> (S, S_left, edge_in,
+    qid, seg int32[chunk]).  ``eoff`` int32[bcap+1] holds the chunk-local
+    lane offsets of the queries (prefix of sets x edges), ``loff``/``soff``
+    int32[bcap] each query's base in ``all_sets`` and in the level's
+    segments, ``m_b`` its edge count and ``emu_b``/``emv_b`` int32[bcap,
+    emax] its edge endpoint bitmaps.  Lane t is edge ``local % m_q`` of set
+    ``local // m_q`` of its query (``local = t - eoff[q]``, set index
+    clamped into ``all_sets``); edge_in is 1 where ``t < eoff[bcap]`` and
+    both endpoints lie in S, seg is ``soff[q] + set - seg0`` clamped to
+    ``[0, nseg)``.  Dead lanes are decoded all the same."""
+    if _on_cpu("btree_eval_decode",
+               (all_sets, eoff, loff, soff, m_b, emu_b, emv_b), adj_b):
+        return ref.btree_eval_decode_ref(all_sets, eoff, loff, soff, seg0,
+                                         m_b, emu_b, emv_b, adj_b, nmax,
+                                         nseg, chunk)
+    return _launch_tree_decode(all_sets, eoff, loff, soff, seg0, m_b, emu_b,
+                               emv_b, adj_b, nmax, nseg, chunk)
 
 
 def bgeneral_eval(S, block, r, qid, adj_b, nmax: int):

@@ -3,10 +3,11 @@
 Each function computes what its CUDA kernel in ``csrc/ccp_eval.cu``
 computes, on the port's lane-vectorised ``bitset`` helpers, and equals the
 reference bit for bit: the seven lane kernels its ``repro.kernels.ref``,
-the two solo forms that build their own lanes (``connectivity_span``,
-``ccp_eval_dpsub``) the unrank or DPSUB decode of its jitted chunk bodies
-followed by the lane kernel.  ``ops`` routes CPU tensors here;
-``chip_smoke.py`` holds each kernel against these on the card.
+the four forms that build their own lanes (``connectivity_span``,
+``ccp_eval_dpsub``, ``bconnectivity_span``, ``btree_eval_decode``) the
+unrank or lane decode of its chunk bodies followed by the lane kernel.
+``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each kernel
+against these on the card.
 
 Lanes are ``int32[L]``.  The solo-engine kernels take one query's
 ``int32[nmax]`` adjacency table; the batched ones take the stacked
@@ -25,6 +26,13 @@ from ..core import unrank as ur
 
 def _rows(qid: torch.Tensor, adj_b: torch.Tensor) -> torch.Tensor:
     return adj_b[qid.clamp(0, adj_b.shape[0] - 1)]
+
+
+def _lane_query(off: torch.Tensor, t: torch.Tensor, bcap: int) -> torch.Tensor:
+    """Owner of lane t: ``searchsorted(off, t, side="right") - 1``, clamped
+    to ``[0, bcap)``."""
+    return (torch.searchsorted(off, t, right=True, out_int32=True) - 1
+            ).clamp(0, bcap - 1)
 
 
 def _ccp(lb, rb, adjq):
@@ -84,6 +92,21 @@ def bconnectivity_ref(S, qid, adj_b, nmax: int):
     return bs.is_connected_rows(S, _rows(qid, adj_b)).to(torch.int32)
 
 
+def bconnectivity_span_ref(k: int, foff, count: int, binom, adj_b,
+                           nmax: int):
+    """The batched filter of a level span: lane t (t < count) belongs to
+    query ``q = searchsorted(foff, t) - 1`` (foff the int32[bcap+1] rank
+    prefix), unranks colex rank ``max(t - foff[q], 0)`` of the k-subsets
+    and is live below ``foff[bcap]`` -> (S, conn, qid), conn 1 where the
+    lane is live and G_q[S] is connected."""
+    bcap = adj_b.shape[0]
+    t = torch.arange(count, dtype=torch.int32, device=adj_b.device)
+    qid = _lane_query(foff, t, bcap)
+    S = ur.unrank_ksubset((t - foff[qid]).clamp(min=0), k, binom, nmax)
+    conn = (bconnectivity_ref(S, qid, adj_b, nmax) != 0) & (t < foff[bcap])
+    return S, conn.to(torch.int32), qid
+
+
 def bccp_eval_ref(S, sub, qid, adj_b, nmax: int):
     """Batched DPSUB lane: ``lb = pdep(sub, S)``, ``rb = S & ~lb``, ccp."""
     adjq = _rows(qid, adj_b)
@@ -99,6 +122,31 @@ def btree_eval_ref(S, ub, vb, qid, adj_b, nmax: int):
     edge_in = ((S & ub) != 0) & ((S & vb) != 0)
     sl = bs.grow_excl_edge_rows(ub, S, adjq, ub, vb)
     return sl, edge_in.to(torch.int32)
+
+
+def btree_eval_decode_ref(all_sets, eoff, loff, soff, seg0: int, m_b,
+                          emu_b, emv_b, adj_b, nmax: int, nseg: int,
+                          chunk: int):
+    """MPDP:Tree chunk lane t (t < chunk): query ``q = searchsorted(eoff,
+    t) - 1``, ``local = t - eoff[q]``, set ``local // max(m_b[q], 1)`` of the
+    query's level at ``loff[q]`` (clamped gather from ``all_sets``) and edge
+    ``local % max(m_b[q], 1)`` of ``emu_b``/``emv_b``, then
+    ``btree_eval_ref`` -> (S, S_left, edge_in, qid, seg): edge_in masked by
+    ``t < eoff[bcap]``, seg ``soff[q] + set - seg0`` clamped to
+    ``[0, nseg)``.  Dead lanes are decoded all the same."""
+    bcap = adj_b.shape[0]
+    t = torch.arange(chunk, dtype=torch.int32, device=adj_b.device)
+    qid = _lane_query(eoff, t, bcap)
+    local = t - eoff[qid]
+    mq = m_b[qid].clamp(min=1)
+    set_idx = torch.div(local, mq, rounding_mode="floor")
+    e = torch.remainder(local, mq).clamp(0, emu_b.shape[1] - 1)
+    S = all_sets[(loff[qid] + set_idx).clamp(0, all_sets.shape[0] - 1)]
+    S_left, in_i = btree_eval_ref(S, emu_b[qid, e], emv_b[qid, e], qid,
+                                  adj_b, nmax)
+    edge_in = ((t < eoff[bcap]) & (in_i != 0)).to(torch.int32)
+    seg = (soff[qid] + set_idx - seg0).clamp(0, nseg - 1)
+    return S, S_left, edge_in, qid, seg
 
 
 def bgeneral_eval_ref(S, block, r, qid, adj_b, nmax: int):

@@ -14,20 +14,37 @@
   (``repro.core.engine._filter_chunk``, concatenated, masked lanes
   dropped), ``ccp_eval_dpsub`` against the reference's DPSUB decode with
   ``pdep`` and the ccp test, dead and clamped lanes included;
+* the batched forms that build their own lanes: ``bconnectivity_span``
+  against the reference's ``repro.core.batch._bfilter_chunk`` over every
+  chunk of each level of a mixed batch (concatenated, masked lanes
+  dropped, and split per query as the port's filter splits them),
+  ``btree_eval_decode`` against a jnp restatement of the reference's
+  MPDP:Tree decode, dead and clamped lanes included;
+* the port's batched and solo MPDP:Tree chunk bodies against the
+  reference's (``_beval_tree_chunk``, ``_eval_tree_chunk``) on the memo
+  of a run, call for call: integers exact, costs within a relative 1e-5
+  (largest ULP distance printed); the solo one-row offset tables against
+  the decode they replaced, lane for lane;
 * ``gpu``-marked tests hold each CUDA kernel against its plain version on
   the card (they skip without one).
 """
+from functools import partial
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from math import comb
 
-from repro.core import bitset as rbs, engine as reng, unrank as rur
+from repro.core import batch as rbatch, bitset as rbs, engine as reng
+from repro.core import unrank as rur
+from repro.daemon.protocol import graph_to_wire
 from repro.kernels import ccp_eval as rpallas, ref as rref
 from repro.workloads import generators as rgen
-from repro_torch.core import unrank as tur
+from repro_torch.core import batch as tbatch, engine as teng
+from repro_torch.core import joingraph as tjg, unrank as tur
 from repro_torch.kernels import ops, ref as tref
 
 # (inputs, jnp oracle, port plain version, Pallas wrapper)
@@ -72,6 +89,10 @@ def make_lanes(graphs, nmax: int, L: int, seed: int):
              "ub": (1 << uv[:, 0]).astype(np.int32),
              "vb": (1 << uv[:, 1]).astype(np.int32)}
     return lanes, adj
+
+
+def port(g):
+    return tjg.graph_from_wire(graph_to_wire(g))
 
 
 def _as_tuple(x):
@@ -530,3 +551,417 @@ def test_cuda_ccp_eval_dpsub_matches_plain_version():
                     torch.cuda.synchronize()
                     for a, b in zip(got, want):
                         assert a.is_cuda and torch.equal(a, b), (nmax, i, chunk)
+
+
+# ======================================== batched forms: lanes in the kernel ==
+# bconnectivity_span: the batched filter of one level; btree_eval_decode: an
+# MPDP:Tree chunk decoded from its offset tables (batched, or one-row solo).
+
+BCHUNK = 4096                          # reference filter chunk in these tests
+BATCHES = {
+    8: lambda: [rgen.chain(8, 1), rgen.cycle(7, 2), rgen.star(6, 3),
+                rgen.job_like(8, 4)],
+    16: lambda: rgen.mixed_stream(5, seed=0, sizes=(12, 13, 14, 15, 16)),
+}
+TREE_BATCHES = {
+    8: lambda: [rgen.chain(8, 1), rgen.star(6, 3), rgen.snowflake(8, 2)],
+    16: lambda: [rgen.chain(12, 2), rgen.star(10, 1), rgen.snowflake(13, 3),
+                 rgen.chain(16, 4), rgen.star(9, 5)],
+}
+
+
+def adj_stack(graphs, bcap: int, nmax: int) -> np.ndarray:
+    adj = np.zeros((bcap, nmax), np.int32)
+    for q, g in enumerate(graphs):
+        adj[q] = adj_of(g, nmax)
+    return adj
+
+
+def level_prefix(graphs, k: int, bcap: int):
+    """(global int32[bcap+1] rank prefix of C(n_q, k), padded; int64
+    prefix over the B queries)."""
+    foff = np.zeros(len(graphs) + 1, np.int64)
+    np.cumsum([comb(g.n, k) for g in graphs], out=foff[1:])
+    fpad = np.full(bcap + 1, foff[-1], np.int64)
+    fpad[: len(foff)] = foff
+    return fpad.astype(np.int32), foff
+
+
+@pytest.mark.parametrize("nmax", list(BATCHES))
+def test_bconnectivity_span_matches_reference_filter(nmax):
+    graphs = BATCHES[nmax]()
+    B = len(graphs)
+    bcap = rbatch._bcap(B)
+    adj = adj_stack(graphs, bcap, nmax)
+    binom = rur.binom_table(nmax)
+    chunk = jax.jit(partial(rbatch._bfilter_chunk, nmax=nmax, chunk=BCHUNK,
+                            bcap=bcap, pallas=False))
+    eng = tbatch.BatchEngine([port(g) for g in graphs], algorithm="dpsub",
+                             device="cpu")
+    np.testing.assert_array_equal(eng.adj_b.numpy(), adj)
+    for k in range(1, max(g.n for g in graphs) + 1):
+        fpad, foff = level_prefix(graphs, k, bcap)
+        total = int(foff[-1])
+        want = [[], [], []]
+        for lane0 in range(0, total, BCHUNK):
+            fl = np.clip(foff - lane0, -(1 << 30), 1 << 30)
+            fc = np.full(bcap + 1, fl[B], np.int32)
+            fc[: B + 1] = fl
+            live = lane0 + np.arange(BCHUNK) < total
+            for acc, x in zip(want, chunk(jnp.asarray(fc), k,
+                                          jnp.asarray(binom),
+                                          jnp.asarray(adj))):
+                acc.append(np.asarray(x)[live])
+        want_S, want_conn, want_qid = (np.concatenate(w) for w in want)
+        got = tref.bconnectivity_span_ref(k, torch.from_numpy(fpad), total,
+                                          torch.from_numpy(binom),
+                                          torch.from_numpy(adj), nmax)
+        for a, b in zip(got, (want_S, want_conn.astype(np.int32), want_qid)):
+            assert a.dtype == torch.int32 and a.shape == (total,)
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=f"k={k}")
+        # the port's filter: one span a level, compacted and split per query
+        per_q = eng._filter_collect(eng._filter_dispatch(k))
+        for q in range(B):
+            np.testing.assert_array_equal(
+                per_q[q], want_S[want_conn & (want_qid == q)],
+                err_msg=f"k={k} q={q}")
+
+
+def make_tree_case(graphs, nmax: int, chunk: int, seed: int):
+    """btree_eval_decode arguments as ``BatchEngine._eval_dispatch`` lays
+    them out: per-query set lists (sets inside the query's n bits) packed
+    back to back in ``all_sets`` (so a lane past a list reads its
+    neighbour's, and the last one clamps), edge tables padded to emax, the
+    chunk at a random lane of the level: where the chunk is long enough its
+    lanes run past the level's end (dead lanes, the padding queries, the
+    clamped gather)."""
+    rng = np.random.default_rng(seed)
+    B = len(graphs)
+    bcap = rbatch._bcap(B)
+    emax = max(8, -(-max(g.m for g in graphs) // 8) * 8)
+    m = np.zeros(bcap, np.int32)
+    emu = np.zeros((bcap, emax), np.int32)
+    emv = np.zeros((bcap, emax), np.int32)
+    for q, g in enumerate(graphs):
+        m[q] = g.m
+        for j, (u, v) in enumerate(g.edges):
+            emu[q, j], emv[q, j] = 1 << u, 1 << v
+    ns = rng.integers(1, 200, B)
+    all_sets = np.concatenate([rng.integers(1, 1 << g.n, c) for g, c
+                               in zip(graphs, ns)]).astype(np.int32)
+    soff = np.zeros(B + 1, np.int64)
+    np.cumsum(ns, out=soff[1:])
+    loff = np.zeros(bcap, np.int32)
+    loff[:B] = soff[:B]
+    spad = np.full(bcap, soff[B], np.int32)
+    spad[:B] = soff[:B]
+    eoff = np.zeros(B + 1, np.int64)
+    np.cumsum(ns * m[:B], out=eoff[1:])
+    lane0 = int(rng.integers(0, eoff[-1]))
+    el = eoff - lane0
+    epad = np.full(bcap + 1, el[B], np.int32)
+    epad[: B + 1] = el
+    p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0), B - 1)
+    seg0 = int(soff[p0] + (lane0 - eoff[p0]) // m[p0])
+    return (all_sets, epad, loff, spad, seg0, m, emu, emv,
+            adj_stack(graphs, bcap, nmax), nmax, chunk + 2, chunk)
+
+
+def reference_tree_decode(all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b,
+                          adj_b, nmax, nseg, chunk):
+    """The reference's MPDP:Tree lane decode and split
+    (``repro.core.batch._beval_tree_chunk``, ``pallas=False``), every lane
+    of the chunk."""
+    bcap = adj_b.shape[0]
+    t = jnp.arange(chunk, dtype=jnp.int32)
+    qid = jnp.clip(jnp.searchsorted(eoff, t, side="right").astype(jnp.int32)
+                   - 1, 0, bcap - 1)
+    local = t - eoff[qid]
+    live = t < eoff[bcap]
+    mq = jnp.maximum(m_b[qid], 1)
+    set_idx = local // mq
+    e = local % mq
+    S = all_sets[loff[qid] + set_idx]
+    ub = emu_b[qid, e]
+    vb = emv_b[qid, e]
+    edge_in = live & ((S & ub) != 0) & ((S & vb) != 0)
+    S_left = rbs.grow_excl_edge_rows(ub, S, adj_b[qid], ub, vb)
+    seg = jnp.clip(soff[qid] + set_idx - seg0, 0, nseg - 1)
+    return S, S_left, edge_in, qid, seg
+
+
+TREE_DECODE_CASES = [(8, 129), (8, 4096), (16, 1), (16, 4096)]
+
+
+@pytest.mark.parametrize("nmax,chunk", TREE_DECODE_CASES)
+def test_btree_eval_decode_matches_reference_decode(nmax, chunk):
+    args = make_tree_case(BATCHES[nmax](), nmax, chunk, seed=nmax + chunk)
+    conv = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+    got = tref.btree_eval_decode_ref(*conv)
+    want = reference_tree_decode(*[jnp.asarray(a) if isinstance(a, np.ndarray)
+                                   else a for a in args])
+    if chunk == 4096:      # the case reaches dead lanes and the clamp
+        q = got[3].numpy()
+        local = np.arange(chunk) - args[1][q]
+        idx = args[2][q] + local // np.maximum(args[5][q], 1)
+        assert args[1][-1] < chunk and idx.max() >= len(args[0])
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and a.shape == (chunk,)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int32))
+
+
+def _hold_chunk(got, want, label):
+    """(seg_cost, seg_left, ev, ccp): integers exact, costs within a
+    relative 1e-5; returns the largest ULP distance of the costs."""
+    sc, sl, ev, cc = (np.asarray(x) for x in got)
+    wsc, wsl, wev, wcc = (np.asarray(x) for x in want)
+    for a, b in ((sl, wsl), (ev, wev), (cc, wcc)):
+        np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=label)
+    fin = np.isfinite(wsc)
+    np.testing.assert_array_equal(np.isfinite(sc), fin, err_msg=label)
+    np.testing.assert_allclose(sc[fin], wsc[fin], rtol=1e-5, err_msg=label)
+    return int(np.abs(sc[fin].view(np.int32).astype(np.int64)
+                      - wsc[fin].view(np.int32).astype(np.int64)).max(initial=0))
+
+
+@pytest.mark.parametrize("nmax", list(TREE_BATCHES))
+def test_beval_tree_chunk_matches_reference(nmax, monkeypatch):
+    """Every chunk of a batched MPDP:Tree run on the CPU, held against the
+    reference's chunk body on the same arguments and memo."""
+    graphs = TREE_BATCHES[nmax]()
+    chunk = 64 if nmax == 8 else 1024
+    bcap = rbatch._bcap(len(graphs))
+    want_fn = jax.jit(partial(rbatch._beval_tree_chunk, nmax=nmax, chunk=chunk,
+                              nseg=chunk + 2, bcap=bcap, pallas=False))
+    real = tbatch._beval_tree_chunk
+    worst = [0, 0]
+
+    def held(*args, **kw):
+        got = real(*args, **kw)
+        want = want_fn(*[jnp.asarray(a.numpy()) if torch.is_tensor(a) else a
+                         for a in args])
+        worst[0] = max(worst[0], _hold_chunk(got, want, f"call {worst[1]}"))
+        worst[1] += 1
+        return got
+
+    monkeypatch.setattr(tbatch, "_beval_tree_chunk", held)
+    tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
+                       algorithm="mpdp_tree", device="cpu").run()
+    assert worst[1] > max(g.n for g in graphs)      # several chunks a level
+    print(f"nmax={nmax}: {worst[1]} chunks, largest cost difference "
+          f"{worst[0]} ulp")
+
+
+@pytest.mark.parametrize("g", [rgen.chain(8, 3), rgen.snowflake(13, 2)],
+                         ids=["chain8", "snowflake13"])
+def test_eval_tree_chunk_matches_reference(g, monkeypatch):
+    """Every chunk of a solo MPDP:Tree run on the CPU (one-row tables),
+    held against the reference's ``_eval_tree_chunk`` on the same memo."""
+    chunk = 512
+    real = teng._eval_tree_chunk
+    worst = [0, 0]
+
+    def held(all_sets, offs, m1, emu1, emv1, adj1, memo_cost, memo_rows, **kw):
+        got = real(all_sets, offs, m1, emu1, emv1, adj1, memo_cost, memo_rows,
+                   **kw)
+        o = offs.numpy()
+        j = [jnp.asarray(a.numpy()) for a in
+             (all_sets, adj1[0], emu1[0], emv1[0], memo_cost, memo_rows)]
+        want = reng._eval_tree_chunk(
+            j[0], jnp.int32(o[2]), jnp.int32(0), jnp.int32(-o[0]),
+            jnp.int32(m1[0]), jnp.int32(o[1]), *j[1:], **kw)
+        worst[0] = max(worst[0], _hold_chunk(
+            got, [want[0], want[1], np.asarray(want[2]).reshape(()),
+                  np.asarray(want[3]).reshape(())], f"call {worst[1]}"))
+        worst[1] += 1
+        return got
+
+    monkeypatch.setattr(teng, "_eval_tree_chunk", held)
+    teng.optimize(port(g), "mpdp_tree", chunk=chunk, device="cpu")
+    assert worst[1] >= g.n - 1
+    print(f"n={g.n}: {worst[1]} chunks, largest cost difference {worst[0]} ulp")
+
+
+def old_solo_tree_decode(all_sets, level_off, base_set, base_e, m,
+                         lane_count, adj, emask_u, emask_v, nmax, chunk):
+    """The solo tree decode the one-row tables replaced: (S, S_left,
+    edge_in, segment) of ``base_e + t`` over ``sets x m`` from set
+    ``level_off + base_set``."""
+    t = torch.arange(chunk, dtype=torch.int32)
+    e_g = base_e + t
+    set_idx = base_set + torch.div(e_g, m, rounding_mode="floor")
+    e = torch.remainder(e_g, m)
+    S = all_sets[(level_off + set_idx).clamp(0, all_sets.shape[0] - 1)]
+    S_left, in_i = tref.btree_eval_ref(S, emask_u[e], emask_v[e],
+                                       torch.zeros_like(t), adj[None], nmax)
+    return S, S_left, ((t < lane_count) & (in_i != 0)).to(torch.int32), \
+        set_idx - base_set
+
+
+SOLO_TREE_CASES = [(nmax, chunk, seed) for nmax in (8, 16, 24, 30)
+                   for chunk, seed in ((1, 1), (129, 2), (4096, 3))]
+
+
+@pytest.mark.parametrize("nmax,chunk,seed", SOLO_TREE_CASES)
+def test_solo_tree_offsets_match_the_old_decode(nmax, chunk, seed):
+    g = span_graph(nmax, 0 if nmax == 30 else seed % len(SOLO_TABLES[nmax]()))
+    dg = teng.DeviceGraph.from_graph(g, "cpu")
+    rng = np.random.default_rng(nmax * 10 + seed)
+    all_sets = torch.from_numpy(rng.integers(1, 1 << g.n, 3000).astype(np.int32))
+    level_off, base_set = int(rng.integers(0, 1000)), int(rng.integers(0, 1000))
+    base_e = int(rng.integers(0, g.m))
+    lane_count = int(rng.integers(0, chunk + 1))
+    offs = torch.from_numpy(teng._tree_offsets(level_off, base_set, base_e,
+                                               lane_count))
+    S, S_left, edge_in, qid, seg = tref.btree_eval_decode_ref(
+        all_sets, offs[0:2], offs[2:3], offs[3:4], 0,
+        torch.tensor([g.m], dtype=torch.int32), dg.emask_u[None],
+        dg.emask_v[None], dg.adj[None], nmax, chunk + 1, chunk)
+    want = old_solo_tree_decode(all_sets, level_off, base_set, base_e, g.m,
+                                lane_count, dg.adj, dg.emask_u, dg.emask_v,
+                                nmax, chunk)
+    for a, b in zip((S, S_left, edge_in, seg), want):
+        assert torch.equal(a, b)
+    assert not qid.any()
+
+
+def bspan_args(nmax=16, k=5):
+    graphs = BATCHES[nmax]()
+    bcap = rbatch._bcap(len(graphs))
+    fpad, foff = level_prefix(graphs, k, bcap)
+    return (k, torch.from_numpy(fpad), int(foff[-1]),
+            torch.from_numpy(tur.binom_table(nmax)),
+            torch.from_numpy(adj_stack(graphs, bcap, nmax)), nmax)
+
+
+def tree_args(nmax=16, chunk=300):
+    return tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                 for a in make_tree_case(BATCHES[nmax](), nmax, chunk, 5))
+
+
+@pytest.mark.parametrize("name", ["bconnectivity_span", "btree_eval_decode"])
+def test_batched_lane_building_wrapper_routes_cpu_tensors(name):
+    args = bspan_args() if name == "bconnectivity_span" else tree_args()
+    before = dict(ops.LAUNCHES)
+    got = getattr(ops, name)(*args)
+    for a, b in zip(got, getattr(tref, f"{name}_ref")(*args)):
+        assert torch.equal(a, b)
+    assert ops.LAUNCHES == before            # no kernel ran, none counted
+
+
+def test_bspan_launch_checks_refuse_bad_inputs():
+    k, foff, count, binom, adj_b, nmax = bspan_args()
+    with pytest.raises(ValueError, match="adj_b must be"):
+        ops._launch_bspan(k, foff, count, binom, adj_b.long(), nmax)
+    with pytest.raises(ValueError, match="foff must be"):
+        ops._launch_bspan(k, foff[:-1], count, binom, adj_b, nmax)
+    with pytest.raises(ValueError, match="foff must be"):
+        ops._launch_bspan(k, foff.long(), count, binom, adj_b, nmax)
+    with pytest.raises(ValueError, match="binom must be"):
+        ops._launch_bspan(k, foff, count, binom[:, :4], adj_b, nmax)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops._launch_bspan(k, torch.zeros(1025, dtype=torch.int32), count,
+                          binom, torch.zeros((1024, 16), dtype=torch.int32),
+                          nmax)
+    with pytest.raises(ValueError, match="count"):
+        ops._launch_bspan(k, foff, 1 << 31, binom, adj_b, nmax)
+    with pytest.raises(ValueError, match="k = 17"):
+        ops._launch_bspan(17, foff, count, binom, adj_b, nmax)
+    with pytest.raises(ValueError, match="devices"):
+        ops.bconnectivity_span(k, foff.to("meta"), count, binom, adj_b, nmax)
+
+
+def test_tree_decode_launch_checks_refuse_bad_inputs():
+    (all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax, nseg,
+     chunk) = args = tree_args()
+
+    def refuse(match, **repl):
+        keys = ("all_sets", "eoff", "loff", "soff", "seg0", "m_b", "emu_b",
+                "emv_b", "adj_b", "nmax", "nseg", "chunk")
+        a = dict(zip(keys, args))
+        a.update(repl)
+        with pytest.raises(ValueError, match=match):
+            ops._launch_tree_decode(*a.values())
+
+    refuse("all_sets must be", all_sets=all_sets.long())
+    refuse("all_sets must be", all_sets=all_sets[:0])
+    refuse("eoff must be", eoff=eoff[:-1])
+    refuse("loff must be", loff=loff.long())
+    refuse("soff must be", soff=soff[:1])
+    refuse("m_b must be", m_b=m_b[None])
+    refuse("emu_b must be", emu_b=emu_b[0])
+    refuse("emv_b must be", emv_b=emv_b[:, :4])
+    refuse("adj_b must be", adj_b=adj_b[:, :4])
+    refuse("seg0", seg0=-1)
+    refuse("chunk", chunk=1 << 31)
+    refuse("nseg", nseg=0)
+    with pytest.raises(ValueError, match="devices"):
+        ops.btree_eval_decode(all_sets, eoff, loff, soff.to("meta"), seg0,
+                              m_b, emu_b, emv_b, adj_b, nmax, nseg, chunk)
+
+
+# ----------------------------------------------------------------- card --
+
+@pytest.mark.gpu
+def test_cuda_bconnectivity_span_matches_plain_version():
+    """Counts of 1, 129, 32767 and 32768 lanes (past the level's end where
+    it is smaller: dead lanes) and whole levels, nmax 8 and 16, bcap 4 and
+    32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for nmax in (8, 16):
+        graphs = (BATCHES[8]() if nmax == 8
+                  else rgen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)))
+        for bcap in (4, 32):
+            gs = (graphs * 8)[:bcap]
+            for k in (2, nmax // 2, nmax):
+                fpad, foff = level_prefix(gs, k, bcap)
+                for count in (1, 129, 32767, 32768, int(foff[-1])):
+                    args = (k, torch.from_numpy(fpad).cuda(), count,
+                            torch.from_numpy(tur.binom_table(nmax)).cuda(),
+                            torch.from_numpy(adj_stack(gs, bcap, nmax)).cuda(),
+                            nmax)
+                    n0 = ops.LAUNCHES["bconnectivity_span"]
+                    got = ops.bconnectivity_span(*args)
+                    assert ops.LAUNCHES["bconnectivity_span"] == n0 + int(count > 0)
+                    want = tref.bconnectivity_span_ref(*args)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        assert a.is_cuda and torch.equal(a, b), (nmax, bcap, k, count)
+
+
+@pytest.mark.gpu
+def test_cuda_btree_eval_decode_matches_plain_version():
+    """Chunks of 1, 129, 32767 and 32768 lanes at nmax 8 and 16 (bcap 4 and
+    8), and the solo one-row tables at nmax 24 and 30."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = []
+    for nmax in (8, 16):
+        for chunk in (1, 129, 32767, 32768):
+            cases.append(make_tree_case(BATCHES[nmax](), nmax, chunk,
+                                        seed=chunk))
+    for nmax, g in ((24, rgen.snowflake(20, 1)), (30, rgen.chain(25, 1))):
+        dg = teng.DeviceGraph.from_graph(port(g), "cpu")
+        rng = np.random.default_rng(nmax)
+        for chunk in (1, 129, 32767, 32768):
+            offs = teng._tree_offsets(int(rng.integers(0, 1 << 29)),
+                                      int(rng.integers(0, 4096)),
+                                      int(rng.integers(0, g.m)),
+                                      int(rng.integers(0, chunk + 1)))
+            cases.append((rng.integers(1, 1 << g.n, 4096).astype(np.int32),
+                          offs[0:2], offs[2:3], offs[3:4], 0,
+                          np.array([g.m], np.int32),
+                          dg.emask_u[None].numpy(), dg.emask_v[None].numpy(),
+                          dg.adj[None].numpy(), nmax, chunk + 1, chunk))
+    for case in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                if isinstance(a, np.ndarray) else a for a in case]
+        n0 = ops.LAUNCHES["btree_eval_decode"]
+        got = ops.btree_eval_decode(*args)
+        assert ops.LAUNCHES["btree_eval_decode"] == n0 + 1
+        want = tref.btree_eval_decode_ref(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.is_cuda and torch.equal(a, b), (case[9], case[11])
