@@ -7,30 +7,35 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the eleven CUDA entry points against its plain
+  3. kernels — each of the twelve CUDA entry points against its plain
      PyTorch version on the same card tensors, bit for bit, lanes built
      with numpy from a seed over real generator graphs: the four batched
-     kernels and the two batched forms that build their own lanes
+     kernels and the three batched forms that build their own lanes
      (``bconnectivity_span`` over a level span, ``btree_eval_decode`` over
-     an MPDP:Tree chunk, both with dead and clamped lanes) at L or count
+     an MPDP:Tree chunk, ``bgeneral_eval_decode`` over an MPDP-general
+     chunk's pair table, each with dead and clamped lanes) at L or count
      = 32768 and the ragged 1, 129, 32767, nmax in {8, 16}, bcap in {4,
-     32}; the three solo-engine kernels, and ``btree_eval`` and
-     ``btree_eval_decode`` on the one-row tables the solo tree evaluate
-     gives them, at the same L and nmax in {8, 16, 24, 30}; the two solo
+     32}; the three solo-engine kernels, and ``btree_eval``,
+     ``btree_eval_decode`` and ``bgeneral_eval_decode`` on the one-row
+     tables the solo evaluates give them, at the same L and nmax in {8,
+     16, 24, 30}; the two solo
      forms that build their own lanes (``connectivity_span`` over a rank
      span, ``ccp_eval_dpsub`` over a DPSUB chunk with dead and clamped
      lanes) at count or chunk in {1, 129, 32767, 32768} and nmax in {8,
      16, 24, 30}, and ``connectivity_span`` at d4's largest span
      (chain(25), level 12, 5,200,300 ranks at nmax 30).  Then stream (a)
-     once, with its ``bconnectivity_span`` and ``btree_eval_decode`` calls
-     held against their plain versions and the busiest of each kept.
+     once, with its ``bconnectivity_span``, ``btree_eval_decode`` and
+     ``bgeneral_eval_decode`` calls held against their plain versions and
+     the busiest of each kept, and d1 once, with its
+     ``bgeneral_eval_decode`` calls held the same way.
      Times by CUDA events (kernel and plain version) and the bound of
      each, at L = 32768 with nmax = 16, bcap = 32 (batched) or nmax = 24
      (solo); ``ccp_eval_dpsub`` on d3's real level sets,
      ``connectivity_span`` at L = 32768 (printed) and at d4's span (the
      JSON line), the two batched forms at L = 32768, nmax 16, bcap 32
-     (printed) and at stream (a)'s busiest level span and tree chunk (the
-     JSON line);
+     (printed) and at stream (a)'s busiest level span, tree chunk and
+     general chunk (the JSON line), ``bgeneral_eval_decode`` also at d1's
+     busiest chunk (printed);
   4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
      plan validated and every cost held against the host DPccp oracle
      (relative 1e-4), ``Counters`` and costs of stream (c) and the first
@@ -38,6 +43,9 @@ Phases, in order, none of them caught:
      run (exact / relative 1e-5), one ``bconnectivity_span`` launch per
      level and flight, launch counters read around exactly this path;
      then a ``torch.profiler`` window over stream (a);
+     on both paths one ``bgeneral_eval_decode`` launch per MPDP-general
+     chunk and none of the six set-given kernels the lane-building forms
+     replaced (``OFF_PATH``);
   5. solo path — ``engine.optimize`` on ``cuda`` over parts d1-d5 (MPDP-
      general at nmax 24, MPDP:Tree at nmax 24, DPSUB, the nmax-30 bucket,
      then dpsize, dpccp, frontier expansion and ``optimize_many``'s solo
@@ -110,16 +118,22 @@ KERNELS = {
                           "MPDP:Tree decode of src/repro/core/batch.py:202-214"),
     "bgeneral_eval": (("S", "block", "r", "qid"), 3,
                       "src/repro/kernels/ccp_eval.py:184"),
+    "bgeneral_eval_decode": ((), 6, "src/repro/kernels/ccp_eval.py:184 + the "
+                             "general decode of src/repro/core/batch.py:259-283 "
+                             "and src/repro/core/engine.py:253-268"),
 }
 SOLO = ("connectivity", "ccp_eval", "grow_pair")
 SPAN_FORMS = ("connectivity_span", "ccp_eval_dpsub")
 BATCHED = ("bconnectivity", "bccp_eval", "btree_eval", "bgeneral_eval")
-BATCHED_FORMS = ("bconnectivity_span", "btree_eval_decode")
+BATCHED_FORMS = ("bconnectivity_span", "btree_eval_decode",
+                 "bgeneral_eval_decode")
 SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
-# what each path runs: the set-given connectivity, bconnectivity and
-# btree_eval left it for the forms that build their own lanes
-BATCHED_PATH = BATCHED_FORMS + ("bccp_eval", "bgeneral_eval")
-SOLO_PATH = SPAN_FORMS + ("ccp_eval", "grow_pair", "btree_eval_decode")
+# what each path runs: the set-given kernels left it for the forms that
+# build their own lanes, and must make no launch there
+BATCHED_PATH = BATCHED_FORMS + ("bccp_eval",)
+SOLO_PATH = SPAN_FORMS + ("btree_eval_decode", "bgeneral_eval_decode")
+OFF_PATH = ("connectivity", "ccp_eval", "grow_pair", "bconnectivity",
+            "btree_eval", "bgeneral_eval")
 SYMBOL = {"connectivity": "connectivity_kernel<false>",
           "connectivity_span": "connectivity_kernel<true>"}
 
@@ -323,31 +337,101 @@ def solo_tree_inputs(g, nmax: int, chunk: int, seed: int):
             nmax, chunk + 1, chunk)
 
 
-def busiest_stream_calls(graphs):
-    """Run ``optimize_many(graphs, "auto")`` once with both batched forms
-    held against their plain versions on every call; return the arguments
-    of the busiest ``bconnectivity_span`` call (most ranks) and
-    ``btree_eval_decode`` call (most live lanes)."""
-    real = {k: getattr(ops, k) for k in BATCHED_FORMS}
-    seen = {k: [] for k in BATCHED_FORMS}
+def pair_inputs(ns, adj, nmax: int, chunk: int, seed: int, clamp: bool):
+    """bgeneral_eval_decode arguments laid out as the engines' general
+    dispatch lays them out (``engine._pair_table``) over queries of ``ns``
+    relations: per query up to 600 random (set, block) pairs sorted by set
+    (blocks subsets of their set with two members or more), the chunk at a
+    random lane of the level (for chunk 32767 in the level's last half
+    chunk, so that its lanes run past the level's end: dead lanes, ranks
+    past their block).  ``clamp``: the offsets
+    shifted up (p clamps to 0, negative ranks) and ``n_pairs`` cut to half
+    the pairs that start inside the chunk (p clamps to n_pairs - 1)."""
+    rng = np.random.default_rng(seed)
+    ps, pb, pq = [], [], []
+    for q, n in enumerate(ns):
+        S = rng.integers(1, 1 << n, 4000)
+        blk = S & rng.integers(1, 1 << n, 4000)
+        keep = np.flatnonzero(bs.np_popcount(blk) >= 2)[: rng.integers(1, 600)]
+        order = np.argsort(S[keep], kind="stable")
+        ps.append(S[keep][order])
+        pb.append(blk[keep][order])
+        pq.append(np.full(len(keep), q))
+    ps, pb, pq = (np.concatenate(x).astype(np.int32) for x in (ps, pb, pq))
+    offs = np.zeros(len(ps) + 1, np.int64)
+    np.cumsum(np.int64(1) << bs.np_popcount(pb).astype(np.int64), out=offs[1:])
+    tail = chunk == L_MAIN - 1
+    lane0 = int(rng.integers(max(0, offs[-1] - chunk // 2) if tail else 0,
+                             offs[-1]))
+    lane1 = min(lane0 + chunk, int(offs[-1]))
+    p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
+    p1 = int(np.searchsorted(offs, lane1, side="left"))
+    pairs = engine._pair_table(ps, pb, pq, offs, p0, p1, lane0)
+    n_pairs = p1 - p0
+    if clamp:
+        pairs[3, :n_pairs] += np.int32(rng.integers(1, chunk // 2 + 2))
+        n_pairs = max(1, int((pairs[3, :n_pairs] < chunk).sum()) // 2)
+    return (torch.from_numpy(pairs).to(DEV), n_pairs, lane1 - lane0, adj,
+            nmax, chunk)
+
+
+def general_inputs(graphs, bcap: int, nmax: int, chunk: int, seed: int,
+                   clamp: bool):
+    """``pair_inputs`` over bcap - 1 graphs (one padding query)."""
+    gs = graphs[: bcap - 1]
+    adj = torch.zeros((bcap, nmax), dtype=torch.int32, device=DEV)
+    for q, g in enumerate(gs):
+        adj[q] = adj_table(g, nmax)
+    return pair_inputs([g.n for g in gs], adj, nmax, chunk, seed, clamp)
+
+
+def solo_general_inputs(g, nmax: int, chunk: int, seed: int, clamp: bool):
+    """``pair_inputs`` on the one-row table of the solo general
+    evaluate."""
+    return pair_inputs([g.n], adj_table(g, nmax)[None].contiguous(), nmax,
+                       chunk, seed, clamp)
+
+
+def spied_calls(names, run, where: str):
+    """Call ``run()`` with the wrappers ``names`` held against their plain
+    versions on every call; return the arguments of each call by name."""
+    real = {k: getattr(ops, k) for k in names}
+    seen = {k: [] for k in names}
 
     def spy(name):
-        def run(*args):
-            check(name, args, "stream (a) call", fn=real[name])
+        def launch(*args):
+            check(name, args, f"{where} call", fn=real[name])
             seen[name].append(args)
             return real[name](*args)
-        return run
+        return launch
 
     try:
-        for k in BATCHED_FORMS:
+        for k in names:
             setattr(ops, k, spy(k))
-        batch.optimize_many(graphs, "auto")
+        run()
     finally:
-        for k in BATCHED_FORMS:
+        for k in names:
             setattr(ops, k, real[k])
+    return seen
+
+
+def busiest_general(calls):
+    """The bgeneral_eval_decode call with the most live lanes."""
+    return max(calls, key=lambda a: a[2])
+
+
+def busiest_stream_calls(graphs):
+    """Run ``optimize_many(graphs, "auto")`` once with the three batched
+    forms held against their plain versions on every call; return the
+    arguments of the busiest ``bconnectivity_span`` call (most ranks),
+    ``btree_eval_decode`` call and ``bgeneral_eval_decode`` call (most
+    live lanes)."""
+    seen = spied_calls(BATCHED_FORMS,
+                       lambda: batch.optimize_many(graphs, "auto"), "stream (a)")
     return (max(seen["bconnectivity_span"], key=lambda a: a[2]),
             max(seen["btree_eval_decode"],
-                key=lambda a: min(int(a[1][-1]), a[-1])), seen)
+                key=lambda a: min(int(a[1][-1]), a[-1])),
+            busiest_general(seen["bgeneral_eval_decode"]), seen)
 
 
 def lane_args(name, lanes, adj, nmax):
@@ -402,6 +486,12 @@ def op_count(name, lanes, adj, nmax) -> int:
     elif name in ("ccp_eval", "bccp_eval"):
         lb = bs.pdep(lanes["sub"], S, nmax)
         steps = pc(S & nm) + ccp_steps(lb, S & ~lb)
+    elif name == "bgeneral_eval_decode":            # ccp only on live lanes
+        blk = lanes["block"]
+        lb = bs.pdep(lanes["r"], blk, nmax)
+        rb = blk & ~lb
+        steps = (pc(blk & nm) + lanes["live"] * ccp_steps(lb, rb)
+                 + reach(lb, S & ~rb, adjq))
     elif name == "btree_eval":
         ub, vb = lanes["ub"], lanes["vb"]
         sh = torch.arange(nmax, dtype=torch.int32, device=S.device)
@@ -509,6 +599,30 @@ def tree_decode_work(args):
                         adj_b.shape[0])) * chunk)
 
 
+def general_decode_work(args):
+    """(bytes, int32 operations) of a bgeneral_eval_decode call: six lane
+    outputs written, the pair table and the adjacency stack read; per lane
+    the binary search over the pair offsets, the decode and the walks
+    (pdep over the block, the ccp test on live lanes, the grow)."""
+    pairs, n_pairs, lane_count, adj_b, nmax, chunk = args
+    S, _, _, _, qid, p = call("bgeneral_eval_decode", args, plain=True)
+    t = torch.arange(chunk, dtype=torch.int32, device=DEV)
+    lanes = {"S": S, "qid": qid, "block": pairs[1][p], "r": t - pairs[3][p],
+             "live": (t < lane_count).to(torch.int32)}
+    nbytes = 24 * chunk + 4 * (pairs.numel() + adj_b.numel())
+    return nbytes, (op_count("bgeneral_eval_decode", lanes, adj_b, nmax)
+                    + SEARCH_OPS * search_steps(pairs.shape[1] - 1) * chunk)
+
+
+def d1_general_calls():
+    """Run d1 once with its ``bgeneral_eval_decode`` calls held against
+    the plain version; return the calls' arguments."""
+    label, g, algorithm, opts, _ = solo_parts()[0]
+    return spied_calls(("bgeneral_eval_decode",),
+                       lambda: engine.optimize(g, algorithm, **opts),
+                       label)["bgeneral_eval_decode"]
+
+
 def measure(name, args, row: dict, work) -> None:
     """Card time per launch, plain-version time and the bound of
     ``work = (bytes, int32 operations)``, into row."""
@@ -544,15 +658,23 @@ def phase_kernels():
                          bspan_inputs(graphs, bcap, nmax, L, seed), bspan_work),
                         ("btree_eval_decode",
                          tree_inputs(graphs, bcap, nmax, L, seed),
-                         tree_decode_work)):
+                         tree_decode_work),
+                        ("bgeneral_eval_decode",
+                         general_inputs(graphs, bcap, nmax, L, seed, False),
+                         general_decode_work),
+                        ("bgeneral_eval_decode",
+                         general_inputs(graphs, bcap, nmax, L, seed + 1, True),
+                         None)):
                     err = check(name, args, f"nmax={nmax} bcap={bcap} L={L} "
                                 f"(lanes built in the kernel)")
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-                    if (nmax, bcap, L) == (16, 32, L_MAIN):
+                    if (nmax, bcap, L) == (16, 32, L_MAIN) and work:
                         at_l = {}
                         measure(name, args, at_l, work(args))
                         log_row(name, at_l, f"L={L} nmax=16 bcap=32 (random "
                                 f"level k={args[0]})" if name == "bconnectivity_span"
+                                else f"L={L} live={args[2]} nmax=16 bcap=32 "
+                                f"(random pairs)" if name == "bgeneral_eval_decode"
                                 else f"L={L} nmax=16 bcap=32 (random sets)")
                 log(f"kernels ok nmax={nmax} bcap={bcap} L={L}")
     for nmax in (8, 16, 24, 30):
@@ -568,11 +690,18 @@ def phase_kernels():
                     if (nmax, gi, L) == (24, 0, L_MAIN) and name in SOLO:
                         measure(name, args, rows[name],
                                 lane_work(name, lanes, adj, nmax))
-                rows["btree_eval_decode"]["max_abs_err"] = max(
-                    rows["btree_eval_decode"]["max_abs_err"],
-                    check("btree_eval_decode",
-                          solo_tree_inputs(g, nmax, L, seed=L + nmax + gi),
-                          f"nmax={nmax} n={g.n} L={L} (one-row tables)"))
+                for name, args in (
+                        ("btree_eval_decode",
+                         solo_tree_inputs(g, nmax, L, seed=L + nmax + gi)),
+                        ("bgeneral_eval_decode",
+                         solo_general_inputs(g, nmax, L, L + nmax + gi, False)),
+                        ("bgeneral_eval_decode",
+                         solo_general_inputs(g, nmax, L, L + nmax + gi + 1,
+                                             True))):
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"],
+                        check(name, args, f"nmax={nmax} n={g.n} L={L} "
+                              f"(one-row tables)"))
                 for name, args in (("connectivity_span",
                                     span_inputs(g, nmax, L, seed=L + nmax)),
                                    ("ccp_eval_dpsub",
@@ -597,14 +726,25 @@ def phase_kernels():
         check("ccp_eval_dpsub", args, "d3 busiest level"))
     measure("ccp_eval_dpsub", args, rows["ccp_eval_dpsub"], dpsub_work(args))
     log(f"solo kernels ok at d4's level-12 span and d3's level-{args[4]} chunk")
-    span, tree, seen = busiest_stream_calls(
+    span, tree, general, seen = busiest_stream_calls(
         gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)))
     for name, a, work in (("bconnectivity_span", span, bspan_work),
-                          ("btree_eval_decode", tree, tree_decode_work)):
+                          ("btree_eval_decode", tree, tree_decode_work),
+                          ("bgeneral_eval_decode", general,
+                           general_decode_work)):
         measure(name, a, rows[name], work(a))
     log(f"batched kernels ok on stream (a)'s {len(seen['bconnectivity_span'])} "
-        f"bconnectivity_span and {len(seen['btree_eval_decode'])} "
-        f"btree_eval_decode calls")
+        f"bconnectivity_span, {len(seen['btree_eval_decode'])} "
+        f"btree_eval_decode and {len(seen['bgeneral_eval_decode'])} "
+        f"bgeneral_eval_decode calls")
+    d1_calls = d1_general_calls()
+    d1_busy = busiest_general(d1_calls)
+    at_l = {}
+    measure("bgeneral_eval_decode", d1_busy, at_l, general_decode_work(d1_busy))
+    log_row("bgeneral_eval_decode", at_l,
+            f"L={d1_busy[5]} live={d1_busy[2]} pairs={d1_busy[1]} "
+            f"pcap={d1_busy[0].shape[1]} nmax=24 one row (d1's busiest chunk)")
+    log(f"solo kernels ok on d1's {len(d1_calls)} bgeneral_eval_decode calls")
     at_main = {
         "connectivity_span": "count=5200300 k=12 nmax=30 (d4's level-12 span)",
         "ccp_eval_dpsub": f"L={L_MAIN} nmax=24 i={args[4]} (d3's busiest level)",
@@ -613,7 +753,12 @@ def phase_kernels():
                               f"level span)",
         "btree_eval_decode": f"L={tree[-1]} live={int(tree[1][-1])} nmax=16 "
                              f"bcap={tree[8].shape[0]} (stream a's busiest "
-                             f"tree chunk)"}
+                             f"tree chunk)",
+        "bgeneral_eval_decode": f"L={general[5]} live={general[2]} "
+                                f"pairs={general[1]} pcap="
+                                f"{general[0].shape[1]} nmax=16 bcap="
+                                f"{general[3].shape[0]} (stream a's busiest "
+                                f"general chunk)"}
     for name, row in rows.items():
         at = at_main.get(name, "nmax=24 (one table)" if name in SOLO
                          else "nmax=16 bcap=32")
@@ -704,6 +849,51 @@ def run_stream(label, graphs, algorithm, n_cpu):
         log(f"stream {label}: flight {algo} stage seconds "
             + json.dumps({k: round(v, 4) for k, v in stages}))
     return res
+
+
+class GeneralChunks:
+    """Counts the calls of both MPDP-general chunk bodies on card tensors
+    while it is entered (the CPU runs that the checks make are not
+    counted)."""
+    BODIES = ((batch, "_beval_general_chunk"), (engine, "_eval_general_chunk"))
+
+    def __init__(self):
+        self.count = 0
+        self.real = [getattr(m, n) for m, n in self.BODIES]
+
+    def __enter__(self):
+        def counted(fn):
+            def body(pairs, *args, **kw):
+                self.count += pairs.is_cuda
+                return fn(pairs, *args, **kw)
+            return body
+        for (m, n), fn in zip(self.BODIES, self.real):
+            setattr(m, n, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.BODIES, self.real):
+            setattr(m, n, fn)
+
+
+def check_path(label: str, launches: dict, path, chunks: int) -> None:
+    """Raise unless every kernel of the path launched, the set-given
+    kernels it replaced did not, and the MPDP-general evaluate made one
+    ``bgeneral_eval_decode`` launch per chunk."""
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {label} path: "
+                             f"{missing}")
+    off = {k: launches[k] for k in OFF_PATH if launches[k]}
+    if off:
+        raise AssertionError(f"set-given kernels launched on the {label} "
+                             f"path: {off}")
+    if launches["bgeneral_eval_decode"] != chunks:
+        raise AssertionError(f"{label} path: {launches['bgeneral_eval_decode']} "
+                             f"bgeneral_eval_decode launches for {chunks} "
+                             f"MPDP-general chunks")
+    log(f"{label} path: one bgeneral_eval_decode launch for each of its "
+        f"{chunks} MPDP-general chunks, no launch of {', '.join(OFF_PATH)}")
 
 
 def profile(label: str, fn, names):
@@ -856,13 +1046,12 @@ def main() -> int:
     ]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    for label, graphs, algorithm, n_cpu in streams:
-        run_stream(label, graphs, algorithm, n_cpu)
+    with GeneralChunks() as chunks:
+        for label, graphs, algorithm, n_cpu in streams:
+            run_stream(label, graphs, algorithm, n_cpu)
     batched = dict(ops.LAUNCHES)
     log("launches on the batched path: " + json.dumps(batched))
-    missing = [k for k in BATCHED_PATH if batched[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the batched path: {missing}")
+    check_path("batched", batched, BATCHED_PATH, chunks.count)
     log(f"max_memory_allocated (batched path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
     profile("stream a", lambda: batch.optimize_many(streams[0][1], "auto"),
@@ -872,14 +1061,13 @@ def main() -> int:
     parts = solo_parts()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    for label, g, algorithm, opts, vs_cpu in parts:
-        run_solo(label, g, algorithm, opts, vs_cpu)
-    run_solo_many(stream_c)
+    with GeneralChunks() as chunks:
+        for label, g, algorithm, opts, vs_cpu in parts:
+            run_solo(label, g, algorithm, opts, vs_cpu)
+        run_solo_many(stream_c)
     solo = dict(ops.LAUNCHES)
     log("launches on the solo path: " + json.dumps(solo))
-    missing = [k for k in SOLO_PATH if solo[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the solo path: {missing}")
+    check_path("solo", solo, SOLO_PATH, chunks.count)
     log(f"max_memory_allocated (solo path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
     torch.cuda.empty_cache()

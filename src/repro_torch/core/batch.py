@@ -16,8 +16,9 @@ MPDP-general (block prefix-sum over phase-A (set, block) pairs); all three
 enumerate the same CCP candidates.  The per-lane bit-twiddling goes
 through ``kernels.ops`` — the CUDA kernels on the card, their plain
 PyTorch versions for CPU tensors; the filter's unrank
-(``bconnectivity_span``, one launch per level) and the MPDP:Tree lane
-decode (``btree_eval_decode``) run inside the kernels.  The level loop
+(``bconnectivity_span``, one launch per level) and the MPDP:Tree and
+MPDP-general lane decodes (``btree_eval_decode``,
+``bgeneral_eval_decode``) run inside the kernels.  The level loop
 is the reference's synchronous driver; the memo tensors are updated in
 place.
 
@@ -53,8 +54,8 @@ from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .engine import (_CLIP, INF, SPAN, _cap, _fetch, _merge_best,
-                     _merge_scattered, _not_ported, _prune, _scatter_into,
-                     _take, resolve_device)
+                     _merge_scattered, _not_ported, _pair_table, _prune,
+                     _scatter_into, _take, resolve_device)
 from .joingraph import JoinGraph
 from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
@@ -138,30 +139,25 @@ def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
     return seg_cost, seg_left, ev_q, ev_q.clone()
 
 
-def _beval_general_chunk(pair_set, pair_block, pair_qid, off_local, n_pairs,
-                         lane_count, adj_b, memo_cost, memo_rows, *, nmax: int,
-                         chunk: int, pcap: int, bcap: int):
-    """Batched MPDP-general evaluate: lane -> (query, set, block, rank).
+def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
+                         memo_rows, *, nmax: int, chunk: int, bcap: int):
+    """Batched MPDP-general evaluate: the ``bgeneral_eval_decode`` kernel
+    decodes each lane's (query, set, block, rank) and splits S; the cost
+    and the prune stay here.
 
     Phase A compacted every set's blocks into sorted (set, block) pairs;
-    the fused lane space is the block prefix-sum over all queries' pairs.
+    the fused lane space is the block prefix-sum over all queries' pairs,
+    and ``pairs`` is the chunk's ``int32[4, pcap]`` (set, block, query,
+    chunk-local lane offset) table (``engine._pair_table``), one segment
+    per pair.
     """
-    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
-    live = t < lane_count
-    p = _lane_qid(off_local, t, n_pairs - 1)
-    r = t - off_local[p]
-    S = pair_set[p]
-    block = pair_block[p]
-    qid = pair_qid[p]
-    lb, S_left, ccp_i = ops.bgeneral_eval(S, block, r, qid, adj_b, nmax)
-    rb = block & ~lb
-    enum_ok = live & (lb != 0) & (rb != 0)             # Alg.3 line 6/7
-    ccp_blk = enum_ok & (ccp_i != 0)
-    cand = _lane_cost(S, S_left, S & ~S_left, ccp_blk, qid << nmax,
+    S, S_left, enum_i, ccp_i, qid, p = ops.bgeneral_eval_decode(
+        pairs, n_pairs, lane_count, adj_b, nmax, chunk)
+    cand = _lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid << nmax,
                       memo_cost, memo_rows)
-    seg_cost, seg_left = _prune(p, cand, S_left, pcap)
-    return (seg_cost, seg_left, _segment_sum(enum_ok, qid, bcap),
-            _segment_sum(ccp_blk, qid, bcap))
+    seg_cost, seg_left = _prune(p, cand, S_left, pairs.shape[1])
+    return (seg_cost, seg_left, _segment_sum(enum_i, qid, bcap),
+            _segment_sum(ccp_i, qid, bcap))
 
 
 # ============================================================== host driver ==
@@ -497,21 +493,11 @@ class BatchEngine:
             p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
             p1 = int(np.searchsorted(offs, lane1, side="left"))
             npair = p1 - p0
-            pcap = _cap(npair, 256)
-            psl = np.zeros(pcap, np.int32)
-            pbl = np.zeros(pcap, np.int32)
-            pql = np.zeros(pcap, np.int32)
-            ofl = np.full(pcap, np.int64(1 << 40), np.int64)
-            psl[:npair] = ps[p0:p1]
-            pbl[:npair] = pb[p0:p1]
-            pql[:npair] = pq[p0:p1]
-            ofl[:npair] = offs[p0:p1] - lane0
-            ofl = np.clip(ofl, -_CLIP, _CLIP).astype(np.int32)
+            pairs = _pair_table(ps, pb, pq, offs, p0, p1, lane0)
             out = _beval_general_chunk(
-                self._dev(psl), self._dev(pbl), self._dev(pql), self._dev(ofl),
-                npair, lane1 - lane0, self.adj_b, self.memo_cost,
-                self.memo_rows, nmax=self.nmax, chunk=self.chunk, pcap=pcap,
-                bcap=self.bcap)
+                self._dev(pairs), npair, lane1 - lane0, self.adj_b,
+                self.memo_cost, self.memo_rows, nmax=self.nmax,
+                chunk=self.chunk, bcap=self.bcap)
             ctx["pend"].append((p0, npair, out))
             self._eval_general_drain(ctx, PEND_WINDOW)
         self._time("evaluate", t0)

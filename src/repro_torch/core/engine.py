@@ -14,8 +14,9 @@ evaluate -> prune -> scatter* runs on the engine's torch device:
             lanes itself), MPDP:Tree ``sets x m``
             (``btree_eval_decode`` on a one-row table, which decodes the
             chunk's lanes itself), MPDP-general over the
-            block prefix-sum of phase-A (set, block) pairs (``ccp_eval`` on
-            the block, then ``grow_pair``), DPSIZE over level pairs
+            block prefix-sum of phase-A (set, block) pairs
+            (``bgeneral_eval_decode`` on a one-row table, which decodes the
+            chunk's lanes itself), DPSIZE over level pairs
   prune     in-chunk segment-min per set + max left bitmap among ties
   scatter   dense memo tables indexed by subset bitmap
 
@@ -213,25 +214,37 @@ def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
     return seg_cost, seg_left, ev, ev
 
 
-def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj, memo_cost,
-                        memo_rows, *, nmax: int, chunk: int, pcap: int):
-    """MPDP-general lanes: ``pairs`` stacks the chunk's (set, block,
-    chunk-local lane offset) rows, ``int32[3, pcap]``."""
-    pair_set, pair_block, off_local = pairs
-    t = _lanes(chunk, adj)
-    live = t < lane_count
-    p = (torch.searchsorted(off_local, t, right=True, out_int32=True) - 1
-         ).clamp(0, n_pairs - 1)
-    r = t - off_local[p]
-    S = pair_set[p]
-    lb, rb, ccp_i = ops.ccp_eval(pair_block[p], r, adj, nmax)
-    enum_ok = live & (lb != 0) & (rb != 0)                 # Alg.3 line 6/7
-    ccp_blk = enum_ok & (ccp_i != 0)
-    S_left, S_right = ops.grow_pair(S, lb, rb, adj, nmax)  # Alg.3 line 17
-    cand = torch.where(ccp_blk, _lane_cost(S_left, S_right, memo_rows[S],
-                                           memo_cost, memo_rows), float(INF))
-    seg_cost, seg_left = _prune(p, cand, S_left, pcap)
-    return seg_cost, seg_left, enum_ok.sum(dtype=_I32), ccp_blk.sum(dtype=_I32)
+def _pair_table(ps, pb, pq, offs, p0: int, p1: int, lane0: int) -> np.ndarray:
+    """The ``int32[4, pcap]`` pair table of the MPDP-general chunk at lane
+    ``lane0``: rows (set, block, query, chunk-local lane offset) of pairs
+    ``p0 .. p1 - 1`` (``pq`` None: query 0), padded to ``pcap = _cap(p1 -
+    p0, 256)`` with zeros and offset ``_CLIP``; offsets clipped to
+    ``+-_CLIP``, so every entry stays inside int32."""
+    npair = p1 - p0
+    pairs = np.zeros((4, _cap(npair, 256)), np.int64)
+    pairs[0, :npair] = ps[p0:p1]
+    pairs[1, :npair] = pb[p0:p1]
+    if pq is not None:
+        pairs[2, :npair] = pq[p0:p1]
+    pairs[3] = _CLIP
+    pairs[3, :npair] = np.clip(offs[p0:p1] - lane0, -_CLIP, _CLIP)
+    return pairs.astype(np.int32)
+
+
+def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj1, memo_cost,
+                        memo_rows, *, nmax: int, chunk: int):
+    """MPDP-general lanes through ``bgeneral_eval_decode`` on the one-row
+    table ``adj1`` and the chunk's pair table ``pairs`` (``_pair_table``,
+    query row 0): the same function as the reference's decode, ccp test
+    and ``grow`` on one query (Alg.3 lines 6/7 and 17).  One segment per
+    pair of the table."""
+    S, S_left, enum_i, ccp_i, _, p = ops.bgeneral_eval_decode(
+        pairs, n_pairs, lane_count, adj1, nmax, chunk)
+    cand = torch.where(ccp_i != 0,
+                       _lane_cost(S_left, S & ~S_left, memo_rows[S],
+                                  memo_cost, memo_rows), float(INF))
+    seg_cost, seg_left = _prune(p, cand, S_left, pairs.shape[1])
+    return seg_cost, seg_left, enum_i.sum(dtype=_I32), ccp_i.sum(dtype=_I32)
 
 
 def _eval_dpsize_chunk(all_sets, off_a: int, off_b: int, count_b: int,
@@ -294,7 +307,8 @@ class ExactEngine:
         self.eu_idx = self._dev(eu)
         self.ev_idx = self._dev(ev)
         self.edge_live = self._dev(lv)
-        # the solo tree evaluate runs the batched kernel on one-row tables
+        # the solo tree and general evaluates run the batched kernels on
+        # one-row tables
         self.adj1 = self.dg.adj.reshape(1, -1).contiguous()
         self.emu1 = self.dg.emask_u.reshape(1, -1).contiguous()
         self.emv1 = self.dg.emask_v.reshape(1, -1).contiguous()
@@ -482,17 +496,11 @@ class ExactEngine:
                 p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
                 p1 = int(np.searchsorted(offs, lane1, side="left"))
                 npair = p1 - p0
-                pcap = _cap(npair, 256)
-                pairs = np.zeros((3, pcap), np.int64)
-                pairs[2] = 1 << 40
-                pairs[0, :npair] = ps[p0:p1]
-                pairs[1, :npair] = pb[p0:p1]
-                pairs[2, :npair] = offs[p0:p1] - lane0
-                pairs[2] = np.clip(pairs[2], -_CLIP, _CLIP)
+                pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
                 sc, sl, ev, cc = _eval_general_chunk(
-                    self._dev(pairs.astype(np.int32)), npair, lane1 - lane0,
-                    self.dg.adj, self.memo_cost, self.memo_rows,
-                    nmax=self.nmax, chunk=self.chunk, pcap=pcap)
+                    self._dev(pairs), npair, lane1 - lane0, self.adj1,
+                    self.memo_cost, self.memo_rows, nmax=self.nmax,
+                    chunk=self.chunk)
                 sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
                 self._count(ev, cc)
                 scn = sc[:npair]

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "rt_btree_eval_decode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                              _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_bgeneral_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_bgeneral_eval_decode": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,12 +1,13 @@
 // MPDP filter/evaluate kernels for NVIDIA Hopper (sm_90a).
 //
 // One thread per lane, replacing the Pallas TPU kernels of
-// src/repro/kernels/ccp_eval.py.  Five entry points serve the solo engine
-// and read one query's (nmax,) adjacency table:
+// src/repro/kernels/ccp_eval.py.  Five entry points read one query's
+// (nmax,) adjacency table (the solo engine's filter and DPSUB evaluate run
+// connectivity_kernel<ranked> and ccp_eval_dpsub_kernel; the others are
+// off its main path):
 //
 //   ccp_eval_kernel       <- ccp_eval_kernel      (ccp_eval.py:65)
-//                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp;
-//                            also the block-level test of MPDP-general
+//                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp
 //   ccp_eval_dpsub_kernel <- ccp_eval_kernel      (ccp_eval.py:65) with the
 //                            DPSUB lane decode of the reference's
 //                            _eval_dpsub_chunk (core/engine.py:179-188):
@@ -22,9 +23,10 @@
 //                            MPDP-general split: S_left = grow(lb) in S & ~rb,
 //                            S_right = S & ~S_left
 //
-// Six serve the batched engine (and, on a one-row table, the solo tree
-// evaluate) and read the stacked (bcap, nmax) table at each lane's query
-// row:
+// Seven read the stacked (bcap, nmax) table at each lane's query row (the
+// batched engine, and on a one-row table the solo tree and general
+// evaluates; the set-given bconnectivity, btree_eval and bgeneral_eval are
+// off the main path):
 //
 //   bconnectivity_kernel  <- bconnectivity_kernel (ccp_eval.py:133)
 //                            per (query, set) lane: is G_q[S] connected
@@ -54,6 +56,18 @@
 //                            MPDP-general lane: lb = pdep(r, block),
 //                            ccp(lb, block & ~lb), S_left = grow(lb) in
 //                            S & ~rb
+//   bgeneral_eval_decode_kernel
+//                         <- bgeneral_eval_kernel (ccp_eval.py:184) and
+//                            grow_pair_kernel (ccp_eval.py:88) with the
+//                            MPDP-general lane decode of the reference's
+//                            _beval_general_chunk (core/batch.py:259-283)
+//                            and _eval_general_chunk (core/engine.py:
+//                            253-268): the lane's pair by a binary search
+//                            of the chunk's offset row, its (set, block,
+//                            query), then as bgeneral_eval_kernel; writes
+//                            S, S_left, enum_ok, ccp, q and the pair (the
+//                            batched and the solo general evaluate, the
+//                            latter on a one-row table)
 //
 // What bounds them on this card.  A lane reads 4-16 bytes and writes 4-12
 // (int32 in and out, each once); the int32 work per lane is a handful of
@@ -100,6 +114,13 @@
 //     of every query of a flight (<= 411,840 ranks at nmax 16, bcap 32) in
 //     one grid-stride launch, as the solo span form does; the tree decode
 //     adds one int32 division (floor quotient and modulo) a lane.
+//   * The MPDP-general decode searches the chunk's pair-offset row (up to
+//     pcap = 16,384 entries, too many to stage per block in 48 KB) in
+//     global memory through the read-only cache: <= 15 dependent steps,
+//     and the 32 lanes of a warp hold consecutive t, so they walk the same
+//     path and each step is one broadcast load that stays in L1 after the
+//     first warp of an SM.  The four pair rows are gathered the same way;
+//     only the adjacency stack sits in shared memory.
 //
 // Plain C interface (bound with ctypes): each rt_* function launches on the
 // given stream and returns cudaGetLastError() as an int (0 = success).
@@ -235,6 +256,18 @@ __device__ __forceinline__ int upper_bound(const int* off, int n, int t) {
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
     if (off[mid] <= t) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// upper_bound() over a table in global memory, read through the read-only
+// cache.
+__device__ __forceinline__ int upper_bound_ldg(const int* __restrict__ off,
+                                               int n, int t) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (__ldg(off + mid) <= t) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
@@ -534,6 +567,48 @@ __global__ void bgeneral_eval_kernel(const int* __restrict__ S,
   ccp_out[t] = ccp(lb, rb, row, nmask);
 }
 
+// MPDP-general chunk lane t over the int32[4, pcap] pair table (rows set,
+// block, query, chunk-local lane offset; the offset row non-decreasing):
+// p = clamp(upper_bound(off, pcap, t) - 1, 0, n_pairs - 1), r = t - off[p]
+// (int32 wrap), q = clamp(query[p], 0, bcap - 1), lb = pdep(r, block[p]),
+// rb = block[p] & ~lb; enum_ok = t < lane_count && lb && rb, ccp = enum_ok
+// && ccp(lb, rb), S_left = grow(lb) in set[p] & ~rb.  Every lane is
+// decoded, dead ones included.  Shared memory: adj_b (bcap x nmax); the
+// pair table is read through the read-only cache.
+__global__ void __launch_bounds__(kWideThreads)
+bgeneral_eval_decode_kernel(const int* __restrict__ pairs, int pcap,
+                            int n_pairs, int lane_count,
+                            const int* __restrict__ adj_b,
+                            int* __restrict__ S_out, int* __restrict__ sl_out,
+                            int* __restrict__ enum_out,
+                            int* __restrict__ ccp_out,
+                            int* __restrict__ qid_out,
+                            int* __restrict__ p_out, int L, int bcap,
+                            int nmax) {
+  extern __shared__ int sadj[];
+  stage(sadj, adj_b, bcap * nmax);
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  const int nmask = (1 << nmax) - 1;
+  const int* off = pairs + 3 * pcap;
+  const int p = min(max(upper_bound_ldg(off, pcap, t) - 1, 0), n_pairs - 1);
+  const int r = wrap_sub(t, __ldg(off + p));
+  const int s = __ldg(pairs + p);
+  const int blk = __ldg(pairs + pcap + p);
+  const int q = min(max(__ldg(pairs + 2 * pcap + p), 0), bcap - 1);
+  const int* row = sadj + q * nmax;
+  const int lb = pdep(r, blk, nmask);
+  const int rb = blk & ~lb;
+  const bool enum_ok = t < lane_count && lb != 0 && rb != 0;
+  S_out[t] = s;
+  sl_out[t] = grow(lb, s & ~rb, row, nmask);
+  enum_out[t] = enum_ok;
+  ccp_out[t] = enum_ok && ccp(lb, rb, row, nmask);
+  qid_out[t] = q;
+  p_out[t] = p;
+}
+
 inline dim3 grid_for(int L) { return dim3((L + kThreads - 1) / kThreads); }
 
 // Grid of a grid-stride kernel: the blocks resident on the card at once
@@ -688,6 +763,18 @@ int rt_bgeneral_eval(const int* S, const int* block, const int* r,
   bgeneral_eval_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
                          static_cast<cudaStream_t>(stream)>>>(
       S, block, r, qid, adj_b, lb, sl, ccp_out, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_bgeneral_eval_decode(const int* pairs, int pcap, int n_pairs,
+                            int lane_count, const int* adj_b, int* S, int* sl,
+                            int* enum_ok, int* ccp_out, int* qid, int* p,
+                            int L, int bcap, int nmax, void* stream) {
+  bgeneral_eval_decode_kernel<<<(L + kWideThreads - 1) / kWideThreads,
+                                kWideThreads, smem_for(bcap, nmax),
+                                static_cast<cudaStream_t>(stream)>>>(
+      pairs, pcap, n_pairs, lane_count, adj_b, S, sl, enum_ok, ccp_out, qid, p,
+      L, bcap, nmax);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,17 +3,18 @@
 Each wrapper takes int32 lane tensors and an adjacency table: one query's
 ``int32[nmax]`` for the solo-engine kernels (``connectivity``,
 ``ccp_eval``, ``grow_pair``), the stacked ``int32[bcap, nmax]`` for the
-batched ones.  Four forms build their lanes in the kernel instead:
+batched ones.  Five forms build their lanes in the kernel instead:
 ``connectivity_span`` unranks a span of colex ranks (the solo filter of
 one level), ``ccp_eval_dpsub`` decodes a DPSUB chunk's lanes from the
 level's set list, ``bconnectivity_span`` unranks a level span of every
-query of a flight (the batched filter) and ``btree_eval_decode`` decodes
+query of a flight (the batched filter), ``btree_eval_decode`` decodes
 an MPDP:Tree chunk's (query, set, edge) lanes from its offset tables (the
-batched and the solo tree evaluate).  Tensors on the CPU go to the plain
-PyTorch version in
-``ref``; tensors on a CUDA device go to the kernel, or the wrapper raises
-(wrong dtype, shape, layout or mixed devices, or a refused launch).  There
-is no fallback from one to the other.
+batched and the solo tree evaluate) and ``bgeneral_eval_decode`` an
+MPDP-general chunk's (pair, rank) lanes from its pair table (the batched
+and the solo general evaluate).  Tensors on the CPU go to the plain
+PyTorch version in ``ref``; tensors on a CUDA device go to the kernel, or
+the wrapper raises (wrong dtype, shape, layout or mixed devices, or a
+refused launch).  There is no fallback from one to the other.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
@@ -32,7 +33,8 @@ from . import build, ref
 LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
             "ccp_eval_dpsub": 0, "grow_pair": 0, "bconnectivity": 0,
             "bconnectivity_span": 0, "bccp_eval": 0, "btree_eval": 0,
-            "btree_eval_decode": 0, "bgeneral_eval": 0}
+            "btree_eval_decode": 0, "bgeneral_eval": 0,
+            "bgeneral_eval_decode": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
 _SMEM_LIMIT = 48 * 1024       # static dynamic-shared-memory budget per block
 _I32_MAX = (1 << 31) - 1
@@ -224,6 +226,35 @@ def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
     return tuple(outs)
 
 
+def _launch_general_decode(pairs, n_pairs: int, lane_count: int, adj_b,
+                           nmax: int, chunk: int):
+    """Check the arguments, allocate (S, S_left, enum_ok, ccp, qid, p) and
+    launch ``rt_bgeneral_eval_decode``."""
+    name = "bgeneral_eval_decode"
+    bcap = _check_stack(name, adj_b, nmax, 0)
+    if bcap > 1 and nmax > 16:
+        raise ValueError(f"{name}: nmax = {nmax} with bcap = {bcap}: a stack "
+                         f"of queries takes nmax <= 16")
+    pcap = pairs.shape[-1] if pairs.dim() == 2 else 0
+    if pcap < 1:
+        raise ValueError(f"{name}: pairs must be int32[4, pcap], pcap > 0, "
+                         f"got {pairs.dtype}{tuple(pairs.shape)}")
+    _check_vec(name, "pairs", pairs, (4, pcap))
+    _check_int32(name, pairs_numel=pairs.numel(), chunk=chunk)
+    if not 1 <= n_pairs <= pcap:
+        raise ValueError(f"{name}: n_pairs = {n_pairs} is outside [1, {pcap}]")
+    if not 0 <= lane_count <= chunk:
+        raise ValueError(f"{name}: lane_count = {lane_count} is outside "
+                         f"[0, {chunk}]")
+    outs = [torch.empty(chunk, dtype=torch.int32, device=adj_b.device)
+            for _ in range(6)]
+    if chunk:
+        _run(name, adj_b.device, pairs.data_ptr(), pcap, n_pairs, lane_count,
+             adj_b.data_ptr(), *[o.data_ptr() for o in outs], chunk, bcap,
+             nmax)
+    return tuple(outs)
+
+
 # -- solo engine ---------------------------------------------------------------
 
 def connectivity(S, adj, nmax: int):
@@ -332,3 +363,23 @@ def bgeneral_eval(S, block, r, qid, adj_b, nmax: int):
     if _on_cpu("bgeneral_eval", (S, block, r, qid), adj_b):
         return ref.bgeneral_eval_ref(S, block, r, qid, adj_b, nmax)
     return tuple(_launch("bgeneral_eval", (S, block, r, qid), adj_b, nmax, 3))
+
+
+def bgeneral_eval_decode(pairs, n_pairs: int, lane_count: int, adj_b,
+                         nmax: int, chunk: int):
+    """The ``chunk`` lanes of an MPDP-general chunk -> (S, S_left, enum_ok,
+    ccp, qid, p int32[chunk]).  ``pairs`` int32[4, pcap] stacks the
+    chunk's (set, block, query, chunk-local lane offset) rows, the offset
+    row non-decreasing (padding ``engine._CLIP``); the first ``n_pairs``
+    are real.  Lane t is rank ``t - off[p]`` of the block of pair ``p =
+    searchsorted(off, t, side="right") - 1`` (clamped to ``[0,
+    n_pairs)``), on the adjacency row of its query (clamped to ``[0,
+    bcap)``; ``adj_b`` one row for the solo engine).  enum_ok is 1 where
+    ``t < lane_count`` and both block sides are non-empty, ccp where also
+    (lb, rb) is a csg-cmp pair; ``S_left = grow(lb)`` inside ``S & ~rb``.
+    Dead lanes are decoded all the same."""
+    if _on_cpu("bgeneral_eval_decode", (pairs,), adj_b):
+        return ref.bgeneral_eval_decode_ref(pairs, n_pairs, lane_count, adj_b,
+                                            nmax, chunk)
+    return _launch_general_decode(pairs, n_pairs, lane_count, adj_b, nmax,
+                                  chunk)

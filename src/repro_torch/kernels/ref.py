@@ -3,9 +3,10 @@
 Each function computes what its CUDA kernel in ``csrc/ccp_eval.cu``
 computes, on the port's lane-vectorised ``bitset`` helpers, and equals the
 reference bit for bit: the seven lane kernels its ``repro.kernels.ref``,
-the four forms that build their own lanes (``connectivity_span``,
-``ccp_eval_dpsub``, ``bconnectivity_span``, ``btree_eval_decode``) the
-unrank or lane decode of its chunk bodies followed by the lane kernel.
+the five forms that build their own lanes (``connectivity_span``,
+``ccp_eval_dpsub``, ``bconnectivity_span``, ``btree_eval_decode``,
+``bgeneral_eval_decode``) the unrank or lane decode of its chunk bodies
+followed by the lane kernel.
 ``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each kernel
 against these on the card.
 
@@ -157,3 +158,30 @@ def bgeneral_eval_ref(S, block, r, qid, adj_b, nmax: int):
     rb = block & ~lb
     sl = bs.grow_rows(lb, S & ~rb, adjq)
     return lb, sl, _ccp(lb, rb, adjq)
+
+
+def bgeneral_eval_decode_ref(pairs, n_pairs: int, lane_count: int, adj_b,
+                             nmax: int, chunk: int):
+    """MPDP-general chunk lane t (t < chunk) over the int32[4, pcap] pair
+    table ``pairs`` (rows set, block, query, chunk-local lane offset): pair
+    ``p = searchsorted(off, t) - 1`` clamped to ``[0, n_pairs)``, rank ``r
+    = t - off[p]`` of its block, query clamped to ``[0, bcap)``; then
+    ``lb = pdep(r, block)``, ``rb = block & ~lb`` -> (S, S_left, enum_ok,
+    ccp, qid, p): enum_ok where ``t < lane_count`` and both sides are
+    non-empty, ccp where enum_ok and (lb, rb) is a csg-cmp pair, ``S_left
+    = grow(lb)`` inside ``S & ~rb``.  Dead lanes are decoded all the
+    same."""
+    set_row, block_row, qid_row, off = pairs
+    t = torch.arange(chunk, dtype=torch.int32, device=adj_b.device)
+    p = _lane_query(off, t, n_pairs)
+    r = t - off[p]
+    S = set_row[p]
+    block = block_row[p]
+    qid = qid_row[p].clamp(0, adj_b.shape[0] - 1)
+    adjq = adj_b[qid]
+    lb = bs.pdep(r, block, nmax)
+    rb = block & ~lb
+    enum_ok = (t < lane_count) & (lb != 0) & (rb != 0)
+    ccp = enum_ok & (_ccp(lb, rb, adjq) != 0)
+    S_left = bs.grow_rows(lb, S & ~rb, adjq)
+    return (S, S_left, enum_ok.to(torch.int32), ccp.to(torch.int32), qid, p)

@@ -25,6 +25,12 @@
   of a run, call for call: integers exact, costs within a relative 1e-5
   (largest ULP distance printed); the solo one-row offset tables against
   the decode they replaced, lane for lane;
+* ``bgeneral_eval_decode`` against a jnp restatement of the reference's
+  batched MPDP-general decode (stacked tables) and of its solo one (one
+  table), dead lanes, ranks past the block and both clamps of the pair
+  index included; the port's batched and solo MPDP-general chunk bodies
+  against the reference's (``_beval_general_chunk``,
+  ``_eval_general_chunk``) call for call, as for the tree;
 * ``gpu``-marked tests hold each CUDA kernel against its plain version on
   the card (they skip without one).
 """
@@ -826,6 +832,280 @@ def test_solo_tree_offsets_match_the_old_decode(nmax, chunk, seed):
     assert not qid.any()
 
 
+# ================================================= MPDP-general decode ==
+# bgeneral_eval_decode: a chunk's (pair, rank) lanes decoded from its pair
+# table; the batched engine on the stacked table, the solo one on one row.
+
+GENERAL_BATCHES = {
+    8: lambda: [rgen.cycle(7, 2), rgen.clique(6, 1), rgen.cycle(8, 3),
+                rgen.job_like(8, 4)],
+    16: lambda: [rgen.cycle(13, 1), rgen.clique(9, 2), rgen.cycle(16, 3),
+                 rgen.job_like(14, 4)],
+}
+
+
+def random_pairs(ns, rng):
+    """Per query (n relations each in ``ns``) up to 600 (set, block) pairs
+    sorted by set: sets inside the query's n bits, blocks subsets of them
+    with at least two members; -> (set, block, query) arrays, concatenated
+    in query order."""
+    ps, pb, pq = [], [], []
+    for q, n in enumerate(ns):
+        S = rng.integers(1, 1 << n, 4000)
+        blk = S & rng.integers(1, 1 << n, 4000)
+        keep = np.flatnonzero(rbs.np_popcount(blk) >= 2)[: rng.integers(1, 600)]
+        order = np.argsort(S[keep], kind="stable")
+        ps.append(S[keep][order])
+        pb.append(blk[keep][order])
+        pq.append(np.full(len(keep), q))
+    return (np.concatenate(ps).astype(np.int32),
+            np.concatenate(pb).astype(np.int32),
+            np.concatenate(pq).astype(np.int32))
+
+
+def make_general_case(ns, adj_b, nmax: int, chunk: int, seed: int,
+                      clamp: bool = False, tail: bool = False):
+    """bgeneral_eval_decode arguments as the engines' general dispatch lays
+    them out (``engine._pair_table``): random pairs of queries with ``ns``
+    relations, the chunk at a random lane of the level (``tail``: in the
+    level's last half chunk, so that its lanes run past the level's end:
+    dead lanes, whose ranks run past their block).  ``clamp``: the offsets
+    shifted up (lanes below the first pair: p clamps to 0, r is negative)
+    and ``n_pairs`` cut to half the pairs that start inside the chunk (p
+    clamps to n_pairs - 1)."""
+    rng = np.random.default_rng(seed)
+    ps, pb, pq = random_pairs(ns, rng)
+    offs = np.zeros(len(ps) + 1, np.int64)
+    np.cumsum(np.int64(1) << rbs.np_popcount(pb).astype(np.int64), out=offs[1:])
+    lane0 = int(rng.integers(max(0, offs[-1] - chunk // 2) if tail else 0,
+                             offs[-1]))
+    lane1 = min(lane0 + chunk, int(offs[-1]))
+    p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
+    p1 = int(np.searchsorted(offs, lane1, side="left"))
+    pairs = teng._pair_table(ps, pb, pq, offs, p0, p1, lane0)
+    n_pairs = p1 - p0
+    if clamp:
+        pairs[3, :n_pairs] += np.int32(rng.integers(1, chunk // 2 + 2))
+        n_pairs = max(1, int((pairs[3, :n_pairs] < chunk).sum()) // 2)
+    return pairs, n_pairs, lane1 - lane0, adj_b, nmax, chunk
+
+
+def general_batch_case(nmax: int, chunk: int, seed: int, clamp=False,
+                       tail=False):
+    graphs = GENERAL_BATCHES[nmax]()
+    return make_general_case([g.n for g in graphs],
+                             adj_stack(graphs, rbatch._bcap(len(graphs)), nmax),
+                             nmax, chunk, seed, clamp, tail)
+
+
+def general_solo_case(g, nmax: int, chunk: int, seed: int, clamp=False,
+                      tail=False):
+    return make_general_case([g.n], adj_of(g, nmax)[None], nmax, chunk, seed,
+                             clamp, tail)
+
+
+def reference_general_decode(pairs, n_pairs, lane_count, adj_b, nmax, chunk):
+    """The reference's batched MPDP-general lane decode and split
+    (``repro.core.batch._beval_general_chunk``, ``pallas=False``), every
+    lane of the chunk."""
+    pair_set, pair_block, pair_qid, off_local = (jnp.asarray(x) for x in pairs)
+    t = jnp.arange(chunk, dtype=jnp.int32)
+    live = t < lane_count
+    p = jnp.clip(jnp.searchsorted(off_local, t, side="right").astype(jnp.int32)
+                 - 1, 0, n_pairs - 1)
+    r = t - off_local[p]
+    S = pair_set[p]
+    block = pair_block[p]
+    qid = pair_qid[p]
+    adjq = jnp.asarray(adj_b)[qid]
+    lb = rbs.pdep(r, block, nmax)
+    rb = block & ~lb
+    enum_ok = live & (lb != 0) & (rb != 0)
+    conn_l = rbs.is_connected_rows(lb, adjq)
+    conn_r = rbs.is_connected_rows(rb, adjq)
+    cross = (rbs.neighbors_rows(lb, adjq) & rb) != 0
+    ccp_blk = enum_ok & conn_l & conn_r & cross
+    S_left = rbs.grow_rows(lb, S & ~rb, adjq)
+    return S, S_left, enum_ok, ccp_blk, qid, p
+
+
+def reference_solo_general_decode(pairs, n_pairs, lane_count, adj, nmax,
+                                  chunk):
+    """The reference's solo MPDP-general lane decode and split
+    (``repro.core.engine._eval_general_chunk``) on one table: (S, S_left,
+    enum_ok, ccp, p)."""
+    pair_set, pair_block, _, off_local = (jnp.asarray(x) for x in pairs)
+    adj = jnp.asarray(adj)
+    t = jnp.arange(chunk, dtype=jnp.int32)
+    live = t < lane_count
+    p = jnp.searchsorted(off_local, t, side="right").astype(jnp.int32) - 1
+    p = jnp.clip(p, 0, n_pairs - 1)
+    r = t - off_local[p]
+    S = pair_set[p]
+    block = pair_block[p]
+    lb = rbs.pdep(r, block, nmax)
+    rb = block & ~lb
+    enum_ok = live & (lb != 0) & (rb != 0)
+    conn_l = rbs.is_connected(lb, adj)
+    conn_r = rbs.is_connected(rb, adj)
+    cross = (rbs.neighbors(lb, adj) & rb) != 0
+    ccp_blk = enum_ok & conn_l & conn_r & cross
+    S_left = rbs.grow(lb, S & ~rb, adj)
+    return S, S_left, enum_ok, ccp_blk, p
+
+
+def _as_torch(args):
+    return [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+
+
+def _dead_lanes_past_their_block(args, got) -> bool:
+    pairs, n_pairs, lane_count, _, _, chunk = args
+    p = got[5].numpy()
+    r = np.arange(chunk) - pairs[3][p]
+    past = r >= (1 << rbs.np_popcount(pairs[1][p]))
+    return lane_count < chunk and past[lane_count:].all()
+
+
+GENERAL_DECODE_CASES = [(nmax, chunk, clamp) for nmax in (8, 16)
+                        for chunk in (1, 129, 4096) for clamp in (False, True)]
+
+
+@pytest.mark.parametrize("nmax,chunk,clamp", GENERAL_DECODE_CASES)
+def test_bgeneral_eval_decode_matches_reference_decode(nmax, chunk, clamp):
+    args = general_batch_case(nmax, chunk, seed=nmax + chunk, clamp=clamp,
+                              tail=chunk == 4096)
+    got = tref.bgeneral_eval_decode_ref(*_as_torch(args))
+    want = reference_general_decode(*args)
+    if chunk == 4096 and not clamp:
+        assert _dead_lanes_past_their_block(args, got)
+    if clamp and chunk > 1:       # the clamps of p are reached
+        ub = np.searchsorted(args[0][3], np.arange(chunk), side="right")
+        assert (ub == 0).any() and (chunk < 4096 or (ub > args[1]).any())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and a.shape == (chunk,)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int32))
+
+
+GENERAL_SOLO_CASES = [(nmax, chunk, clamp) for nmax in (24, 30)
+                      for chunk in (1, 129, 4096) for clamp in (False, True)]
+GENERAL_SOLO_GRAPHS = {24: lambda: rgen.musicbrainz_query(20, 11),
+                       30: lambda: rgen.musicbrainz_query(26, 3)}
+
+
+@pytest.mark.parametrize("nmax,chunk,clamp", GENERAL_SOLO_CASES)
+def test_bgeneral_eval_decode_one_row_matches_solo_reference(nmax, chunk,
+                                                             clamp):
+    g = GENERAL_SOLO_GRAPHS[nmax]()
+    args = general_solo_case(g, nmax, chunk, seed=nmax + chunk, clamp=clamp,
+                             tail=chunk == 4096)
+    got = tref.bgeneral_eval_decode_ref(*_as_torch(args))
+    want = reference_solo_general_decode(*args[:3], args[3][0], *args[4:])
+    if chunk == 4096 and not clamp:
+        assert _dead_lanes_past_their_block(args, got)
+    assert not got[4].any()
+    for a, b in zip(got[:4] + got[5:], want):
+        assert a.dtype == torch.int32 and a.shape == (chunk,)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int32))
+
+
+@pytest.mark.parametrize("nmax", list(GENERAL_BATCHES))
+def test_beval_general_chunk_matches_reference(nmax, monkeypatch):
+    """Every chunk of a batched MPDP-general run on the CPU, held against
+    the reference's chunk body on the same arguments and memo."""
+    graphs = GENERAL_BATCHES[nmax]()
+    chunk = 64 if nmax == 8 else 1024
+    want_fn = jax.jit(rbatch._beval_general_chunk,
+                      static_argnames=("nmax", "chunk", "pcap", "bcap"))
+    real = tbatch._beval_general_chunk
+    worst = [0, 0]
+
+    def held(pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows, **kw):
+        got = real(pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows,
+                   **kw)
+        want = want_fn(*[jnp.asarray(x) for x in pairs.numpy()], n_pairs,
+                       lane_count, *[jnp.asarray(a.numpy()) for a in
+                                     (adj_b, memo_cost, memo_rows)],
+                       pcap=pairs.shape[1], **kw)
+        worst[0] = max(worst[0], _hold_chunk(got, want, f"call {worst[1]}"))
+        worst[1] += 1
+        return got
+
+    monkeypatch.setattr(tbatch, "_beval_general_chunk", held)
+    tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
+                       algorithm="mpdp_general", device="cpu").run()
+    assert worst[1] > max(g.n for g in graphs)      # several chunks a level
+    print(f"nmax={nmax}: {worst[1]} chunks, largest cost difference "
+          f"{worst[0]} ulp")
+
+
+@pytest.mark.parametrize("g", [rgen.musicbrainz_query(12, 7), rgen.clique(7, 2),
+                               rgen.cycle(9, 2)],
+                         ids=["musicbrainz12", "clique7", "cycle9"])
+def test_eval_general_chunk_matches_reference(g, monkeypatch):
+    """Every chunk of a solo MPDP-general run on the CPU (one-row table),
+    held against the reference's ``_eval_general_chunk`` on the same
+    memo."""
+    chunk = 512
+    real = teng._eval_general_chunk
+    worst = [0, 0]
+
+    def held(pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows, **kw):
+        got = real(pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows,
+                   **kw)
+        rows = [jnp.asarray(x) for x in pairs.numpy()]
+        want = reng._eval_general_chunk(
+            rows[0], rows[1], rows[3], jnp.int32(n_pairs),
+            jnp.int32(lane_count), *[jnp.asarray(a.numpy()) for a in
+                                     (adj1[0], memo_cost, memo_rows)],
+            pcap=pairs.shape[1], **kw)
+        worst[0] = max(worst[0], _hold_chunk(
+            got, [want[0], want[1], np.asarray(want[2]).reshape(()),
+                  np.asarray(want[3]).reshape(())], f"call {worst[1]}"))
+        worst[1] += 1
+        return got
+
+    monkeypatch.setattr(teng, "_eval_general_chunk", held)
+    teng.optimize(port(g), "mpdp_general", chunk=chunk, device="cpu")
+    assert worst[1] >= g.n - 1
+    print(f"n={g.n}: {worst[1]} chunks, largest cost difference {worst[0]} ulp")
+
+
+def general_args(nmax=16, chunk=300):
+    return tuple(_as_torch(general_batch_case(nmax, chunk, seed=5)))
+
+
+def test_general_decode_launch_checks_refuse_bad_inputs():
+    pairs, n_pairs, lane_count, adj_b, nmax, chunk = args = general_args()
+    pcap = pairs.shape[1]
+
+    def refuse(match, **repl):
+        keys = ("pairs", "n_pairs", "lane_count", "adj_b", "nmax", "chunk")
+        a = dict(zip(keys, args))
+        a.update(repl)
+        with pytest.raises(ValueError, match=match):
+            ops._launch_general_decode(*a.values())
+
+    refuse("pairs must be", pairs=pairs.long())
+    refuse("pairs must be", pairs=pairs[:3])
+    refuse("pairs must be", pairs=pairs[0])
+    refuse("pairs must be", pairs=pairs[:, ::2])
+    refuse("n_pairs", n_pairs=0)
+    refuse("n_pairs", n_pairs=pcap + 1)
+    refuse("lane_count", lane_count=-1)
+    refuse("lane_count", lane_count=chunk + 1)
+    refuse("chunk", chunk=1 << 31)
+    refuse("adj_b must be", adj_b=adj_b[:, :4])
+    refuse("nmax = 24 with bcap = 4",
+           adj_b=torch.zeros((4, 24), dtype=torch.int32), nmax=24)
+    refuse("unsupported", adj_b=torch.zeros((1, 31), dtype=torch.int32),
+           nmax=31)
+    refuse("unsupported", adj_b=torch.zeros((1024, 16), dtype=torch.int32))
+    with pytest.raises(ValueError, match="devices"):
+        ops.bgeneral_eval_decode(pairs.to("meta"), n_pairs, lane_count, adj_b,
+                                 nmax, chunk)
+
+
 def bspan_args(nmax=16, k=5):
     graphs = BATCHES[nmax]()
     bcap = rbatch._bcap(len(graphs))
@@ -840,9 +1120,11 @@ def tree_args(nmax=16, chunk=300):
                  for a in make_tree_case(BATCHES[nmax](), nmax, chunk, 5))
 
 
-@pytest.mark.parametrize("name", ["bconnectivity_span", "btree_eval_decode"])
+@pytest.mark.parametrize("name", ["bconnectivity_span", "btree_eval_decode",
+                                  "bgeneral_eval_decode"])
 def test_batched_lane_building_wrapper_routes_cpu_tensors(name):
-    args = bspan_args() if name == "bconnectivity_span" else tree_args()
+    args = {"bconnectivity_span": bspan_args, "btree_eval_decode": tree_args,
+            "bgeneral_eval_decode": general_args}[name]()
     before = dict(ops.LAUNCHES)
     got = getattr(ops, name)(*args)
     for a, b in zip(got, getattr(tref, f"{name}_ref")(*args)):
@@ -965,3 +1247,32 @@ def test_cuda_btree_eval_decode_matches_plain_version():
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert a.is_cuda and torch.equal(a, b), (case[9], case[11])
+
+
+@pytest.mark.gpu
+def test_cuda_bgeneral_eval_decode_matches_plain_version():
+    """Chunks of 1, 129, 32767 and 32768 lanes at nmax 8 and 16 (bcap 4)
+    and on one-row tables at nmax 24 and 30, each on the engines' layout
+    and with both clamps of the pair index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = []
+    for chunk in (1, 129, 32767, 32768):
+        for clamp in (False, True):
+            tail = chunk == 32767
+            for nmax in (8, 16):
+                cases.append(general_batch_case(nmax, chunk, chunk + nmax,
+                                                clamp, tail))
+            for nmax, g in GENERAL_SOLO_GRAPHS.items():
+                cases.append(general_solo_case(g(), nmax, chunk, chunk + nmax,
+                                               clamp, tail))
+    for case in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                if isinstance(a, np.ndarray) else a for a in case]
+        n0 = ops.LAUNCHES["bgeneral_eval_decode"]
+        got = ops.bgeneral_eval_decode(*args)
+        assert ops.LAUNCHES["bgeneral_eval_decode"] == n0 + 1
+        want = tref.bgeneral_eval_decode_ref(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.is_cuda and torch.equal(a, b), (case[4], case[5])

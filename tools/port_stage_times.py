@@ -6,11 +6,13 @@ Usage:  python3 tools/port_stage_times.py [--src DIR] [--repeat N]
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``), so one
 copy of the script times another tree of the port as well; it builds that
 tree's kernels at first use.  On cuda it runs the parts that
-``chip_smoke.py`` runs through the batched filter and the MPDP:Tree
-evaluate: stream (a) (``mixed_stream(32, seed=0, sizes=12..16)`` under
-``auto``), stream (b) (``mixed_stream(8, seed=1, sizes=10..13)`` under
-``dpsub``), and the solo parts d2 (``snowflake(20, seed=1)``) and d4
-(``chain(25, seed=1)``) under ``mpdp``.  One untimed pass over every part
+``chip_smoke.py`` runs through the batched filter and the MPDP:Tree and
+MPDP-general evaluates: stream (a) (``mixed_stream(32, seed=0,
+sizes=12..16)`` under ``auto``: one tree and one general flight), stream
+(b) (``mixed_stream(8, seed=1, sizes=10..13)`` under ``dpsub``), and the
+solo parts d1 (``musicbrainz_query(20, seed=11)``, MPDP-general), d2
+(``snowflake(20, seed=1)``) and d4 (``chain(25, seed=1)``) under
+``mpdp``.  One untimed pass over every part
 comes first, so that each torch and CUDA module the path uses is loaded
 before the clock starts; then N timed passes.  Prints one JSON line per
 timed pass and part: wall seconds (ending in ``torch.cuda.synchronize()``),
@@ -33,6 +35,7 @@ def parts(gen):
              "auto"),
             ("b", "many", gen.mixed_stream(8, seed=1, sizes=(10, 11, 12, 13)),
              "dpsub"),
+            ("d1", "solo", gen.musicbrainz_query(20, seed=11), "mpdp"),
             ("d2", "solo", gen.snowflake(20, seed=1), "mpdp"),
             ("d4", "solo", gen.chain(25, seed=1), "mpdp")]
 
