@@ -7,15 +7,16 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the twelve CUDA entry points against its plain
+  3. kernels — each of the thirteen CUDA entry points against its plain
      PyTorch version on the same card tensors, bit for bit, lanes built
      with numpy from a seed over real generator graphs: the four batched
-     kernels and the three batched forms that build their own lanes
-     (``bconnectivity_span`` over a level span, ``btree_eval_decode`` over
-     an MPDP:Tree chunk, ``bgeneral_eval_decode`` over an MPDP-general
-     chunk's pair table, each with dead and clamped lanes) at L or count
-     = 32768 and the ragged 1, 129, 32767, nmax in {8, 16}, bcap in {4,
-     32}; the three solo-engine kernels, and ``btree_eval``,
+     kernels and the four batched forms that build their own lanes
+     (``bconnectivity_span`` over a level span, ``bccp_eval_decode`` over
+     a DPSUB chunk at several i, ``btree_eval_decode`` over an MPDP:Tree
+     chunk, ``bgeneral_eval_decode`` over an MPDP-general chunk's pair
+     table, each with dead and clamped lanes) at L or count = 32768 and
+     the ragged 1, 129, 32767, nmax in {8, 16}, bcap in {4, 32}; the
+     three solo-engine kernels, and ``btree_eval``,
      ``btree_eval_decode`` and ``bgeneral_eval_decode`` on the one-row
      tables the solo evaluates give them, at the same L and nmax in {8,
      16, 24, 30}; the two solo
@@ -26,7 +27,8 @@ Phases, in order, none of them caught:
      (chain(25), level 12, 5,200,300 ranks at nmax 30).  Then stream (a)
      once, with its ``bconnectivity_span``, ``btree_eval_decode`` and
      ``bgeneral_eval_decode`` calls held against their plain versions and
-     the busiest of each kept, and d1 once, with its
+     the busiest of each kept, stream (b) once with its
+     ``bccp_eval_decode`` calls held the same way, and d1 once, with its
      ``bgeneral_eval_decode`` calls held the same way.
      Times by CUDA events (kernel and plain version) and the bound of
      each, at L = 32768 with nmax = 16, bcap = 32 (batched) or nmax = 24
@@ -34,7 +36,8 @@ Phases, in order, none of them caught:
      ``connectivity_span`` at L = 32768 (printed) and at d4's span (the
      JSON line), the two batched forms at L = 32768, nmax 16, bcap 32
      (printed) and at stream (a)'s busiest level span, tree chunk and
-     general chunk (the JSON line), ``bgeneral_eval_decode`` also at d1's
+     general chunk (the JSON line), ``bccp_eval_decode`` at stream (b)'s
+     busiest chunk (the JSON line), ``bgeneral_eval_decode`` also at d1's
      busiest chunk (printed);
   4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
      plan validated and every cost held against the host DPccp oracle
@@ -43,9 +46,10 @@ Phases, in order, none of them caught:
      run (exact / relative 1e-5), one ``bconnectivity_span`` launch per
      level and flight, launch counters read around exactly this path;
      then a ``torch.profiler`` window over stream (a);
-     on both paths one ``bgeneral_eval_decode`` launch per MPDP-general
-     chunk and none of the six set-given kernels the lane-building forms
-     replaced (``OFF_PATH``);
+     on every path one ``bgeneral_eval_decode`` launch per MPDP-general
+     chunk, one ``bccp_eval_decode`` launch per batched DPSUB chunk and
+     none of the seven set-given kernels the lane-building forms replaced
+     (``OFF_PATH``);
   5. solo path — ``engine.optimize`` on ``cuda`` over parts d1-d5 (MPDP-
      general at nmax 24, MPDP:Tree at nmax 24, DPSUB, the nmax-30 bucket,
      then dpsize, dpccp, frontier expansion and ``optimize_many``'s solo
@@ -55,17 +59,31 @@ Phases, in order, none of them caught:
      launch per level span, and in d5's ``optimize_many`` one
      ``bconnectivity_span`` launch per level and flight, launch counters
      read around exactly this path; then a ``torch.profiler`` window over
-     d1.
+     d1;
+  6. typed path — queries with LEFT, FULL, SEMI and ANTI edges:
+     ``optimize_many`` on ``cuda`` over ``mixed_joins_stream(16, seed=0,
+     sizes=12..16)`` under ``auto`` (MPDP:Tree and MPDP-general flights)
+     and ``dpsub``, and ``engine.optimize`` over ``typed_query(20,
+     seed=11, base="musicbrainz")`` under ``mpdp`` and ``typed_query(17,
+     ...)`` under ``dpsub``; every plan validated (conflict rules
+     included), every cost within 1e-4 of the typed host DPccp (run in
+     worker processes meanwhile), ``Counters`` and costs of the stream's
+     queries of 13 relations or fewer against the port's ``device="cpu"``
+     run, ``dpsize`` refusing a typed graph with ``ValueError``; launch
+     counters read around exactly this path, which runs all six
+     lane-building forms and no set-given kernel.
 The last three lines of standard output are a JSON object with one entry
 per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from math import comb
 
 import numpy as np
@@ -90,6 +108,8 @@ OPS_PER_LANE = 12                     # per-lane decode, loads, stores
 UNRANK_OPS_PER_STEP = 4               # one unrank step: load C(v,kk), compare,
                                       # subtract/OR, decrement
 DPSUB_DECODE_OPS = 6                  # add, shift, add, and, add, clamp
+BDPSUB_DECODE_OPS = 10                # subtract, shift, mask, add, clamps,
+                                      # the seg add, subtract and clamp
 SEARCH_OPS = 4                        # one binary-search step: load, compare,
                                       # select, halve
 TREE_DECODE_OPS = 30                  # subtract, max, int32 division (about
@@ -112,6 +132,9 @@ KERNELS = {
     "bconnectivity_span": ((), 3, "src/repro/kernels/ccp_eval.py:133 + the "
                            "batched unrank of src/repro/core/batch.py:110-127"),
     "bccp_eval": (("S", "sub", "qid"), 3, "src/repro/kernels/ccp_eval.py:142"),
+    "bccp_eval_decode": ((), 5, "src/repro/kernels/ccp_eval.py:142 + the "
+                         "batched DPSUB decode of src/repro/core/batch.py:"
+                         "145-152"),
     "btree_eval": (("S", "ub", "vb", "qid"), 2,
                    "src/repro/kernels/ccp_eval.py:159"),
     "btree_eval_decode": ((), 5, "src/repro/kernels/ccp_eval.py:159 + the "
@@ -125,15 +148,16 @@ KERNELS = {
 SOLO = ("connectivity", "ccp_eval", "grow_pair")
 SPAN_FORMS = ("connectivity_span", "ccp_eval_dpsub")
 BATCHED = ("bconnectivity", "bccp_eval", "btree_eval", "bgeneral_eval")
-BATCHED_FORMS = ("bconnectivity_span", "btree_eval_decode",
-                 "bgeneral_eval_decode")
+BATCHED_FORMS = ("bconnectivity_span", "bccp_eval_decode",
+                 "btree_eval_decode", "bgeneral_eval_decode")
 SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
 # what each path runs: the set-given kernels left it for the forms that
 # build their own lanes, and must make no launch there
-BATCHED_PATH = BATCHED_FORMS + ("bccp_eval",)
+BATCHED_PATH = BATCHED_FORMS
 SOLO_PATH = SPAN_FORMS + ("btree_eval_decode", "bgeneral_eval_decode")
+TYPED_PATH = SPAN_FORMS + BATCHED_FORMS
 OFF_PATH = ("connectivity", "ccp_eval", "grow_pair", "bconnectivity",
-            "btree_eval", "bgeneral_eval")
+            "bccp_eval", "btree_eval", "bgeneral_eval")
 SYMBOL = {"connectivity": "connectivity_kernel<false>",
           "connectivity_span": "connectivity_kernel<true>"}
 
@@ -316,6 +340,50 @@ def tree_inputs(graphs, bcap: int, nmax: int, chunk: int, seed: int):
     return (*card[:4], seg0, *card[4:], nmax, chunk + 2, chunk)
 
 
+def dpsub_decode_inputs(graphs, bcap: int, nmax: int, chunk: int, seed: int,
+                        head: bool):
+    """bccp_eval_decode arguments laid out as ``BatchEngine._eval_dispatch``
+    lays them out, over bcap - 1 graphs (one padding query) at a random
+    level i: per-query set lists inside each query's n bits back to back in
+    ``all_sets``, lanes ``sets x 2^i``.  ``head``: the chunk at lane 0, the
+    first query's base moved below 0 (the gather clamps at 0) and seg0 up
+    by 3 (segments clamp at 0); else the chunk in the level's last half
+    chunk, so that it runs past the level's end (dead lanes, the padding
+    query) where it is longer than one lane, and the last query's base
+    moved so that its last sets lie past the end of ``all_sets`` (the
+    gather clamps at the end)."""
+    rng = np.random.default_rng(seed)
+    gs = graphs[: bcap - 1]
+    B = len(gs)
+    i = int(rng.integers(2, nmax + 1))
+    adj = np.zeros((bcap, nmax), np.int32)
+    for q, g in enumerate(gs):
+        adj[q] = adj_table(g, nmax).cpu().numpy()
+    ns = rng.integers(1, 2000, B)
+    all_sets = np.concatenate([rng.integers(1, 1 << g.n, c)
+                               for g, c in zip(gs, ns)]).astype(np.int32)
+    soff = np.zeros(B + 1, np.int64)
+    np.cumsum(ns, out=soff[1:])
+    loff = np.zeros(bcap, np.int32)
+    loff[:B] = soff[:B]
+    spad = np.full(bcap, soff[B], np.int32)
+    spad[:B] = soff[:B]
+    eoff = soff << i
+    if head:
+        loff[0] = -(ns[0] // 2) - 1
+        lane0 = 0
+    else:
+        loff[B - 1] = len(all_sets) - ns[B - 1] // 2 + 1
+        lane0 = int(rng.integers(max(0, eoff[-1] - max(chunk // 2, 1)),
+                                 eoff[-1]))
+    epad = batch._offset_rows(eoff, np.array([lane0]), bcap)[0]
+    p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0), B - 1)
+    seg0 = int(soff[p0] + ((lane0 - eoff[p0]) >> i)) + 3 * head
+    card = [torch.from_numpy(a).to(DEV) for a in (all_sets, epad, loff, spad,
+                                                  adj)]
+    return (*card[:4], seg0, i, card[4], nmax, chunk + 2, chunk)
+
+
 def solo_tree_inputs(g, nmax: int, chunk: int, seed: int):
     """btree_eval_decode arguments on the one-row tables of the solo tree
     evaluate (``engine._tree_offsets``): 4096 sets inside the query's n
@@ -432,6 +500,17 @@ def busiest_stream_calls(graphs):
             max(seen["btree_eval_decode"],
                 key=lambda a: min(int(a[1][-1]), a[-1])),
             busiest_general(seen["bgeneral_eval_decode"]), seen)
+
+
+def busiest_dpsub_calls(graphs):
+    """Run ``optimize_many(graphs, "dpsub")`` once with its
+    ``bccp_eval_decode`` calls held against the plain version on every
+    call; return the arguments of the busiest call (most live lanes) and of
+    every call."""
+    calls = spied_calls(("bccp_eval_decode",),
+                        lambda: batch.optimize_many(graphs, "dpsub"),
+                        "stream (b)")["bccp_eval_decode"]
+    return max(calls, key=lambda a: min(int(a[1][-1]), a[-1])), calls
 
 
 def lane_args(name, lanes, adj, nmax):
@@ -599,6 +678,31 @@ def tree_decode_work(args):
                         adj_b.shape[0])) * chunk)
 
 
+def dpsub_decode_work(args):
+    """(bytes, int32 operations) of a bccp_eval_decode call: five lane
+    outputs written, each distinct ``all_sets`` entry and the tables read;
+    per lane the binary search, the decode and the pdep walk, and on live
+    lanes the ccp test."""
+    all_sets, eoff, loff, soff, seg0, i, adj_b, nmax, nseg, chunk = args
+    lb, rb, _, qid, _ = call("bccp_eval_decode", args, plain=True)
+    t = torch.arange(chunk, dtype=torch.int32, device=DEV)
+    live = t < eoff[-1]
+    local = t - eoff[qid]
+    idx = (loff[qid] + (local >> i)).clamp(0, all_sets.numel() - 1)
+    S = lb | rb
+    lanes = {"S": S[live], "sub": (local & ((1 << i) - 1))[live],
+             "qid": qid[live]}
+    tables = sum(x.numel() for x in (eoff, loff, soff, adj_b))
+    nbytes = 20 * chunk + 4 * (torch.unique(idx).numel() + tables)
+    dead = int((~live).sum())
+    pdep_dead = int(bs.popcount(S[~live] & ((1 << nmax) - 1)).to(
+        torch.int64).sum())
+    return nbytes, (op_count("bccp_eval", lanes, adj_b, nmax)
+                    + OPS_PER_STEP * pdep_dead + OPS_PER_LANE * dead
+                    + (BDPSUB_DECODE_OPS + SEARCH_OPS * search_steps(
+                        adj_b.shape[0])) * chunk)
+
+
 def general_decode_work(args):
     """(bytes, int32 operations) of a bgeneral_eval_decode call: six lane
     outputs written, the pair table and the adjacency stack read; per lane
@@ -656,6 +760,12 @@ def phase_kernels():
                 for name, args, work in (
                         ("bconnectivity_span",
                          bspan_inputs(graphs, bcap, nmax, L, seed), bspan_work),
+                        ("bccp_eval_decode",
+                         dpsub_decode_inputs(graphs, bcap, nmax, L, seed,
+                                             False), dpsub_decode_work),
+                        ("bccp_eval_decode",
+                         dpsub_decode_inputs(graphs, bcap, nmax, L, seed + 1,
+                                             True), None),
                         ("btree_eval_decode",
                          tree_inputs(graphs, bcap, nmax, L, seed),
                          tree_decode_work),
@@ -675,6 +785,8 @@ def phase_kernels():
                                 f"level k={args[0]})" if name == "bconnectivity_span"
                                 else f"L={L} live={args[2]} nmax=16 bcap=32 "
                                 f"(random pairs)" if name == "bgeneral_eval_decode"
+                                else f"L={L} i={args[5]} nmax=16 bcap=32 "
+                                f"(random sets)" if name == "bccp_eval_decode"
                                 else f"L={L} nmax=16 bcap=32 (random sets)")
                 log(f"kernels ok nmax={nmax} bcap={bcap} L={L}")
     for nmax in (8, 16, 24, 30):
@@ -737,6 +849,11 @@ def phase_kernels():
         f"bconnectivity_span, {len(seen['btree_eval_decode'])} "
         f"btree_eval_decode and {len(seen['bgeneral_eval_decode'])} "
         f"bgeneral_eval_decode calls")
+    dpsub, b_calls = busiest_dpsub_calls(stream_b())
+    measure("bccp_eval_decode", dpsub, rows["bccp_eval_decode"],
+            dpsub_decode_work(dpsub))
+    log(f"batched kernels ok on stream (b)'s {len(b_calls)} bccp_eval_decode "
+        f"calls")
     d1_calls = d1_general_calls()
     d1_busy = busiest_general(d1_calls)
     at_l = {}
@@ -751,6 +868,9 @@ def phase_kernels():
         "bconnectivity_span": f"count={span[2]} k={span[0]} nmax=16 "
                               f"bcap={span[4].shape[0]} (stream a's busiest "
                               f"level span)",
+        "bccp_eval_decode": f"L={dpsub[-1]} live={min(int(dpsub[1][-1]), dpsub[-1])} "
+                            f"i={dpsub[5]} nmax=16 bcap={dpsub[6].shape[0]} "
+                            f"(stream b's busiest chunk)",
         "btree_eval_decode": f"L={tree[-1]} live={int(tree[1][-1])} nmax=16 "
                              f"bcap={tree[8].shape[0]} (stream a's busiest "
                              f"tree chunk)",
@@ -851,35 +971,42 @@ def run_stream(label, graphs, algorithm, n_cpu):
     return res
 
 
-class GeneralChunks:
-    """Counts the calls of both MPDP-general chunk bodies on card tensors
-    while it is entered (the CPU runs that the checks make are not
-    counted)."""
-    BODIES = ((batch, "_beval_general_chunk"), (engine, "_eval_general_chunk"))
+class ChunkCalls:
+    """Counts, while it is entered, the calls on card tensors of the chunk
+    bodies that launch ``bgeneral_eval_decode`` (both MPDP-general ones)
+    and ``bccp_eval_decode`` (the batched DPSUB one); the CPU runs that the
+    checks make are not counted."""
+    BODIES = {"bgeneral_eval_decode": ((batch, "_beval_general_chunk"),
+                                       (engine, "_eval_general_chunk")),
+              "bccp_eval_decode": ((batch, "_beval_dpsub_chunk"),)}
 
     def __init__(self):
-        self.count = 0
-        self.real = [getattr(m, n) for m, n in self.BODIES]
+        self.count = {k: 0 for k in self.BODIES}
+        self.real = {(m, n): getattr(m, n) for bodies in self.BODIES.values()
+                     for m, n in bodies}
 
     def __enter__(self):
-        def counted(fn):
-            def body(pairs, *args, **kw):
-                self.count += pairs.is_cuda
-                return fn(pairs, *args, **kw)
+        def counted(kernel, fn):
+            def body(first, *args, **kw):
+                self.count[kernel] += first.is_cuda
+                return fn(first, *args, **kw)
             return body
-        for (m, n), fn in zip(self.BODIES, self.real):
-            setattr(m, n, counted(fn))
+        for kernel, bodies in self.BODIES.items():
+            for m, n in bodies:
+                setattr(m, n, counted(kernel, self.real[(m, n)]))
         return self
 
     def __exit__(self, *exc):
-        for (m, n), fn in zip(self.BODIES, self.real):
+        for (m, n), fn in self.real.items():
             setattr(m, n, fn)
 
 
-def check_path(label: str, launches: dict, path, chunks: int) -> None:
+def check_path(label: str, launches: dict, path, chunks: dict) -> None:
     """Raise unless every kernel of the path launched, the set-given
-    kernels it replaced did not, and the MPDP-general evaluate made one
-    ``bgeneral_eval_decode`` launch per chunk."""
+    kernels they replaced did not, and the MPDP-general and the batched
+    DPSUB evaluates made one ``bgeneral_eval_decode`` and one
+    ``bccp_eval_decode`` launch per chunk (``chunks``: ``ChunkCalls``
+    counts)."""
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {label} path: "
@@ -888,12 +1015,15 @@ def check_path(label: str, launches: dict, path, chunks: int) -> None:
     if off:
         raise AssertionError(f"set-given kernels launched on the {label} "
                              f"path: {off}")
-    if launches["bgeneral_eval_decode"] != chunks:
-        raise AssertionError(f"{label} path: {launches['bgeneral_eval_decode']} "
-                             f"bgeneral_eval_decode launches for {chunks} "
-                             f"MPDP-general chunks")
+    for kernel, n in chunks.items():
+        if launches[kernel] != n:
+            raise AssertionError(f"{label} path: {launches[kernel]} {kernel} "
+                                 f"launches for {n} chunk bodies")
     log(f"{label} path: one bgeneral_eval_decode launch for each of its "
-        f"{chunks} MPDP-general chunks, no launch of {', '.join(OFF_PATH)}")
+        f"{chunks['bgeneral_eval_decode']} MPDP-general chunks and one "
+        f"bccp_eval_decode launch for each of its "
+        f"{chunks['bccp_eval_decode']} batched DPSUB chunks, no launch of "
+        f"{', '.join(OFF_PATH)}")
 
 
 def profile(label: str, fn, names):
@@ -930,6 +1060,10 @@ def profile(label: str, fn, names):
 
 # ---------------------------------------------------------------- phase 5 --
 
+def stream_b():
+    return gen.mixed_stream(8, seed=1, sizes=(10, 11, 12, 13))
+
+
 def solo_parts():
     """(label, graph, algorithm, options, hold against the cpu run)."""
     return [
@@ -944,16 +1078,18 @@ def solo_parts():
     ]
 
 
-def hold(label, g, r, c=None):
-    """Valid plan, cost within 1e-4 of DPccp; against the cpu run c:
-    algorithm, Counters exact and cost within 1e-5.  Returns the ulps."""
+def hold(label, g, r, c=None, oracle_cost=None):
+    """Valid plan (conflict rules included), cost within 1e-4 of DPccp
+    (``oracle_cost``, or solved here); against the cpu run c: algorithm,
+    Counters exact and cost within 1e-5.  Returns the ulps to c."""
     validate_plan(r.plan, g)
-    oracle = dpccp.solve(g)
-    if rel(r.cost, oracle.cost) > 1e-4:
-        raise AssertionError(f"{label}: cost {r.cost} vs DPccp {oracle.cost} "
+    if oracle_cost is None:
+        oracle_cost = dpccp.solve(g).cost
+    if rel(r.cost, oracle_cost) > 1e-4:
+        raise AssertionError(f"{label}: cost {r.cost} vs DPccp {oracle_cost} "
                              f"(n={g.n})")
     if c is None:
-        return None
+        return 0
     if (r.algorithm, r.counters.evaluated, r.counters.ccp) != \
             (c.algorithm, c.counters.evaluated, c.counters.ccp):
         raise AssertionError(f"{label}: {r.algorithm} {r.counters} on cuda vs "
@@ -1015,6 +1151,112 @@ def run_solo_many(stream_c):
         f"the cpu run (counters exact, max {worst} ulp)")
 
 
+# ---------------------------------------------------------------- phase 6 --
+
+def typed_parts():
+    """The typed stream and the two typed solo queries."""
+    stream = gen.mixed_joins_stream(16, seed=0, sizes=(12, 13, 14, 15, 16))
+    solo = [("mpdp n=20", gen.typed_query(20, seed=11, base="musicbrainz"),
+             "mpdp"),
+            ("dpsub n=17", gen.typed_query(17, seed=11, base="musicbrainz"),
+             "dpsub")]
+    return stream, solo
+
+
+def dpccp_cost(g) -> float:
+    """The typed host DPccp's optimal cost (run in a worker process)."""
+    return dpccp.solve(g).cost
+
+
+def timed(fn):
+    """(result, wall seconds) of fn() on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_typed():
+    """The typed path on cuda, launch counters read around exactly it;
+    the typed DPccp oracle runs in worker processes meanwhile.  Returns the
+    launches."""
+    stream, solo = typed_parts()
+    t_start = time.perf_counter()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=6, mp_context=spawn) as pool:
+        futs = [pool.submit(dpccp_cost, g)
+                for g in stream + [g for _, g, _ in solo]]
+        res = {}
+        ops.reset_launches()
+        with ChunkCalls() as chunks:
+            for algorithm in ("auto", "dpsub"):
+                before = dict(ops.LAUNCHES)
+                res[algorithm], wall = timed(
+                    lambda: batch.optimize_many(stream, algorithm))
+                log(f"typed stream {algorithm}: {len(stream)} queries in "
+                    f"{wall:.3f} s = {len(stream) / wall:.2f} queries/s on "
+                    f"cuda; launches " + json.dumps(
+                        {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                         if v != before[k]}))
+                flights = {(r.algorithm, tuple(sorted(r.timings.items())))
+                           for r in res[algorithm]}
+                for algo, stages in sorted(flights):
+                    log(f"typed stream {algorithm}: flight {algo} stage "
+                        f"seconds " + json.dumps({k: round(v, 4)
+                                                  for k, v in stages}))
+                check_bspan(f"typed stream {algorithm}", stream, algorithm,
+                            before)
+            for label, g, algorithm in solo:
+                before = dict(ops.LAUNCHES)
+                res[label], wall = timed(lambda: engine.optimize(g, algorithm))
+                r = res[label]
+                log(f"typed solo {label}: m={g.m} {r.algorithm} in {wall:.3f} "
+                    f"s on cuda; counters {r.counters}; stage seconds "
+                    + json.dumps({k: round(v, 4) for k, v in r.timings.items()})
+                    + "; launches " + json.dumps(
+                        {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                         if v != before[k]}))
+                spans = sum(-(-comb(g.n, i) // engine.SPAN)
+                            for i in range(2, g.n + 1))
+                got = (ops.LAUNCHES["connectivity_span"]
+                       - before["connectivity_span"])
+                if got != spans:
+                    raise AssertionError(f"typed solo {label}: {got} "
+                                         f"connectivity_span launches for "
+                                         f"{spans} level spans")
+        typed = dict(ops.LAUNCHES)
+        log(f"typed path: {time.perf_counter() - t_start:.1f} s on cuda; "
+            f"launches " + json.dumps(typed))
+        check_path("typed", typed, TYPED_PATH, chunks.count)
+        try:
+            engine.optimize(solo[1][1], "dpsize")
+        except ValueError as e:
+            log(f"typed dpsize refused: {e}")
+        else:
+            raise AssertionError("dpsize ran on a typed graph")
+        costs = [f.result() for f in futs]
+    log(f"typed DPccp oracle: {len(costs)} queries, done at "
+        f"{time.perf_counter() - t_start:.1f} s (6 worker processes)")
+    t1 = time.perf_counter()
+    small = [i for i, g in enumerate(stream) if g.n <= 13]
+    for algorithm in ("auto", "dpsub"):
+        cpu = dict(zip(small, batch.optimize_many(
+            [stream[i] for i in small], algorithm, device="cpu")))
+        worst = max(hold(f"typed stream {algorithm} query {i}", g, r,
+                         cpu.get(i), costs[i])
+                    for i, (g, r) in enumerate(zip(stream, res[algorithm])))
+        log(f"typed stream {algorithm}: all {len(stream)} plans valid, costs "
+            f"within 1e-4 of typed DPccp; the {len(small)} queries of 13 "
+            f"relations or fewer match the cpu run (counters exact, max "
+            f"{worst} ulp)")
+    for (label, g, _), cost in zip(solo, costs[len(stream):]):
+        hold(f"typed solo {label}", g, res[label], oracle_cost=cost)
+        log(f"typed solo {label}: plan valid, cost within 1e-4 of typed DPccp")
+    log(f"typed checks on the host: {time.perf_counter() - t1:.1f} s")
+    return typed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1041,12 +1283,12 @@ def main() -> int:
     stream_c = [gen.chain(8, 1), gen.cycle(7, 2), gen.star(6, 3), gen.job_like(8, 4)]
     streams = [
         ("a", gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)), "auto", 4),
-        ("b", gen.mixed_stream(8, seed=1, sizes=(10, 11, 12, 13)), "dpsub", 4),
+        ("b", stream_b(), "dpsub", 4),
         ("c", stream_c, "auto", 4),
     ]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    with GeneralChunks() as chunks:
+    with ChunkCalls() as chunks:
         for label, graphs, algorithm, n_cpu in streams:
             run_stream(label, graphs, algorithm, n_cpu)
     batched = dict(ops.LAUNCHES)
@@ -1061,7 +1303,7 @@ def main() -> int:
     parts = solo_parts()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    with GeneralChunks() as chunks:
+    with ChunkCalls() as chunks:
         for label, g, algorithm, opts, vs_cpu in parts:
             run_solo(label, g, algorithm, opts, vs_cpu)
         run_solo_many(stream_c)
@@ -1073,11 +1315,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     d1 = parts[0]
     profile("solo d1", lambda: engine.optimize(d1[1], d1[2]), SOLO_PATH)
+    log(f"phase solo path done at {time.perf_counter() - t_start:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    typed = phase_typed()
+    log(f"max_memory_allocated (typed path): "
+        f"{torch.cuda.max_memory_allocated()} bytes")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
-            "replaces": KERNELS[k][2], "launches": batched[k] + solo[k],
+            "replaces": KERNELS[k][2],
+            "launches": batched[k] + solo[k] + typed[k],
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

@@ -16,11 +16,18 @@ MPDP-general (block prefix-sum over phase-A (set, block) pairs); all three
 enumerate the same CCP candidates.  The per-lane bit-twiddling goes
 through ``kernels.ops`` — the CUDA kernels on the card, their plain
 PyTorch versions for CPU tensors; the filter's unrank
-(``bconnectivity_span``, one launch per level) and the MPDP:Tree and
-MPDP-general lane decodes (``btree_eval_decode``,
-``bgeneral_eval_decode``) run inside the kernels.  The level loop
-is the reference's synchronous driver; the memo tensors are updated in
-place.
+(``bconnectivity_span``, one launch per level) and the DPSUB, MPDP:Tree
+and MPDP-general lane decodes (``bccp_eval_decode``,
+``btree_eval_decode``, ``bgeneral_eval_decode``) run inside the kernels.
+The level loop is the reference's synchronous driver; the memo tensors are
+updated in place.
+
+Typed queries (a LEFT, FULL, SEMI or ANTI edge) fly apart from inner ones
+(``bucket_pending`` keys on ``typed``); a typed flight carries the stacked
+``(bcap, emax)`` conflict arrays, and its chunk bodies cost both operand
+orientations of each lane under the conflict mask
+(``engine._typed_lane_cost``).  Inner-only flights carry none and run
+exactly as before.
 
 Where the reference's array semantics and torch differ, this module
 spells them out: out-of-range gather indices are clamped (``_take``),
@@ -29,8 +36,8 @@ spells them out: out-of-range gather indices are clamped (``_take``),
 identities (``engine._prune``) and ``searchsorted(side="right")`` is
 ``right=True``.
 
-``optimize_many`` is the public entry point.  It batches inner-join
-queries with ``nmax_bucket(n) <= 16`` and sends the rest (larger queries,
+``optimize_many`` is the public entry point.  It batches queries with
+``nmax_bucket(n) <= 16`` and sends the rest (larger queries,
 ``dpsize``, ``dpccp``, ``mpdp_tree`` forced on a cyclic graph) to the solo
 ``engine.optimize``, as the reference does; what the reference serves
 beyond that raises ``NotImplementedError`` naming the ROADMAP item that
@@ -55,8 +62,8 @@ from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .engine import (_CLIP, INF, SPAN, _cap, _fetch, _merge_best,
                      _merge_scattered, _not_ported, _pair_table, _prune,
-                     _scatter_into, _take, resolve_device)
-from .joingraph import JoinGraph
+                     _scatter_into, _take, _typed_lane_cost, resolve_device)
+from .joingraph import JoinGraph, typed_edge_arrays
 from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
 NMAX_BATCH = 16          # memo is (bcap << NMAX): larger queries go solo
@@ -73,53 +80,70 @@ def _segment_sum(x: torch.Tensor, qid: torch.Tensor, bcap: int) -> torch.Tensor:
         0, qid, x.to(_I32))
 
 
-def _lane_qid(off: torch.Tensor, t: torch.Tensor, hi: int) -> torch.Tensor:
-    """Owner of lane t: ``searchsorted(off, t, side="right") - 1``."""
-    return (torch.searchsorted(off, t, right=True, out_int32=True) - 1).clamp(0, hi)
+def _offset_rows(off: np.ndarray, lane0s: np.ndarray, bcap: int) -> np.ndarray:
+    """``int32[len(lane0s), bcap+1]``: row j holds the chunk-local offsets
+    ``off - lane0s[j]`` of the chunk at lane ``lane0s[j]`` (``off`` the
+    level's int64 per-query prefix, B + 1 entries), clipped to ``+-_CLIP``
+    and padded with its last value; one copy to the device serves a
+    level."""
+    B = len(off) - 1
+    el = np.clip(off[None, :] - lane0s[:, None], -_CLIP, _CLIP)
+    rows = np.empty((len(lane0s), bcap + 1), np.int32)
+    rows[:, : B + 1] = el
+    rows[:, B + 1:] = el[:, B: B + 1]
+    return rows
 
 
 # ================================================================= kernels ==
-# Chunk bodies: every tensor lives on the engine's device; ``t`` is the
-# chunk's lane index.
+# Chunk bodies: every tensor lives on the engine's device.  ``targs`` are a
+# typed flight's stacked (bcap, emax) conflict arrays (kind, operand masks,
+# TES bitmaps), empty for an inner-only one.
 
-def _lane_cost(S, S_left, S_right, ccp, mbase, memo_cost, memo_rows):
-    """Candidate cost of each lane's (S_left, S_right) split (INF off-CCP)."""
+def _lane_cost(S, S_left, S_right, ccp, qid, nmax: int, memo_cost, memo_rows,
+               targs=()):
+    """Candidate cost of each lane's (S_left, S_right) split (INF off-CCP)
+    and the left bitmap the prune keeps; a typed flight costs both operand
+    orientations under the conflict mask of the lane's query."""
+    mbase = qid << nmax
     cl = _take(memo_cost, mbase | S_left)
     cr = _take(memo_cost, mbase | S_right)
-    jc = cm.join_cost(_take(memo_rows, mbase | S_left),
-                      _take(memo_rows, mbase | S_right),
-                      _take(memo_rows, mbase | S))
-    return torch.where(ccp, cl + cr + jc, float(INF))
+    rl = _take(memo_rows, mbase | S_left)
+    rr = _take(memo_rows, mbase | S_right)
+    rows_S = _take(memo_rows, mbase | S)
+    if targs:
+        return _typed_lane_cost(S_left, S_right, rows_S, ccp, cl, cr, rl, rr,
+                                *[a[qid] for a in targs])
+    return (torch.where(ccp, cl + cr + cm.join_cost(rl, rr, rows_S),
+                        float(INF)), S_left)
 
 
 def _beval_dpsub_chunk(all_sets, eoff, loff, soff, seg0, i, adj_b, memo_cost,
-                       memo_rows, *, nmax: int, chunk: int, nseg: int,
-                       bcap: int):
-    """Batched DPSUB evaluate: lane -> (query, set, subset) decode.
+                       memo_rows, targs=(), *, nmax: int, chunk: int,
+                       nseg: int, bcap: int):
+    """Batched DPSUB evaluate: the ``bccp_eval_decode`` kernel decodes each
+    lane's (query, set, subset), splits S and tests the pair; the cost, the
+    prune and the segment sums stay here.
 
-    eoff: i32[bcap+1] chunk-local per-query lane offsets (prefix of ns_q<<i).
+    eoff: i32[bcap+1] chunk-local per-query lane offsets (prefix of ns_q<<i,
+                      ``eoff[0] <= 0``).
     loff: i32[bcap]   per-query base into all_sets (region + level offset).
     soff: i32[bcap]   per-query global set-index prefix (segment ids).
+    The evaluated lanes of query q are its live lanes, ``[eoff[q],
+    eoff[q+1])`` inside the chunk.
     """
-    t = torch.arange(chunk, dtype=_I32, device=adj_b.device)
-    qid = _lane_qid(eoff, t, bcap - 1)
-    local = t - eoff[qid]
-    live = t < eoff[bcap]
-    set_idx = local >> i
-    sub = local & ((1 << i) - 1)
-    S = _take(all_sets, loff[qid] + set_idx)
-    lb, rb, ccp_i = ops.bccp_eval(S, sub, qid, adj_b, nmax)
-    ccp = live & (ccp_i != 0)
-    cand = _lane_cost(S, lb, rb, ccp, qid << nmax, memo_cost, memo_rows)
-    seg = (soff[qid] + set_idx - seg0).clamp(0, nseg - 1)
-    seg_cost, seg_left = _prune(seg, cand, lb, nseg)
-    return (seg_cost, seg_left, _segment_sum(live, qid, bcap),
-            _segment_sum(ccp, qid, bcap))
+    lb, rb, ccp_i, qid, seg = ops.bccp_eval_decode(
+        all_sets, eoff, loff, soff, seg0, i, adj_b, nmax, nseg, chunk)
+    ccp = ccp_i != 0
+    cand, lbx = _lane_cost(lb | rb, lb, rb, ccp, qid, nmax, memo_cost,
+                           memo_rows, targs)
+    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
+    ev_q = eoff[1:].clamp(0, chunk) - eoff[:-1].clamp(0, chunk)
+    return seg_cost, seg_left, ev_q, _segment_sum(ccp, qid, bcap)
 
 
 def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
-                      emv_b, memo_cost, memo_rows, *, nmax: int, chunk: int,
-                      nseg: int, bcap: int):
+                      emv_b, memo_cost, memo_rows, targs=(), *, nmax: int,
+                      chunk: int, nseg: int, bcap: int):
     """Batched MPDP:Tree evaluate: the ``btree_eval_decode`` kernel decodes
     each lane's (query, set, edge) and splits S; the cost and the prune
     stay here.
@@ -132,15 +156,16 @@ def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
         all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax,
         nseg, chunk)
     edge_in = in_i != 0
-    cand = _lane_cost(S, S_left, S & ~S_left, edge_in, qid << nmax,
-                      memo_cost, memo_rows)
-    seg_cost, seg_left = _prune(seg, cand, S_left, nseg)
+    cand, lbx = _lane_cost(S, S_left, S & ~S_left, edge_in, qid, nmax,
+                           memo_cost, memo_rows, targs)
+    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
     ev_q = _segment_sum(edge_in, qid, bcap)              # Theorem 3: all CCP
     return seg_cost, seg_left, ev_q, ev_q.clone()
 
 
 def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
-                         memo_rows, *, nmax: int, chunk: int, bcap: int):
+                         memo_rows, targs=(), *, nmax: int, chunk: int,
+                         bcap: int):
     """Batched MPDP-general evaluate: the ``bgeneral_eval_decode`` kernel
     decodes each lane's (query, set, block, rank) and splits S; the cost
     and the prune stay here.
@@ -153,9 +178,9 @@ def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
     """
     S, S_left, enum_i, ccp_i, qid, p = ops.bgeneral_eval_decode(
         pairs, n_pairs, lane_count, adj_b, nmax, chunk)
-    cand = _lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid << nmax,
-                      memo_cost, memo_rows)
-    seg_cost, seg_left = _prune(p, cand, S_left, pairs.shape[1])
+    cand, lbx = _lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid, nmax,
+                           memo_cost, memo_rows, targs)
+    seg_cost, seg_left = _prune(p, cand, lbx, pairs.shape[1])
     return (seg_cost, seg_left, _segment_sum(enum_i, qid, bcap),
             _segment_sum(ccp_i, qid, bcap))
 
@@ -168,7 +193,9 @@ class BatchEngine:
     ``algorithm`` selects the evaluate lane space: ``dpsub``, ``mpdp_tree``
     (every query acyclic) or ``mpdp_general``; all three give the same
     costs and plans, only the evaluated-lane counts differ.  ``device`` is
-    where the memo and every lane tensor live (``cuda`` by default).
+    where the memo and every lane tensor live (``cuda`` by default).  A
+    flight with a typed query carries the stacked conflict arrays
+    (``typed``); an inner-only one carries none.
     """
 
     def __init__(self, graphs: list[JoinGraph], chunk: int = CHUNK,
@@ -186,10 +213,6 @@ class BatchEngine:
                 raise ValueError("query graph must be connected (no cross products)")
             if algorithm == "mpdp_tree" and not g.is_tree():
                 raise ValueError("mpdp_tree lane space needs acyclic queries")
-            if g.typed:
-                raise NotImplementedError(
-                    "typed (non-inner) join edges are not ported yet "
-                    "(ROADMAP.md, queue 1: typed joins)")
         self.device = resolve_device(device)
         self.graphs = graphs
         self.algorithm = algorithm
@@ -229,6 +252,16 @@ class BatchEngine:
         self.eu_idx_b = self._dev(eui)
         self.ev_idx_b = self._dev(evi)
         self.edge_live_b = self._dev(eliv)
+        # typed-edge conflict arrays, stacked (bcap, emax): kind, operand
+        # masks, TES bitmaps, passed to the chunk bodies as ``targs``; an
+        # inner-only flight passes none
+        self.typed = any(g.typed for g in graphs)
+        self._tkw = {}
+        if self.typed:
+            tarr = np.zeros((5, self.bcap, self.emax), np.int32)
+            for q, g in enumerate(graphs):
+                tarr[:, q] = typed_edge_arrays(g, self.emax)
+            self._tkw = {"targs": tuple(self._dev(a) for a in tarr)}
         self.m_b = self._dev(np.array(
             [g.m for g in graphs] + [0] * (self.bcap - self.B), np.int32))
         self.counters = [Counters() for _ in graphs]
@@ -400,22 +433,22 @@ class BatchEngine:
                "ccp": np.zeros(self.B, np.int64)}
         statics = dict(nmax=self.nmax, chunk=self.chunk, nseg=nseg,
                        bcap=self.bcap)
-        for lane0 in range(0, total, self.chunk):
-            el = np.clip(eoff - lane0, -_CLIP, _CLIP)
-            epad = np.full(self.bcap + 1, el[self.B], np.int32)
-            epad[: self.B + 1] = el
+        lane0s = np.arange(0, total, self.chunk, dtype=np.int64)
+        eoff_d = self._dev(_offset_rows(eoff, lane0s, self.bcap))
+        for j, lane0 in enumerate(lane0s.tolist()):
             p0 = int(np.searchsorted(eoff, lane0, side="right")) - 1
             p0 = min(max(p0, 0), self.B - 1)
             seg0 = int(soff[p0] + (lane0 - eoff[p0]) // mult[p0])
             if self.algorithm == "mpdp_tree":
                 out = _beval_tree_chunk(
-                    self.all_sets, self._dev(epad), loff_d, soff_d, seg0,
+                    self.all_sets, eoff_d[j], loff_d, soff_d, seg0,
                     self.m_b, self.adj_b, self.emu_b, self.emv_b,
-                    self.memo_cost, self.memo_rows, **statics)
+                    self.memo_cost, self.memo_rows, **self._tkw, **statics)
             else:
                 out = _beval_dpsub_chunk(
-                    self.all_sets, self._dev(epad), loff_d, soff_d, seg0, i,
-                    self.adj_b, self.memo_cost, self.memo_rows, **statics)
+                    self.all_sets, eoff_d[j], loff_d, soff_d, seg0, i,
+                    self.adj_b, self.memo_cost, self.memo_rows, **self._tkw,
+                    **statics)
             ctx["pend"].append((seg0, out))
             self._eval_drain(ctx, PEND_WINDOW)
         self._time("evaluate", t0)
@@ -497,7 +530,7 @@ class BatchEngine:
             out = _beval_general_chunk(
                 self._dev(pairs), npair, lane1 - lane0, self.adj_b,
                 self.memo_cost, self.memo_rows, nmax=self.nmax,
-                chunk=self.chunk, bcap=self.bcap)
+                chunk=self.chunk, bcap=self.bcap, **self._tkw)
             ctx["pend"].append((p0, npair, out))
             self._eval_general_drain(ctx, PEND_WINDOW)
         self._time("evaluate", t0)
@@ -664,8 +697,6 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
     dev = resolve_device(device)
     results: list[OptimizeResult | None] = [None] * len(graphs)
     pending = probe_stream(graphs, results, algorithm)
-    if any(graphs[qi].typed for qi in pending):
-        raise _not_ported("typed (non-inner) join edges", "typed joins")
     buckets, solo = bucket_pending(graphs, pending, algorithm)
     for (_b, space, _typed), idxs in sorted(buckets.items()):
         for s0 in range(0, len(idxs), cfg.max_flight):

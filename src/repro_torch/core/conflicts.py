@@ -1,17 +1,18 @@
-"""Conflict rules for non-inner join edges — the host part.
+"""Conflict rules for non-inner join edges.
 
 Copied from ``repro.core.conflicts``: what ``JoinGraph`` construction needs
 (kind codes, ``normalize_kind``, the TES derivation ``analyze`` and the
-effective-selectivity folding) and the host plan-side checks that
-``plan.validate_plan``/``plan.join_plans`` call.  Every non-inner edge must
-be a bridge; a (left, right) operand pair crossing a non-inner edge is
-valid iff ``TES_l ⊆ left`` and ``TES_r ⊆ right`` (either orientation for
-FULL).  The device lane mask (``lane_valid_kinds``) comes with the typed
-slice of the port; the batched engine refuses typed graphs until then.
+effective-selectivity folding), the host plan-side checks that
+``plan.validate_plan``/``plan.join_plans`` call, and the lane mask
+``lane_valid_kinds`` the engines' typed chunk bodies apply on the device.
+Every non-inner edge must be a bridge; a (left, right) operand pair
+crossing a non-inner edge is valid iff ``TES_l ⊆ left`` and ``TES_r ⊆
+right`` (either orientation for FULL).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # per-edge join-kind codes
 KIND_INNER = 0
@@ -179,3 +180,31 @@ def crossing_kind(lb: int, rb: int, g) -> int:
                 (bool(rb & ub) and bool(lb & vb)):
             k = max(k, g.kinds[i])
     return k
+
+
+# ------------------------------------------------------------ device (torch) --
+
+def lane_valid_kinds(lb, rb, ekind, elm, erm, etes_l, etes_r):
+    """Conflict mask of a chunk of candidate (left, right) lanes.
+
+    ``lb``/``rb`` are int32[chunk] bitmaps; the edge arrays are int32
+    ``(emax,)`` (solo engine: one query) or ``(chunk, emax)`` (batched:
+    gathered per lane by its query).  Returns ``(valid_A, valid_B,
+    lane_kind)``: admissibility of the (lb, rb) and (rb, lb) orientations
+    and the kind code of the crossing non-inner edge (0 if none).  Padding
+    edges have ``elm = erm = 0`` and never cross."""
+    def e2(a):
+        return a if a.dim() == 2 else a[None, :]
+    ek, lm, rm = e2(ekind), e2(elm), e2(erm)
+    tl, tr = e2(etes_l), e2(etes_r)
+    L = lb[:, None]
+    R = rb[:, None]
+    cross = (((lm & L) != 0) & ((rm & R) != 0)) | \
+            (((lm & R) != 0) & ((rm & L) != 0))
+    lane_kind = torch.where(cross, ek, 0).amax(dim=1)
+    sub_a = ((tl & ~L) == 0) & ((tr & ~R) == 0)
+    sub_b = ((tl & ~R) == 0) & ((tr & ~L) == 0)
+    is_full = ek == KIND_FULL
+    ok_a = (~cross) | (ek == KIND_INNER) | sub_a | (is_full & sub_b)
+    ok_b = (~cross) | (ek == KIND_INNER) | sub_b | (is_full & sub_a)
+    return ok_a.all(dim=1), ok_b.all(dim=1), lane_kind

@@ -56,6 +56,21 @@ def join_cost(rl2_l: torch.Tensor, rl2_r: torch.Tensor,
     return torch.minimum(hj, torch.minimum(mj, nl))
 
 
+def join_cost_kind(rl2_l: torch.Tensor, rl2_r: torch.Tensor,
+                   rl2_out: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
+    """Kind-aware ``join_cost`` (``rl2_l`` = the LEFT operand, preserved or
+    probe side): inner/left/full keep the three-operator minimum, semi/anti
+    (kind >= 3) are pinned to the hash plan that builds on the filtering
+    right side and probes the preserved left.  ``kind`` is a per-lane
+    ``conflicts.KIND_*`` code."""
+    base = join_cost(rl2_l, rl2_r, rl2_out)
+    rl = rows_from_log2(rl2_l)
+    rr = rows_from_log2(rl2_r)
+    ro = rows_from_log2(rl2_out)
+    hj = C_HASH_BUILD * rr + C_HASH_PROBE * rl + C_TUP * ro
+    return torch.where(kind >= 3, hj, base)
+
+
 # ------------------------------------------------------------------- numpy --
 
 def np_rows_from_log2(rl2):

@@ -30,6 +30,12 @@ int32 min for the left bitmap).  Min and max do not depend on the order of
 the reduction, so ``_prune`` gives the same result on the CPU and on the
 card, run after run.
 
+A typed graph (a LEFT, FULL, SEMI or ANTI edge) carries its conflict
+arrays into the DPSUB, tree and general chunk bodies, which cost both
+operand orientations of each lane under the conflict mask
+(``_typed_lane_cost``); an inner-only graph passes none and runs exactly
+as before.  DPSIZE refuses typed graphs, as the reference does.
+
 ``optimize`` is the solo entry point; ``optimize_many`` forwards to
 ``batch.optimize_many``.  Both run on ``cuda`` unless the caller passes
 ``device``; what the reference serves beyond this port raises
@@ -45,6 +51,7 @@ import torch
 
 from . import bitset as bs
 from . import blocks as bl
+from . import conflicts as cf
 from . import cost as cm
 from . import dpccp as _dpccp
 from . import unrank as ur
@@ -170,19 +177,47 @@ def _lane_cost(S_left, S_right, S_rows, memo_cost, memo_rows):
     return cl + cr + jc
 
 
+def _typed_lane_cost(lb, rb, S_rows, ccp, cl, cr, rl, rr,
+                     ekind, elm, erm, etes_l, etes_r):
+    """Typed twin of ``_lane_cost``: costs both operand orientations of the
+    (lb, rb) split under the conflict mask and returns the cheaper valid
+    candidate and its left bitmap (a tie keeps lb, the enumeration-order
+    operand).  ``cl``/``cr``/``rl``/``rr`` are the lanes' memo costs and
+    rows of lb/rb, gathered by the caller; the addition order is
+    ``_lane_cost``'s, ``(cl + cr) + jc``."""
+    va, vb, lk = cf.lane_valid_kinds(lb, rb, ekind, elm, erm, etes_l, etes_r)
+    base = cl + cr
+    cand_a = torch.where(ccp & va, base + cm.join_cost_kind(rl, rr, S_rows, lk),
+                         float(INF))
+    cand_b = torch.where(ccp & vb, base + cm.join_cost_kind(rr, rl, S_rows, lk),
+                         float(INF))
+    return torch.minimum(cand_a, cand_b), torch.where(cand_b < cand_a, rb, lb)
+
+
+def _split_cost(S, S_left, S_right, ccp, memo_cost, memo_rows, targs):
+    """Candidate cost of each lane's split (INF off-CCP) and the left
+    bitmap the prune keeps; ``targs``, a typed graph's conflict arrays,
+    select ``_typed_lane_cost``."""
+    if targs is None:
+        return torch.where(ccp, _lane_cost(S_left, S_right, memo_rows[S],
+                                           memo_cost, memo_rows),
+                           float(INF)), S_left
+    return _typed_lane_cost(S_left, S_right, memo_rows[S], ccp,
+                            memo_cost[S_left], memo_cost[S_right],
+                            memo_rows[S_left], memo_rows[S_right], *targs)
+
+
 def _eval_dpsub_chunk(all_sets, level_off: int, base_set: int, base_sub: int,
-                      i: int, lane_count: int, adj, memo_cost, memo_rows, *,
-                      nmax: int, chunk: int, nseg: int):
+                      i: int, lane_count: int, adj, memo_cost, memo_rows,
+                      targs=None, *, nmax: int, chunk: int, nseg: int):
     t = _lanes(chunk, adj)
     seg = (base_sub + t) >> i                   # lane's set index - base_set
     live = t < lane_count
     lb, rb, ccp_i = ops.ccp_eval_dpsub(all_sets, level_off, base_set,
                                        base_sub, i, adj, nmax, chunk)
-    S = lb | rb
     ccp = live & (ccp_i != 0)
-    cand = torch.where(ccp, _lane_cost(lb, rb, memo_rows[S], memo_cost,
-                                       memo_rows), float(INF))
-    seg_cost, seg_left = _prune(seg, cand, lb, nseg)
+    cand, lbx = _split_cost(lb | rb, lb, rb, ccp, memo_cost, memo_rows, targs)
+    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
     return seg_cost, seg_left, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
 
 
@@ -197,7 +232,8 @@ def _tree_offsets(level_off: int, base_set: int, base_e: int,
 
 
 def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
-                     memo_rows, *, nmax: int, chunk: int, nseg: int):
+                     memo_rows, targs=None, *, nmax: int, chunk: int,
+                     nseg: int):
     """MPDP:Tree lanes through ``btree_eval_decode`` on the one-row tables
     ``adj1``, ``m1``, ``emu1``, ``emv1`` and ``offs`` (``_tree_offsets``):
     the same function as the reference's decode and ``grow_excl_edge`` on
@@ -207,9 +243,9 @@ def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
         nmax, nseg, chunk)
     # MPDP:Tree — every enumerated pair IS a CCP pair (Theorem 3)
     edge_in = in_i != 0
-    cand = torch.where(edge_in, _lane_cost(S_left, S & ~S_left, memo_rows[S],
-                                           memo_cost, memo_rows), float(INF))
-    seg_cost, seg_left = _prune(seg, cand, S_left, nseg)
+    cand, lbx = _split_cost(S, S_left, S & ~S_left, edge_in, memo_cost,
+                            memo_rows, targs)
+    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
     ev = edge_in.sum(dtype=_I32)
     return seg_cost, seg_left, ev, ev
 
@@ -232,7 +268,7 @@ def _pair_table(ps, pb, pq, offs, p0: int, p1: int, lane0: int) -> np.ndarray:
 
 
 def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj1, memo_cost,
-                        memo_rows, *, nmax: int, chunk: int):
+                        memo_rows, targs=None, *, nmax: int, chunk: int):
     """MPDP-general lanes through ``bgeneral_eval_decode`` on the one-row
     table ``adj1`` and the chunk's pair table ``pairs`` (``_pair_table``,
     query row 0): the same function as the reference's decode, ccp test
@@ -240,10 +276,9 @@ def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj1, memo_cost,
     pair of the table."""
     S, S_left, enum_i, ccp_i, _, p = ops.bgeneral_eval_decode(
         pairs, n_pairs, lane_count, adj1, nmax, chunk)
-    cand = torch.where(ccp_i != 0,
-                       _lane_cost(S_left, S & ~S_left, memo_rows[S],
-                                  memo_cost, memo_rows), float(INF))
-    seg_cost, seg_left = _prune(p, cand, S_left, pairs.shape[1])
+    cand, lbx = _split_cost(S, S_left, S & ~S_left, ccp_i != 0, memo_cost,
+                            memo_rows, targs)
+    seg_cost, seg_left = _prune(p, cand, lbx, pairs.shape[1])
     return seg_cost, seg_left, enum_i.sum(dtype=_I32), ccp_i.sum(dtype=_I32)
 
 
@@ -285,8 +320,6 @@ class ExactEngine:
                  device=None):
         if not g.is_connected():
             raise ValueError("query graph must be connected (no cross products)")
-        if g.typed:
-            raise _not_ported("typed (non-inner) join edges", "typed joins")
         self.g = g
         self.enum = enum              # "unrank" (paper Alg.5) | "expand"
         self.device = resolve_device(device)
@@ -313,6 +346,14 @@ class ExactEngine:
         self.emu1 = self.dg.emask_u.reshape(1, -1).contiguous()
         self.emv1 = self.dg.emask_v.reshape(1, -1).contiguous()
         self.m1 = self._dev(np.array([g.m], np.int32))
+        # typed-edge conflict arrays, passed to the chunk bodies as
+        # ``targs`` only for a typed graph
+        self.typed = g.typed
+        self._tkw = {}
+        if self.typed:
+            dg = self.dg
+            self._tkw = {"targs": (dg.ekind, dg.elm, dg.erm, dg.etes_l,
+                                   dg.etes_r)}
         self.counters = Counters()
         self.timings: dict[str, float] = {}
         self._init_memo()
@@ -427,7 +468,8 @@ class ExactEngine:
                 sc, sl, ev, cc = _eval_dpsub_chunk(
                     self.all_sets, off, lane0 >> i, lane0 & ((1 << i) - 1), i,
                     cnt, self.dg.adj, self.memo_cost, self.memo_rows,
-                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1)
+                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1,
+                    **self._tkw)
                 sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
                 self._count(ev, cc)
                 _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
@@ -453,7 +495,8 @@ class ExactEngine:
                 sc, sl, ev, cc = _eval_tree_chunk(
                     self.all_sets, offs, self.m1, self.emu1, self.emv1,
                     self.adj1, self.memo_cost, self.memo_rows,
-                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1)
+                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1,
+                    **self._tkw)
                 sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
                 self._count(ev, cc)
                 _merge_best(best_cost, best_left, lane0 // m, sc, sl)
@@ -500,7 +543,7 @@ class ExactEngine:
                 sc, sl, ev, cc = _eval_general_chunk(
                     self._dev(pairs), npair, lane1 - lane0, self.adj1,
                     self.memo_cost, self.memo_rows, nmax=self.nmax,
-                    chunk=self.chunk)
+                    chunk=self.chunk, **self._tkw)
                 sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
                 self._count(ev, cc)
                 scn = sc[:npair]
@@ -516,6 +559,10 @@ class ExactEngine:
 
     # ------------------------------------------------------------- DPSIZE --
     def run_dpsize(self) -> None:
+        if self.typed:
+            raise ValueError(
+                "dpsize does not support non-inner join edges (use dpsub / "
+                "mpdp / dpccp — the conflict-masked lane spaces)")
         for i in range(2, self.n + 1):
             self._level_sets(i)
             t0 = time.perf_counter()
@@ -591,9 +638,11 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
     ``cuda`` by default (raises without a card; pass ``device="cpu"`` for
     the plain PyTorch versions).  ``algorithm`` in {auto, mpdp, mpdp_tree,
     mpdp_general, dpsub, dpsize, dpccp}; ``enum`` in {unrank (paper
-    Alg.5), expand (frontier growth)}.  The lattice (``config.lattice``,
-    ``lattice_devices=``, ``lattice_mesh=``), ``deadline_s`` and typed
-    graphs raise ``NotImplementedError`` naming their ROADMAP item.
+    Alg.5), expand (frontier growth)}.  Typed graphs run under every
+    algorithm but ``dpsize``, which raises ``ValueError`` as the
+    reference's does.  The lattice (``config.lattice``,
+    ``lattice_devices=``, ``lattice_mesh=``) and ``deadline_s`` raise
+    ``NotImplementedError`` naming their ROADMAP item.
     """
     devices = mesh = lattice = UNSET
     if lattice_devices is not UNSET or lattice_mesh is not UNSET:
@@ -612,8 +661,6 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
     if cfg.deadline_s is not None:
         raise _not_ported("optimize(deadline_s=...)",
                           "telemetry, policy, deadlines and faults")
-    if g.typed:
-        raise _not_ported("typed (non-inner) join edges", "typed joins")
     dev = resolve_device(device)
     algorithm = cfg.algorithm
     if algorithm == "dpccp":

@@ -160,6 +160,11 @@ class JoinGraph:
         """True when any edge is non-inner (conflict rules apply)."""
         return bool(self.kinds) and any(k != cf.KIND_INNER for k in self.kinds)
 
+    def left_op(self, i: int) -> int:
+        """Left-operand (preserved/probe side) vertex of edge ``i``."""
+        u, v = self.edges[i]
+        return v if (self.ldirs and self.ldirs[i]) else u
+
     def adjacency(self) -> list:
         """Python-int neighbour bitmaps."""
         adj = [0] * self.n
@@ -179,7 +184,10 @@ class JoinGraph:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceGraph:
-    """Padded device-side mirror of a JoinGraph (NMAX/EMAX bucketed)."""
+    """Padded device-side mirror of a JoinGraph (NMAX/EMAX bucketed).  The
+    conflict arrays (``typed_edge_arrays``) are on the device only for a
+    typed graph; an inner-only one has ``None`` there and the engines pass
+    no conflict arrays for it."""
 
     n: int
     m: int
@@ -190,6 +198,12 @@ class DeviceGraph:
     emask_v: torch.Tensor    # i32[emax]    1 << v  (0 pad)
     esel_l2: torch.Tensor    # f32[emax]    log2 effective selectivity (0 pad)
     card_l2: torch.Tensor    # f32[nmax]    log2 base cardinality (0 pad)
+    typed: bool = False      # any non-inner edge?
+    ekind: Optional[torch.Tensor] = None    # i32[emax] KIND_* code (0 pad)
+    elm: Optional[torch.Tensor] = None      # i32[emax] 1 << left operand
+    erm: Optional[torch.Tensor] = None      # i32[emax] 1 << right operand
+    etes_l: Optional[torch.Tensor] = None   # i32[emax] TES bitmap, left side
+    etes_r: Optional[torch.Tensor] = None   # i32[emax] TES bitmap, right side
 
     @staticmethod
     def from_graph(g: JoinGraph, device) -> "DeviceGraph":
@@ -212,9 +226,34 @@ class DeviceGraph:
         def put(a):
             return torch.from_numpy(a).to(device)
 
+        conflict = {}
+        if g.typed:
+            conflict = dict(zip(("ekind", "elm", "erm", "etes_l", "etes_r"),
+                                map(put, typed_edge_arrays(g, emax))))
         return DeviceGraph(n=g.n, m=g.m, nmax=nmax, emax=emax, adj=put(adj),
                            emask_u=put(eu), emask_v=put(ev), esel_l2=put(es),
-                           card_l2=put(cl))
+                           card_l2=put(cl), typed=g.typed, **conflict)
+
+
+def typed_edge_arrays(g: JoinGraph, emax: int):
+    """Padded int32[emax] conflict arrays (kind, left- and right-operand
+    masks, TES bitmaps) for the engines' lane mask; all zero for an
+    inner-only graph (zero pad edges never constrain a lane)."""
+    ekind = np.zeros(emax, np.int32)
+    elm = np.zeros(emax, np.int32)
+    erm = np.zeros(emax, np.int32)
+    etl = np.zeros(emax, np.int32)
+    etr = np.zeros(emax, np.int32)
+    if g.typed:
+        for i, (u, v) in enumerate(g.edges):
+            l = g.left_op(i)
+            r = v if l == u else u
+            ekind[i] = g.kinds[i]
+            elm[i] = 1 << l
+            erm[i] = 1 << r
+            etl[i] = g.tes_l[i]
+            etr[i] = g.tes_r[i]
+    return ekind, elm, erm, etl, etr
 
 
 # ============================================================ graph codec ==

@@ -33,6 +33,8 @@ _SIGNATURES = {
     "rt_bconnectivity": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rt_bconnectivity_span": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "rt_bccp_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_bccp_eval_decode": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _P],
     "rt_btree_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rt_btree_eval_decode": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                              _P, _P, _P, _P, _I, _I, _I, _I, _P],

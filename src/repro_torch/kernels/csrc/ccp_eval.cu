@@ -23,10 +23,10 @@
 //                            MPDP-general split: S_left = grow(lb) in S & ~rb,
 //                            S_right = S & ~S_left
 //
-// Seven read the stacked (bcap, nmax) table at each lane's query row (the
+// Eight read the stacked (bcap, nmax) table at each lane's query row (the
 // batched engine, and on a one-row table the solo tree and general
-// evaluates; the set-given bconnectivity, btree_eval and bgeneral_eval are
-// off the main path):
+// evaluates; the set-given bconnectivity, bccp_eval, btree_eval and
+// bgeneral_eval are off the main path):
 //
 //   bconnectivity_kernel  <- bconnectivity_kernel (ccp_eval.py:133)
 //                            per (query, set) lane: is G_q[S] connected
@@ -39,6 +39,16 @@
 //                            t - foff[q] in registers, writes S, conn, q
 //   bccp_eval_kernel      <- bccp_eval_kernel     (ccp_eval.py:142)
 //                            DPSUB lane: lb = pdep(sub, S), rb = S & ~lb, ccp
+//   bccp_eval_decode_kernel
+//                         <- bccp_eval_kernel     (ccp_eval.py:142) with the
+//                            batched DPSUB lane decode of the reference's
+//                            _beval_dpsub_chunk (core/batch.py:145-152):
+//                            (query, set, subset) from the chunk's offset
+//                            tables (a shift and a mask where the tree
+//                            decode divides), the clamped set gather, then
+//                            as bccp_eval_kernel; writes lb, rb, ccp, q and
+//                            the lane's segment (the batched DPSUB
+//                            evaluate)
 //   btree_eval_kernel     <- btree_eval_kernel    (ccp_eval.py:159)
 //                            MPDP:Tree lane: S_left = grow(u) in S minus edge
 //                            (u, v); edge_in = both endpoints in S
@@ -105,15 +115,17 @@
 //     built around it).  Sets vary slowest, so from i >= 5 the 32 lanes of a
 //     warp share S and the pdep walk over S's bits takes the same trip count
 //     on every lane.
-//   * The batched filter and the MPDP:Tree evaluate do the same for a
-//     stack of queries: each block stages the per-query offset tables
-//     (<= 33 ints each), the (bcap, nmax) adjacency stack and, for the
-//     filter, the binomial table in dynamic shared memory, and a lane
+//   * The batched filter and the MPDP:Tree and DPSUB evaluates do the same
+//     for a stack of queries: each block stages the per-query offset
+//     tables (<= 33 ints each), the (bcap, nmax) adjacency stack and, for
+//     the filter, the binomial table in dynamic shared memory, and a lane
 //     finds its query by a binary search there (searchsorted(side=
 //     "right"), <= 6 steps at bcap 32).  The filter covers a whole level
 //     of every query of a flight (<= 411,840 ranks at nmax 16, bcap 32) in
 //     one grid-stride launch, as the solo span form does; the tree decode
-//     adds one int32 division (floor quotient and modulo) a lane.
+//     adds one int32 division (floor quotient and modulo) a lane, the
+//     DPSUB decode an arithmetic shift and a mask (sets vary slowest, so
+//     from i >= 5 a warp's lanes share S except at a query boundary).
 //   * The MPDP-general decode searches the chunk's pair-offset row (up to
 //     pcap = 16,384 entries, too many to stage per block in 48 KB) in
 //     global memory through the read-only cache: <= 15 dependent steps,
@@ -466,6 +478,51 @@ __global__ void bccp_eval_kernel(const int* __restrict__ S,
   ccp_out[t] = ccp(lb, rb, row, nmask);
 }
 
+// Batched DPSUB chunk lane t: query q = lane_query(eoff, t), local = t -
+// eoff[q], set_idx = local >> i (arithmetic, as torch's >> on int32), sub =
+// local & (2^i - 1), S = all_sets[clamp(loff[q] + set_idx, 0, n_sets - 1)],
+// then the bccp_eval lane on row q; ccp masked by t < eoff[bcap], seg =
+// clamp(soff[q] + set_idx - seg0, 0, nseg - 1).  int32 adds wrap as torch's
+// do.  Every lane is decoded, dead ones included.  Shared memory: eoff
+// (bcap + 1), loff, soff (bcap each), adj_b (bcap x nmax).
+__global__ void __launch_bounds__(kWideThreads)
+bccp_eval_decode_kernel(const int* __restrict__ all_sets, int n_sets,
+                        const int* __restrict__ eoff,
+                        const int* __restrict__ loff,
+                        const int* __restrict__ soff, int seg0, int i,
+                        const int* __restrict__ adj_b,
+                        int* __restrict__ lb_out, int* __restrict__ rb_out,
+                        int* __restrict__ ccp_out, int* __restrict__ qid_out,
+                        int* __restrict__ seg_out, int L, int bcap, int nmax,
+                        int nseg) {
+  extern __shared__ int smem[];
+  int* seoff = smem;
+  int* sloff = seoff + bcap + 1;
+  int* ssoff = sloff + bcap;
+  int* sadj = ssoff + bcap;
+  stage(seoff, eoff, bcap + 1);
+  stage(sloff, loff, bcap);
+  stage(ssoff, soff, bcap);
+  stage(sadj, adj_b, bcap * nmax);
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= L) return;
+  const int nmask = (1 << nmax) - 1;
+  const int q = lane_query(seoff, bcap, t);
+  const int local = wrap_sub(t, seoff[q]);
+  const int set_idx = local >> i;
+  const int sub = local & ((1 << i) - 1);
+  const int s = all_sets[min(max(wrap_add(sloff[q], set_idx), 0), n_sets - 1)];
+  const int lb = pdep(sub, s, nmask);
+  const int rb = s & ~lb;
+  lb_out[t] = lb;
+  rb_out[t] = rb;
+  ccp_out[t] = t < seoff[bcap] && ccp(lb, rb, sadj + q * nmax, nmask);
+  qid_out[t] = q;
+  seg_out[t] = min(max(wrap_sub(wrap_add(ssoff[q], set_idx), seg0), 0),
+                   nseg - 1);
+}
+
 __global__ void btree_eval_kernel(const int* __restrict__ S,
                                   const int* __restrict__ ub_in,
                                   const int* __restrict__ vb_in,
@@ -730,6 +787,20 @@ int rt_bccp_eval(const int* S, const int* sub, const int* qid,
   bccp_eval_kernel<<<grid_for(L), kThreads, smem_for(bcap, nmax),
                      static_cast<cudaStream_t>(stream)>>>(
       S, sub, qid, adj_b, lb, rb, ccp_out, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_bccp_eval_decode(const int* all_sets, int n_sets, const int* eoff,
+                        const int* loff, const int* soff, int seg0, int i,
+                        const int* adj_b, int* lb, int* rb, int* ccp_out,
+                        int* qid, int* seg, int L, int bcap, int nmax,
+                        int nseg, void* stream) {
+  size_t smem = static_cast<size_t>(3 * bcap + 1 + bcap * nmax) * sizeof(int);
+  bccp_eval_decode_kernel<<<(L + kWideThreads - 1) / kWideThreads,
+                            kWideThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      all_sets, n_sets, eoff, loff, soff, seg0, i, adj_b, lb, rb, ccp_out, qid,
+      seg, L, bcap, nmax, nseg);
   return static_cast<int>(cudaGetLastError());
 }
 

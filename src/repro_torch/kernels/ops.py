@@ -3,11 +3,13 @@
 Each wrapper takes int32 lane tensors and an adjacency table: one query's
 ``int32[nmax]`` for the solo-engine kernels (``connectivity``,
 ``ccp_eval``, ``grow_pair``), the stacked ``int32[bcap, nmax]`` for the
-batched ones.  Five forms build their lanes in the kernel instead:
+batched ones.  Six forms build their lanes in the kernel instead:
 ``connectivity_span`` unranks a span of colex ranks (the solo filter of
 one level), ``ccp_eval_dpsub`` decodes a DPSUB chunk's lanes from the
 level's set list, ``bconnectivity_span`` unranks a level span of every
-query of a flight (the batched filter), ``btree_eval_decode`` decodes
+query of a flight (the batched filter), ``bccp_eval_decode`` decodes a
+batched DPSUB chunk's (query, set, subset) lanes from its offset tables
+(the batched DPSUB evaluate), ``btree_eval_decode`` decodes
 an MPDP:Tree chunk's (query, set, edge) lanes from its offset tables (the
 batched and the solo tree evaluate) and ``bgeneral_eval_decode`` an
 MPDP-general chunk's (pair, rank) lanes from its pair table (the batched
@@ -32,7 +34,8 @@ from . import build, ref
 
 LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
             "ccp_eval_dpsub": 0, "grow_pair": 0, "bconnectivity": 0,
-            "bconnectivity_span": 0, "bccp_eval": 0, "btree_eval": 0,
+            "bconnectivity_span": 0, "bccp_eval": 0, "bccp_eval_decode": 0,
+            "btree_eval": 0,
             "btree_eval_decode": 0, "bgeneral_eval": 0,
             "bgeneral_eval_decode": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
@@ -127,6 +130,15 @@ def _check_int32(name: str, **scalars) -> None:
             raise ValueError(f"{name}: {key} = {v} is outside [0, 2^31)")
 
 
+def _check_sets(name: str, all_sets) -> None:
+    if all_sets.dtype != torch.int32 or all_sets.dim() != 1 \
+            or not 1 <= all_sets.numel() <= _I32_MAX \
+            or not all_sets.is_contiguous():
+        raise ValueError(f"{name}: all_sets must be contiguous int32[N], "
+                         f"0 < N < 2^31, got "
+                         f"{all_sets.dtype}{tuple(all_sets.shape)}")
+
+
 def _launch_span(k: int, rank0: int, count: int, binom, adj, nmax: int):
     """Check the arguments, allocate (S, conn) and launch
     ``rt_connectivity_span``."""
@@ -154,12 +166,7 @@ def _launch_dpsub(all_sets, level_off: int, base_set: int, base_sub: int,
     ``rt_ccp_eval_dpsub``."""
     name = "ccp_eval_dpsub"
     _check_table(name, adj, nmax)
-    if all_sets.dtype != torch.int32 or all_sets.dim() != 1 \
-            or not 1 <= all_sets.numel() <= _I32_MAX \
-            or not all_sets.is_contiguous():
-        raise ValueError(f"{name}: all_sets must be contiguous int32[N], "
-                         f"0 < N < 2^31, got "
-                         f"{all_sets.dtype}{tuple(all_sets.shape)}")
+    _check_sets(name, all_sets)
     if not 0 <= i <= 30:
         raise ValueError(f"{name}: i = {i} is outside [0, 30]")
     _check_int32(name, level_off=level_off, base_set=base_set,
@@ -191,18 +198,38 @@ def _launch_bspan(k: int, foff, count: int, binom, adj_b, nmax: int):
     return tuple(outs)
 
 
+def _launch_dpsub_decode(all_sets, eoff, loff, soff, seg0: int, i: int,
+                         adj_b, nmax: int, nseg: int, chunk: int):
+    """Check the arguments, allocate (lb, rb, ccp, qid, seg) and launch
+    ``rt_bccp_eval_decode``."""
+    name = "bccp_eval_decode"
+    bcap = _check_stack(name, adj_b, nmax, 3, 1)
+    _check_sets(name, all_sets)
+    _check_vec(name, "eoff", eoff, (bcap + 1,))
+    for key, t in (("loff", loff), ("soff", soff)):
+        _check_vec(name, key, t, (bcap,))
+    if not 0 <= i <= 30:
+        raise ValueError(f"{name}: i = {i} is outside [0, 30]")
+    _check_int32(name, seg0=seg0, nseg=nseg, chunk=chunk)
+    if nseg < 1:
+        raise ValueError(f"{name}: nseg = {nseg} must be positive")
+    outs = [torch.empty(chunk, dtype=torch.int32, device=adj_b.device)
+            for _ in range(5)]
+    if chunk:
+        _run(name, adj_b.device, all_sets.data_ptr(), all_sets.numel(),
+             eoff.data_ptr(), loff.data_ptr(), soff.data_ptr(), seg0, i,
+             adj_b.data_ptr(), *[o.data_ptr() for o in outs], chunk, bcap,
+             nmax, nseg)
+    return tuple(outs)
+
+
 def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
                         emv_b, adj_b, nmax: int, nseg: int, chunk: int):
     """Check the arguments, allocate (S, S_left, edge_in, qid, seg) and
     launch ``rt_btree_eval_decode``."""
     name = "btree_eval_decode"
     bcap = _check_stack(name, adj_b, nmax, 4, 1)
-    if all_sets.dtype != torch.int32 or all_sets.dim() != 1 \
-            or not 1 <= all_sets.numel() <= _I32_MAX \
-            or not all_sets.is_contiguous():
-        raise ValueError(f"{name}: all_sets must be contiguous int32[N], "
-                         f"0 < N < 2^31, got "
-                         f"{all_sets.dtype}{tuple(all_sets.shape)}")
+    _check_sets(name, all_sets)
     _check_vec(name, "eoff", eoff, (bcap + 1,))
     for key, t in (("loff", loff), ("soff", soff), ("m_b", m_b)):
         _check_vec(name, key, t, (bcap,))
@@ -328,6 +355,25 @@ def bccp_eval(S, sub, qid, adj_b, nmax: int):
     if _on_cpu("bccp_eval", (S, sub, qid), adj_b):
         return ref.bccp_eval_ref(S, sub, qid, adj_b, nmax)
     return tuple(_launch("bccp_eval", (S, sub, qid), adj_b, nmax, 3))
+
+
+def bccp_eval_decode(all_sets, eoff, loff, soff, seg0: int, i: int, adj_b,
+                     nmax: int, nseg: int, chunk: int):
+    """The ``chunk`` lanes of a batched level-i DPSUB chunk -> (lb, rb, ccp,
+    qid, seg int32[chunk]).  ``eoff`` int32[bcap+1] holds the chunk-local
+    lane offsets of the queries (prefix of sets x 2^i), ``loff``/``soff``
+    int32[bcap] each query's base in ``all_sets`` and in the level's
+    segments (as for ``btree_eval_decode``).  Lane t is subset rank ``local
+    & (2^i - 1)`` of set ``local >> i`` of its query ``q =
+    searchsorted(eoff, t, side="right") - 1`` (``local = t - eoff[q]``, set
+    index clamped into ``all_sets``); ccp is 1 where ``t < eoff[bcap]`` and
+    (lb, rb) is a csg-cmp pair of G_q, seg is ``soff[q] + set - seg0``
+    clamped to ``[0, nseg)``.  Dead lanes are decoded all the same."""
+    if _on_cpu("bccp_eval_decode", (all_sets, eoff, loff, soff), adj_b):
+        return ref.bccp_eval_decode_ref(all_sets, eoff, loff, soff, seg0, i,
+                                        adj_b, nmax, nseg, chunk)
+    return _launch_dpsub_decode(all_sets, eoff, loff, soff, seg0, i, adj_b,
+                                nmax, nseg, chunk)
 
 
 def btree_eval(S, ub, vb, qid, adj_b, nmax: int):

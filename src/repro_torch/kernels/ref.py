@@ -3,9 +3,10 @@
 Each function computes what its CUDA kernel in ``csrc/ccp_eval.cu``
 computes, on the port's lane-vectorised ``bitset`` helpers, and equals the
 reference bit for bit: the seven lane kernels its ``repro.kernels.ref``,
-the five forms that build their own lanes (``connectivity_span``,
-``ccp_eval_dpsub``, ``bconnectivity_span``, ``btree_eval_decode``,
-``bgeneral_eval_decode``) the unrank or lane decode of its chunk bodies
+the six forms that build their own lanes (``connectivity_span``,
+``ccp_eval_dpsub``, ``bconnectivity_span``, ``bccp_eval_decode``,
+``btree_eval_decode``, ``bgeneral_eval_decode``) the unrank or lane decode
+of its chunk bodies
 followed by the lane kernel.
 ``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each kernel
 against these on the card.
@@ -114,6 +115,27 @@ def bccp_eval_ref(S, sub, qid, adj_b, nmax: int):
     lb = bs.pdep(sub, S, nmax)
     rb = S & ~lb
     return lb, rb, _ccp(lb, rb, adjq)
+
+
+def bccp_eval_decode_ref(all_sets, eoff, loff, soff, seg0: int, i: int,
+                         adj_b, nmax: int, nseg: int, chunk: int):
+    """Batched DPSUB chunk lane t (t < chunk): query ``q =
+    searchsorted(eoff, t) - 1``, ``local = t - eoff[q]``, set ``local >> i``
+    of the query's level at ``loff[q]`` (clamped gather from ``all_sets``)
+    and subset rank ``local & (2^i - 1)``, then ``bccp_eval_ref`` -> (lb,
+    rb, ccp, qid, seg): ccp masked by ``t < eoff[bcap]``, seg ``soff[q] +
+    set - seg0`` clamped to ``[0, nseg)``.  Dead lanes are decoded all the
+    same."""
+    bcap = adj_b.shape[0]
+    t = torch.arange(chunk, dtype=torch.int32, device=adj_b.device)
+    qid = _lane_query(eoff, t, bcap)
+    local = t - eoff[qid]
+    set_idx = local >> i
+    S = all_sets[(loff[qid] + set_idx).clamp(0, all_sets.shape[0] - 1)]
+    lb, rb, ccp_i = bccp_eval_ref(S, local & ((1 << i) - 1), qid, adj_b, nmax)
+    ccp = ((t < eoff[bcap]) & (ccp_i != 0)).to(torch.int32)
+    seg = (soff[qid] + set_idx - seg0).clamp(0, nseg - 1)
+    return lb, rb, ccp, qid, seg
 
 
 def btree_eval_ref(S, ub, vb, qid, adj_b, nmax: int):

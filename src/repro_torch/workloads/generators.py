@@ -6,7 +6,9 @@ seed for seed.
 
 Topologies: star, snowflake (depth <= 4), chain, cycle, clique, JOB-like
 (mixed tree + small cycles), and a MusicBrainz-like 56-table PK-FK schema
-with random-walk query sampling (§7.2.2).  Cardinalities and selectivities
+with random-walk query sampling (§7.2.2); ``typed_query`` and
+``mixed_joins_stream`` retype a base topology's bridges to LEFT, FULL,
+SEMI and ANTI joins and give some inner edges many-to-many fan-outs.  Cardinalities and selectivities
 follow PK-FK conventions: joining fact->dimension keeps fact cardinality
 scaled by predicate selectivity; sel(PK-FK edge) ~ 1/card(PK side).
 """
@@ -243,3 +245,130 @@ def mixed_stream(nq: int, seed: int = 0, sizes=(8, 9, 10, 11, 12, 13, 14)):
         graphs.append(musicbrainz_query(n, seed=100 + s))
         s += 1
     return graphs
+
+
+# ------------------------------------------------- typed / m:n workloads --
+
+def _bridges(n, edges):
+    """Indices of bridge edges (removal disconnects), O(m * (n + m)) — the
+    generator tier is host-side and small, simplicity wins."""
+    adj = [[] for _ in range(n)]
+    for i, (u, v) in enumerate(edges):
+        adj[u].append((v, i))
+        adj[v].append((u, i))
+    out = []
+    for i, (u, v) in enumerate(edges):
+        seen = {u}
+        stack = [u]
+        while stack:
+            x = stack.pop()
+            for (y, j) in adj[x]:
+                if j != i and y not in seen:
+                    seen.add(y)
+                    stack.append(y)
+        if v not in seen:
+            out.append(i)
+    return out
+
+
+def typed_query(n: int, seed: int = 0, base: str = "job",
+                noninner: float = 0.35, mn: float = 0.3) -> JoinGraph:
+    """Non-inner + many-to-many variant of a base topology.
+
+    Starts from ``TOPOLOGIES[base](n, seed)`` and retypes a ``noninner``
+    fraction of its *bridge* edges (non-inner joins must be bridges under
+    the conservative conflict rules) to left/semi/anti — plus at most one
+    full, demoted to left when another pick lies on its path to the root —
+    with the preserved/probe operand oriented toward relation 0, so the TES
+    constraints nest and construction always succeeds.  A ``mn``
+    fraction of the remaining inner edges trades the PK-FK selectivity for
+    an explicit many-to-many fan-out (``fanouts=``, fan > max cardinality).
+    ``noninner=0`` and ``mn=0`` reproduce the base query exactly.
+    """
+    r = random.Random(seed ^ 0x7E57ED)
+    g0 = TOPOLOGIES[base](n, seed)
+    edges = list(g0.edges)
+    cards = [float(2.0 ** c) for c in g0.log2_card]
+    sels = [float(2.0 ** s) for s in g0.log2_sel]
+    # hop distance from relation 0: the farther endpoint is the right
+    # (non-preserved) side of every non-inner edge
+    adj = [[] for _ in range(n)]
+    for (u, v) in edges:
+        adj[u].append(v)
+        adj[v].append(u)
+    dist = [-1] * n
+    dist[0] = 0
+    q = [0]
+    for x in q:
+        for y in adj[x]:
+            if dist[y] < 0:
+                dist[y] = dist[x] + 1
+                q.append(y)
+    kinds = ["inner"] * len(edges)
+    ldirs = [0] * len(edges)
+    cand = _bridges(n, edges)
+    r.shuffle(cand)
+    picks = cand[: max(1, round(noninner * len(cand))) if noninner else 0]
+    # far-side vertex sets of every pick (reachability minus the bridge):
+    # FULL requires its complete root side as one operand, so it is only
+    # feasible when no other pick lies between it and relation 0 — two such
+    # bridges would each require the other to fire first (TES deadlock,
+    # rejected by conflicts.analyze)
+    rsides = {}
+    for i in picks:
+        u, v = edges[i]
+        far = v if dist[u] <= dist[v] else u
+        seen = {far}
+        stack = [far]
+        while stack:
+            x = stack.pop()
+            for j, (a, b) in enumerate(edges):
+                if j == i:
+                    continue
+                y = b if a == x else (a if b == x else None)
+                if y is not None and y not in seen:
+                    seen.add(y)
+                    stack.append(y)
+        rsides[i] = seen
+    full_used = False
+    for i in picks:
+        u, v = edges[i]
+        lo = u if dist[u] <= dist[v] else v       # preserved side -> root
+        far = v if lo == u else u
+        k = r.choice(("left", "semi", "anti", "full"))
+        if k == "full":
+            if full_used or any(far in rsides[j] for j in picks if j != i):
+                k = "left"
+            else:
+                full_used = True
+        kinds[i] = k
+        ldirs[i] = 1 if lo == v else 0
+    fanouts = [None] * len(edges)
+    for i, k in enumerate(kinds):
+        if k == "inner" and r.random() < mn:
+            # many-to-many: every row on the bigger side matches several on
+            # the other, so |u >< v| exceeds both input cardinalities
+            u, v = edges[i]
+            fanouts[i] = max(cards[u], cards[v]) * r.uniform(1.5, 50.0)
+    return JoinGraph.make(n, edges, cards, sels, names=g0.names,
+                          kinds=kinds, ldirs=ldirs, fanouts=fanouts)
+
+
+TOPOLOGIES = {
+    "star": star, "snowflake": snowflake, "chain": chain, "cycle": cycle,
+    "clique": clique, "job": job_like, "musicbrainz": musicbrainz_query,
+}
+
+
+def mixed_joins_stream(nq: int, seed: int = 0, sizes=(6, 7, 8, 9, 10),
+                       noninner: float = 0.35, mn: float = 0.3):
+    """Typed analogue of ``mixed_stream``: ``nq`` ``typed_query`` graphs
+    cycling through ``sizes`` and base topologies (job / chain / star /
+    cycle), each with non-inner bridges and m:n fan-outs per the knobs.
+    Deterministic in ``(nq, seed, sizes, knobs)`` like ``mixed_stream``,
+    and the same graphs as the reference package's ``mixed_joins_stream``."""
+    bases = ("job", "chain", "star", "cycle")
+    return [typed_query(sizes[i % len(sizes)], seed=200 + seed + i,
+                        base=bases[i % len(bases)],
+                        noninner=noninner, mn=mn)
+            for i in range(nq)]

@@ -10,7 +10,8 @@
   costed by the port's ``cost_plan``, within 1e-5 of each other);
 * the queries no batched lane space serves (``dpsize``, ``dpccp``,
   ``mpdp_tree`` on a cyclic graph, n > 16) go to the solo engine and give
-  the reference's results, or its error;
+  the reference's results, or its error; a typed query (non-inner edges)
+  runs batched and gives the reference's results;
 * every option the reference serves outside the ported slices raises
   ``NotImplementedError``, and no card without ``device="cpu"`` raises.
 """
@@ -32,6 +33,19 @@ from repro_torch.workloads import generators as tgen
 from tests.helpers import rand_graph
 
 REL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test (imported by the other port test files):
+    the suite runs in several worker processes at once, and torch's
+    parallel regions on chunk-sized tensors stall when the workers'
+    threads outnumber the cores.  No result depends on the thread
+    count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port(g):
@@ -260,13 +274,16 @@ def test_outside_slice_raises(case):
 @pytest.mark.parametrize("g", [rgen.typed_query(7, seed=2), rgen.chain(17, 1)],
                          ids=["typed", "nmax24"])
 def test_outside_slice_graphs_raise(g):
-    """Graphs outside the batched slice: typed ones raise, an nmax-24 one
-    goes to the solo engine and equals the reference."""
-    if not g.typed:
-        assert_solo_route_matches_reference([g])
+    """Graphs that were outside the batched slice: a typed one now runs
+    batched, an nmax-24 one goes to the solo engine; both equal the
+    reference."""
+    if g.typed:
+        ref = rbatch.optimize_many([g])
+        got = tbatch.optimize_many([port(g)], device="cpu")
+        assert got[0].algorithm == "batch_mpdp_tree"
+        assert_same_results([g], ref, got)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatch.optimize_many([port(g)], device="cpu")
+    assert_solo_route_matches_reference([g])
 
 
 def test_no_card_raises_without_cpu(monkeypatch):

@@ -13,7 +13,8 @@ reference, on the CPU.
 * ``optimize_many`` routes the queries no batched lane space serves to the
   solo engine, as the reference does;
 * what the port does not serve yet raises ``NotImplementedError`` naming
-  its ROADMAP item, and no card without ``device="cpu"`` raises.
+  its ROADMAP item (a typed graph, once refused, now equals the
+  reference), and no card without ``device="cpu"`` raises.
 """
 import pytest
 import torch
@@ -23,7 +24,8 @@ from repro.workloads import generators as rgen
 from repro_torch.core import engine as teng
 from repro_torch.core.config import OptimizerConfig
 from tests.helpers import rand_graph
-from tests.test_torch_batch import assert_same_results, port
+from tests.test_torch_batch import (assert_same_results, one_torch_thread,  # noqa: F401
+                                    port)
 
 CASES = [
     ("star8", rgen.star(8, 1)),
@@ -118,13 +120,16 @@ G6 = port(rgen.cycle(6, 1))
 OUTSIDE = {
     "deadline": (G6, dict(config=OptimizerConfig(deadline_s=1.0))),
     "lattice": (G6, dict(config=OptimizerConfig(lattice=True, devices=2))),
-    "typed": (port(rgen.typed_query(7, seed=2)), {}),
+    "typed": (rgen.typed_query(7, seed=2), {}),
 }
 
 
 @pytest.mark.parametrize("case", list(OUTSIDE))
 def test_outside_slice_raises(case):
     g, kw = OUTSIDE[case]
+    if case == "typed":                  # ported: equals the reference
+        assert check_same(g)[1].algorithm == "mpdp_tree"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.optimize(g, device="cpu", **kw)
 

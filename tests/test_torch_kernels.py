@@ -20,6 +20,12 @@
   dropped, and split per query as the port's filter splits them),
   ``btree_eval_decode`` against a jnp restatement of the reference's
   MPDP:Tree decode, dead and clamped lanes included;
+* ``bccp_eval_decode`` against a jnp restatement of the reference's
+  batched DPSUB decode followed by its ``bccp_eval_ref``, dead lanes and
+  both ends of the segment clamp included; the port's batched DPSUB chunk
+  body against the reference's (``_beval_dpsub_chunk``) call for call, as
+  for the tree; the level's offset rows, copied once, against the
+  per-chunk tables they replaced;
 * the port's batched and solo MPDP:Tree chunk bodies against the
   reference's (``_beval_tree_chunk``, ``_eval_tree_chunk``) on the memo
   of a run, call for call: integers exact, costs within a relative 1e-5
@@ -72,6 +78,16 @@ TABLES = {
                            rgen.star(6, 3), rgen.job_like(8, 4)]),
 }
 SIZES = [1, 127, 128, 129, 1000]
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test, as in ``tests/test_torch_batch.py`` (this
+    file imports nothing from ``tests`` so that it runs on the card)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def make_lanes(graphs, nmax: int, L: int, seed: int):
@@ -717,16 +733,47 @@ def test_btree_eval_decode_matches_reference_decode(nmax, chunk):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int32))
 
 
-def _hold_chunk(got, want, label):
+class PruneLanes:
+    """Records the lanes ``(seg, cand, left)`` of the last ``_prune`` call
+    of the port's chunk bodies, so that a test can show a tie."""
+
+    def __init__(self, mp):
+        self.last = None
+        for m in (tbatch, teng):
+            mp.setattr(m, "_prune", self._recording(m._prune))
+
+    def _recording(self, real):
+        def prune(seg, cand, left, nseg):
+            self.last = tuple(x.numpy() for x in (seg, cand, left))
+            return real(seg, cand, left, nseg)
+        return prune
+
+
+def _hold_chunk(got, want, label, lanes=None, ties=None):
     """(seg_cost, seg_left, ev, ccp): integers exact, costs within a
-    relative 1e-5; returns the largest ULP distance of the costs."""
-    sc, sl, ev, cc = (np.asarray(x) for x in got)
-    wsc, wsl, wev, wcc = (np.asarray(x) for x in want)
-    for a, b in ((sl, wsl), (ev, wev), (cc, wcc)):
+    relative 1e-5; returns the largest ULP distance of the costs.  Given
+    the port's pruned ``lanes`` (``PruneLanes.last``), a segment may keep
+    another left bitmap than the reference only in a tie broken by
+    rounding: the reference's left is one of the port's own candidates of
+    the segment, at a cost within 1e-5 of the port's minimum (counted in
+    ``ties``)."""
+    sc, sl, ev, cc = (np.asarray(x).reshape(-1) for x in got)
+    wsc, wsl, wev, wcc = (np.asarray(x).reshape(-1) for x in want)
+    for a, b in ((ev, wev), (cc, wcc)):
         np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=label)
     fin = np.isfinite(wsc)
     np.testing.assert_array_equal(np.isfinite(sc), fin, err_msg=label)
     np.testing.assert_allclose(sc[fin], wsc[fin], rtol=1e-5, err_msg=label)
+    off = np.flatnonzero(sl != wsl)
+    if lanes is None or not len(off):
+        np.testing.assert_array_equal(sl, wsl.astype(sl.dtype), err_msg=label)
+    for k in off:
+        seg, cand, left = lanes
+        mine = (seg == k) & (left == wsl[k]) & np.isfinite(cand)
+        assert mine.any() and cand[mine].min() <= sc[k] * (1 + 1e-5), \
+            f"{label}: segment {k} keeps {sl[k]} for the reference's {wsl[k]}"
+        if ties is not None:
+            ties.append((label, int(k)))
     return int(np.abs(sc[fin].view(np.int32).astype(np.int64)
                       - wsc[fin].view(np.int32).astype(np.int64)).max(initial=0))
 
@@ -1121,10 +1168,11 @@ def tree_args(nmax=16, chunk=300):
 
 
 @pytest.mark.parametrize("name", ["bconnectivity_span", "btree_eval_decode",
-                                  "bgeneral_eval_decode"])
+                                  "bgeneral_eval_decode", "bccp_eval_decode"])
 def test_batched_lane_building_wrapper_routes_cpu_tensors(name):
     args = {"bconnectivity_span": bspan_args, "btree_eval_decode": tree_args,
-            "bgeneral_eval_decode": general_args}[name]()
+            "bgeneral_eval_decode": general_args,
+            "bccp_eval_decode": dpsub_decode_args}[name]()
     before = dict(ops.LAUNCHES)
     got = getattr(ops, name)(*args)
     for a, b in zip(got, getattr(tref, f"{name}_ref")(*args)):
@@ -1276,3 +1324,203 @@ def test_cuda_bgeneral_eval_decode_matches_plain_version():
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert a.is_cuda and torch.equal(a, b), (case[4], case[5])
+
+
+# ================================================== batched DPSUB decode ==
+# bccp_eval_decode: a batched DPSUB chunk's (query, set, subset) lanes
+# decoded from its offset tables.
+
+def make_dpsub_decode_case(graphs, nmax: int, i: int, chunk: int, seed: int,
+                           clamp: bool = False):
+    """bccp_eval_decode arguments as ``BatchEngine._eval_dispatch`` lays
+    them out: per-query set lists (inside each query's n bits) back to back
+    in ``all_sets``, lanes ``sets x 2^i``, the chunk at a random lane of the
+    level's last half chunk, so that a chunk longer than one lane runs past
+    the level's end (dead lanes, on the padding queries).  ``clamp``: the
+    last query's base moved so that its last sets lie past the end of
+    ``all_sets`` (the clamped gather), seg0 moved up by 3 and nseg cut to
+    5, so that segments clamp at both ends."""
+    rng = np.random.default_rng(seed)
+    B = len(graphs)
+    bcap = rbatch._bcap(B)
+    ns = rng.integers(1, 200, B)
+    all_sets = np.concatenate([rng.integers(1, 1 << g.n, c) for g, c
+                               in zip(graphs, ns)]).astype(np.int32)
+    soff = np.zeros(B + 1, np.int64)
+    np.cumsum(ns, out=soff[1:])
+    loff = np.zeros(bcap, np.int32)
+    loff[:B] = soff[:B]
+    if clamp:
+        loff[B - 1] = len(all_sets) - ns[B - 1] // 2 + 1
+    spad = np.full(bcap, soff[B], np.int32)
+    spad[:B] = soff[:B]
+    eoff = soff << i
+    lane0 = int(rng.integers(max(0, eoff[-1] - max(chunk // 2, 1)), eoff[-1]))
+    epad = tbatch._offset_rows(eoff, np.array([lane0]), bcap)[0]
+    p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0), B - 1)
+    seg0 = int(soff[p0] + ((lane0 - eoff[p0]) >> i))
+    nseg = chunk + 2
+    if clamp:
+        seg0, nseg = seg0 + 3, 5
+    return (all_sets, epad, loff, spad, seg0, i, adj_stack(graphs, bcap, nmax),
+            nmax, nseg, chunk)
+
+
+def reference_dpsub_decode(all_sets, eoff, loff, soff, seg0, i, adj_b, nmax,
+                           nseg, chunk):
+    """The reference's batched DPSUB lane decode
+    (``repro.core.batch._beval_dpsub_chunk``) and its ``bccp_eval_ref``,
+    every lane of the chunk."""
+    bcap = adj_b.shape[0]
+    t = jnp.arange(chunk, dtype=jnp.int32)
+    qid = jnp.clip(jnp.searchsorted(eoff, t, side="right").astype(jnp.int32)
+                   - 1, 0, bcap - 1)
+    local = t - eoff[qid]
+    live = t < eoff[bcap]
+    set_idx = local >> i
+    sub = local & ((jnp.int32(1) << i) - 1)
+    S = all_sets[loff[qid] + set_idx]
+    lb, rb, ccp_i = rref.bccp_eval_ref(S, sub, qid, adj_b, nmax)
+    seg = jnp.clip(soff[qid] + set_idx - seg0, 0, nseg - 1)
+    return lb, rb, live & (ccp_i != 0), qid, seg
+
+
+DPSUB_DECODE_CASES = [(nmax, chunk, i, clamp) for nmax in (8, 16)
+                      for chunk, i in ((1, 3), (129, 2), (4096, 2), (4096, 6))
+                      for clamp in (False, True)]
+
+
+@pytest.mark.parametrize("nmax,chunk,i,clamp", DPSUB_DECODE_CASES)
+def test_bccp_eval_decode_matches_reference_decode(nmax, chunk, i, clamp):
+    args = make_dpsub_decode_case(BATCHES[nmax](), nmax, i, chunk,
+                                  seed=nmax + chunk + i, clamp=clamp)
+    got = tref.bccp_eval_decode_ref(*_as_torch(args))
+    want = reference_dpsub_decode(*[jnp.asarray(a) if isinstance(a, np.ndarray)
+                                    else a for a in args])
+    if chunk == 4096:      # the case reaches dead lanes
+        assert args[1][-1] < chunk
+    if chunk == 4096 and clamp:  # and the clamps of the gather and segment
+        q, seg = got[3].numpy(), got[4].numpy()
+        idx = args[2][q] + ((np.arange(chunk) - args[1][q]) >> i)
+        assert idx.max() >= len(args[0])
+        assert (seg == 0).any() and (seg == args[8] - 1).any()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and a.shape == (chunk,)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b).astype(np.int32))
+
+
+@pytest.mark.parametrize("nmax", list(TABLES))
+def test_beval_dpsub_chunk_matches_reference(nmax, monkeypatch):
+    """Every chunk of a batched DPSUB run on the CPU (the ``TABLES``
+    batches), held against the reference's chunk body on the same
+    arguments and memo."""
+    nmax, graphs = TABLES[nmax][0], TABLES[nmax][1]()
+    chunk = 256 if nmax == 8 else 1024
+    bcap = rbatch._bcap(len(graphs))
+    want_fn = jax.jit(partial(rbatch._beval_dpsub_chunk, nmax=nmax,
+                              chunk=chunk, nseg=chunk + 2, bcap=bcap,
+                              pallas=False))
+    real = tbatch._beval_dpsub_chunk
+    lanes = PruneLanes(monkeypatch)
+    worst, ties = [0, 0], []
+
+    def held(*args, **kw):
+        got = real(*args, **kw)
+        want = want_fn(*[jnp.asarray(a.numpy()) if torch.is_tensor(a) else a
+                         for a in args])
+        worst[0] = max(worst[0], _hold_chunk(got, want, f"call {worst[1]}",
+                                             lanes.last, ties))
+        worst[1] += 1
+        return got
+
+    monkeypatch.setattr(tbatch, "_beval_dpsub_chunk", held)
+    tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
+                       algorithm="dpsub", device="cpu").run()
+    assert worst[1] > max(g.n for g in graphs)      # several chunks a level
+    print(f"nmax={nmax}: {worst[1]} chunks, largest cost difference "
+          f"{worst[0]} ulp, {len(ties)} segments tied by rounding "
+          f"(first: {ties[:3]})")
+
+
+def test_offset_rows_equal_the_per_chunk_tables():
+    """One offset row per chunk of a level, built at once, equals the
+    clipped, padded table each chunk used to build and copy on its own,
+    at offsets inside and past the +-2^30 clip."""
+    rng = np.random.default_rng(3)
+    for B, bcap, scale in ((1, 4, 1), (3, 4, 1 << 12), (7, 8, 1 << 22),
+                           (30, 32, 1 << 27)):
+        eoff = np.zeros(B + 1, np.int64)
+        np.cumsum(rng.integers(0, 1 << 12, B) * scale, out=eoff[1:])
+        chunk = 32768
+        lane0s = np.arange(0, max(int(eoff[-1]), 1), chunk * scale,
+                           dtype=np.int64)
+        rows = tbatch._offset_rows(eoff, lane0s, bcap)
+        assert rows.dtype == np.int32 and rows.shape == (len(lane0s), bcap + 1)
+        for row, lane0 in zip(rows, lane0s):
+            el = np.clip(eoff - lane0, -(1 << 30), 1 << 30)
+            epad = np.full(bcap + 1, el[B], np.int32)
+            epad[: B + 1] = el
+            np.testing.assert_array_equal(row, epad)
+        if scale > 1 << 20:
+            assert (np.abs(rows) == 1 << 30).any()
+
+
+def dpsub_decode_args(nmax=16, chunk=300):
+    return tuple(_as_torch(make_dpsub_decode_case(BATCHES[nmax](), nmax, 4,
+                                                  chunk, 5)))
+
+
+def test_dpsub_decode_launch_checks_refuse_bad_inputs():
+    (all_sets, eoff, loff, soff, seg0, i, adj_b, nmax, nseg,
+     chunk) = args = dpsub_decode_args()
+
+    def refuse(match, **repl):
+        keys = ("all_sets", "eoff", "loff", "soff", "seg0", "i", "adj_b",
+                "nmax", "nseg", "chunk")
+        a = dict(zip(keys, args))
+        a.update(repl)
+        with pytest.raises(ValueError, match=match):
+            ops._launch_dpsub_decode(*a.values())
+
+    refuse("all_sets must be", all_sets=all_sets.long())
+    refuse("all_sets must be", all_sets=all_sets[:0])
+    refuse("eoff must be", eoff=eoff[:-1])
+    refuse("eoff must be", eoff=eoff.long())
+    refuse("loff must be", loff=loff[None])
+    refuse("soff must be", soff=soff[:1])
+    refuse("adj_b must be", adj_b=adj_b[:, :4])
+    refuse("unsupported", adj_b=torch.zeros((1024, 16), dtype=torch.int32))
+    refuse("i = 31", i=31)
+    refuse("i = -1", i=-1)
+    refuse("seg0", seg0=-1)
+    refuse("chunk", chunk=1 << 31)
+    refuse("nseg", nseg=0)
+    with pytest.raises(ValueError, match="devices"):
+        ops.bccp_eval_decode(all_sets, eoff, loff, soff.to("meta"), seg0, i,
+                             adj_b, nmax, nseg, chunk)
+
+
+@pytest.mark.gpu
+def test_cuda_bccp_eval_decode_matches_plain_version():
+    """Chunks of 1, 129, 32767 and 32768 lanes at nmax 8 and 16 (bcap 4
+    and 8), i in {2, 6, nmax}, with both ends of the segment clamp and a
+    negative base that clamps the gather at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for nmax in (8, 16):
+        for chunk in (1, 129, 32767, 32768):
+            for i in (2, 6, nmax):
+                for clamp in (False, True):
+                    case = list(make_dpsub_decode_case(
+                        BATCHES[nmax](), nmax, i, chunk, chunk + i, clamp))
+                    if clamp:
+                        case[2] = case[2] - np.int32(50)
+                    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                            if isinstance(a, np.ndarray) else a for a in case]
+                    n0 = ops.LAUNCHES["bccp_eval_decode"]
+                    got = ops.bccp_eval_decode(*args)
+                    assert ops.LAUNCHES["bccp_eval_decode"] == n0 + 1
+                    want = tref.bccp_eval_decode_ref(*args)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want):
+                        assert a.is_cuda and torch.equal(a, b), (nmax, chunk, i)

@@ -17,7 +17,9 @@ comes first, so that each torch and CUDA module the path uses is loaded
 before the clock starts; then N timed passes.  Prints one JSON line per
 timed pass and part: wall seconds (ending in ``torch.cuda.synchronize()``),
 stage seconds (summed over a stream's flights) and the kernel launches.
-Exits non-zero without a card.
+Then one more pass per part under ``torch.profiler`` prints the part's
+device events and device-busy seconds.  Exits non-zero without
+a card.
 """
 import argparse
 import json
@@ -57,6 +59,20 @@ def run(torch, batch, engine, kind, what, algorithm) -> dict:
     return {"wall_s": wall, "stages": stages}
 
 
+def profile_part(torch, fn) -> dict:
+    """Device events and device-busy seconds of one call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"device_events": len(dev),
+            "device_busy_s": sum(e.time_range.elapsed_us() for e in dev) / 1e6}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
@@ -88,6 +104,10 @@ def main() -> int:
             out.update(part=label, run=j, launches={
                 k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]})
             print(json.dumps(out), flush=True)
+    for label, kind, what, algorithm in todo:
+        prof = profile_part(torch, lambda: run(torch, batch, engine, kind,
+                                               what, algorithm))
+        print(json.dumps({"part": label, "profile": prof}), flush=True)
     return 0
 
 
