@@ -71,7 +71,27 @@ Phases, in order, none of them caught:
      queries of 13 relations or fewer against the port's ``device="cpu"``
      run, ``dpsize`` refusing a typed graph with ``ValueError``; launch
      counters read around exactly this path, which runs all six
-     lane-building forms and no set-given kernel.
+     lane-building forms and no set-given kernel;
+  7. heuristics path — ``uniondp.solve`` and ``idp.solve`` on ``cuda``
+     over parts h1-h6 (``musicbrainz_query(56, seed=256)`` under both at
+     k = 15, ``snowflake(400, seed=7)`` under both at k = 15,
+     ``snowflake(80, seed=7)`` under IDP2 at k = 20, whose 17-20-relation
+     subproblems go solo, ``musicbrainz_query(30, seed=230)`` under IDP2
+     with the ``dpsub`` subsolver at k = 12, and UnionDP over
+     ``typed_query(40, seed=11, base="musicbrainz")``); every plan
+     validated (conflict rules included) and its cost equal to
+     ``cost_plan`` of its plan, UnionDP on h1 and h3 at most GOO x (1 +
+     2e-3) with non-increasing ``round_costs``, h1, h2 and h5 held round
+     by round against the port's ``device="cpu"`` run (run in worker
+     processes meanwhile: equal subproblems and plan shapes per
+     sub-solver call, a differing shape only as a shown tie), one
+     ``bconnectivity_span`` launch per level and flight and one
+     ``connectivity_span`` launch per level span of each solo
+     subproblem; per part its wall, sub-solver calls, flights,
+     subproblems, the seconds inside ``optimize_many`` against the
+     heuristic's own host seconds, and launches.
+On every path the evaluates make one launch a chunk: ``ChunkCalls``
+counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
 per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -97,7 +117,9 @@ from repro_torch.core import batch, dpccp, engine  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.config import MAX_FLIGHT  # noqa: E402
-from repro_torch.core.plan import validate_plan  # noqa: E402
+from repro_torch.core.joingraph import graph_to_wire  # noqa: E402
+from repro_torch.core.plan import Plan, cost_plan, validate_plan  # noqa: E402
+from repro_torch.heuristics import goo, idp, uniondp  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
 
@@ -156,6 +178,9 @@ SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
 BATCHED_PATH = BATCHED_FORMS
 SOLO_PATH = SPAN_FORMS + ("btree_eval_decode", "bgeneral_eval_decode")
 TYPED_PATH = SPAN_FORMS + BATCHED_FORMS
+# the heuristics' subproblems: batched flights, and 17-20-relation ones
+# solo (a DPSUB subproblem goes solo only past 16 relations: not here)
+HEUR_PATH = BATCHED_FORMS + ("connectivity_span",)
 OFF_PATH = ("connectivity", "ccp_eval", "grow_pair", "bconnectivity",
             "bccp_eval", "btree_eval", "bgeneral_eval")
 SYMBOL = {"connectivity": "connectivity_kernel<false>",
@@ -905,18 +930,30 @@ def ulps(a: float, b: float) -> int:
     return abs(int(ia) - int(ib))
 
 
+def flights(graphs, algorithm):
+    """How ``optimize_many`` runs ``graphs``: the relation counts of each
+    batched flight, and the graphs it sends solo."""
+    pending = batch.probe_stream(graphs, [None] * len(graphs), algorithm)
+    buckets, solo = batch.bucket_pending(graphs, pending, algorithm)
+    out = []
+    for idxs in buckets.values():
+        for s0 in range(0, len(idxs), MAX_FLIGHT):
+            out.append([graphs[q].n for q in idxs[s0: s0 + MAX_FLIGHT]])
+    return out, [graphs[q] for q in solo]
+
+
 def bspan_launches(graphs, algorithm) -> int:
     """``bconnectivity_span`` launches ``optimize_many`` makes: one per
     level span (``engine.SPAN`` ranks) of every batched flight."""
-    pending = batch.probe_stream(graphs, [None] * len(graphs), algorithm)
-    buckets, _ = batch.bucket_pending(graphs, pending, algorithm)
-    want = 0
-    for idxs in buckets.values():
-        for s0 in range(0, len(idxs), MAX_FLIGHT):
-            ns = [graphs[q].n for q in idxs[s0: s0 + MAX_FLIGHT]]
-            want += sum(-(-sum(comb(n, i) for n in ns) // engine.SPAN)
-                        for i in range(2, max(ns) + 1))
-    return want
+    return sum(-(-sum(comb(n, i) for n in ns) // engine.SPAN)
+               for ns in flights(graphs, algorithm)[0]
+               for i in range(2, max(ns) + 1))
+
+
+def span_launches(g) -> int:
+    """``connectivity_span`` launches of a solo run over ``g``: one per
+    level span."""
+    return sum(-(-comb(g.n, i) // engine.SPAN) for i in range(2, g.n + 1))
 
 
 def check_bspan(label, graphs, algorithm, before) -> None:
@@ -973,11 +1010,14 @@ def run_stream(label, graphs, algorithm, n_cpu):
 
 class ChunkCalls:
     """Counts, while it is entered, the calls on card tensors of the chunk
-    bodies that launch ``bgeneral_eval_decode`` (both MPDP-general ones)
-    and ``bccp_eval_decode`` (the batched DPSUB one); the CPU runs that the
-    checks make are not counted."""
+    bodies that launch ``bgeneral_eval_decode`` (both MPDP-general ones),
+    ``btree_eval_decode`` (both MPDP:Tree ones) and ``bccp_eval_decode``
+    (the batched DPSUB one); the CPU runs that the checks make are not
+    counted."""
     BODIES = {"bgeneral_eval_decode": ((batch, "_beval_general_chunk"),
                                        (engine, "_eval_general_chunk")),
+              "btree_eval_decode": ((batch, "_beval_tree_chunk"),
+                                    (engine, "_eval_tree_chunk")),
               "bccp_eval_decode": ((batch, "_beval_dpsub_chunk"),)}
 
     def __init__(self):
@@ -1003,10 +1043,10 @@ class ChunkCalls:
 
 def check_path(label: str, launches: dict, path, chunks: dict) -> None:
     """Raise unless every kernel of the path launched, the set-given
-    kernels they replaced did not, and the MPDP-general and the batched
-    DPSUB evaluates made one ``bgeneral_eval_decode`` and one
-    ``bccp_eval_decode`` launch per chunk (``chunks``: ``ChunkCalls``
-    counts)."""
+    kernels they replaced did not, and the MPDP-general, MPDP:Tree and
+    batched DPSUB evaluates made one ``bgeneral_eval_decode``,
+    ``btree_eval_decode`` and ``bccp_eval_decode`` launch per chunk
+    (``chunks``: ``ChunkCalls`` counts)."""
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {label} path: "
@@ -1020,7 +1060,9 @@ def check_path(label: str, launches: dict, path, chunks: dict) -> None:
             raise AssertionError(f"{label} path: {launches[kernel]} {kernel} "
                                  f"launches for {n} chunk bodies")
     log(f"{label} path: one bgeneral_eval_decode launch for each of its "
-        f"{chunks['bgeneral_eval_decode']} MPDP-general chunks and one "
+        f"{chunks['bgeneral_eval_decode']} MPDP-general chunks, one "
+        f"btree_eval_decode launch for each of its "
+        f"{chunks['btree_eval_decode']} MPDP:Tree chunks and one "
         f"bccp_eval_decode launch for each of its "
         f"{chunks['bccp_eval_decode']} batched DPSUB chunks, no launch of "
         f"{', '.join(OFF_PATH)}")
@@ -1114,7 +1156,7 @@ def run_solo(label, g, algorithm, opts, vs_cpu):
         + "; launches " + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()
                                       if v != before[k]}))
     if algorithm != "dpccp" and opts.get("enum", "unrank") == "unrank":
-        spans = sum(-(-comb(g.n, i) // engine.SPAN) for i in range(2, g.n + 1))
+        spans = span_launches(g)
         got = ops.LAUNCHES["connectivity_span"] - before["connectivity_span"]
         if got != spans:
             raise AssertionError(f"solo {label}: {got} connectivity_span "
@@ -1217,8 +1259,7 @@ def phase_typed():
                     + "; launches " + json.dumps(
                         {k: v - before[k] for k, v in ops.LAUNCHES.items()
                          if v != before[k]}))
-                spans = sum(-(-comb(g.n, i) // engine.SPAN)
-                            for i in range(2, g.n + 1))
+                spans = span_launches(g)
                 got = (ops.LAUNCHES["connectivity_span"]
                        - before["connectivity_span"])
                 if got != spans:
@@ -1255,6 +1296,216 @@ def phase_typed():
         log(f"typed solo {label}: plan valid, cost within 1e-4 of typed DPccp")
     log(f"typed checks on the host: {time.perf_counter() - t1:.1f} s")
     return typed
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+GOO_EPS = 2e-3        # the reference's margin for "UnionDP <= GOO"
+HEURISTICS = {"idp": idp, "uniondp": uniondp}
+
+
+def heuristic_parts():
+    """(label, module, graph, options, hold against the cpu run)."""
+    mb56 = gen.musicbrainz_query(56, seed=256)
+    snow400 = gen.snowflake(400, seed=7)
+    return [
+        ("h1 uniondp mb56 k=15", "uniondp", mb56, {"k": 15}, True),
+        ("h2 idp2 mb56 k=15", "idp", mb56, {"k": 15}, True),
+        ("h3 uniondp snow400 k=15", "uniondp", snow400, {"k": 15}, False),
+        ("h3 idp2 snow400 k=15", "idp", snow400, {"k": 15}, False),
+        ("h4 idp2 snow80 k=20", "idp", gen.snowflake(80, seed=7), {"k": 20},
+         False),
+        ("h5 idp2 dpsub mb30 k=12", "idp", gen.musicbrainz_query(30, seed=230),
+         {"k": 12, "subsolver": "dpsub"}, True),
+        ("h6 uniondp typed mb40 k=15", "uniondp",
+         gen.typed_query(40, seed=11, base="musicbrainz"), {"k": 15}, False),
+    ]
+
+
+def plan_shape(p):
+    return p.rel_set if p.is_leaf else (plan_shape(p.left), plan_shape(p.right))
+
+
+def plan_of(s) -> Plan:
+    """A plan tree of shape ``s`` (``cost_plan`` fills in its costs)."""
+    if isinstance(s, int):
+        return Plan(rel_set=s, cost=0.0, rows_log2=0.0)
+    left, right = plan_of(s[0]), plan_of(s[1])
+    return Plan(rel_set=left.rel_set | right.rel_set, cost=0.0, rows_log2=0.0,
+                left=left, right=right)
+
+
+class SubSolverCalls:
+    """Records, while it is entered, every ``engine.optimize_many`` call
+    (the heuristics' exact sub-solver): its graphs, its algorithm, the plan
+    shapes it returned, its seconds (ended by a synchronize on the card)
+    and its flights' stage seconds."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = engine.optimize_many
+
+        def spy(graphs, *args, **kw):
+            t0 = time.perf_counter()
+            rs = real(graphs, *args, **kw)
+            if self.on_card:
+                torch.cuda.synchronize()
+            stages = {}
+            for st in {tuple(sorted(r.timings.items())) for r in rs}:
+                for k, v in st:
+                    stages[k] = stages.get(k, 0.0) + v
+            self.calls.append((list(graphs), kw["algorithm"],
+                               [plan_shape(r.plan) for r in rs],
+                               time.perf_counter() - t0, stages))
+            return rs
+        engine.optimize_many = spy
+        return self
+
+    def __exit__(self, *exc):
+        engine.optimize_many = self.real
+
+
+def heuristic_cpu_run(i: int):
+    """Part ``i`` of phase 7 on ``device="cpu"`` (in a worker process):
+    per sub-solver call its subproblems' wires and the plan shapes, then
+    the plan's shape, its cost and the counters."""
+    torch.set_num_threads(1)
+    _, mod, g, opts, _ = heuristic_parts()[i]
+    with SubSolverCalls(on_card=False) as spy:
+        r = HEURISTICS[mod].solve(g, device="cpu", **opts)
+    return ([([graph_to_wire(x) for x in gs], shapes)
+             for gs, _, shapes, _, _ in spy.calls],
+            plan_shape(r.plan), r.cost, (r.counters.evaluated, r.counters.ccp))
+
+
+def hold_against_cpu(label, r, calls, cpu) -> str:
+    """Round by round against the cpu run: equal subproblems in, equal plan
+    shapes out, then equal plan, cost and counters; a differing shape only
+    as a shown tie (both subplans within 1e-5 on that subproblem), after
+    which the run is compared no further."""
+    cpu_calls, shape, cost, counters = cpu
+    for i, ((gs, _, shapes, _, _), (wires, cshapes)) in enumerate(
+            zip(calls, cpu_calls)):
+        if [graph_to_wire(x) for x in gs] != wires:
+            raise AssertionError(f"{label}: call {i} got other subproblems on "
+                                 f"cuda than on cpu")
+        if shapes == cshapes:
+            continue
+        for j, (x, a, b) in enumerate(zip(gs, shapes, cshapes)):
+            if a == b:
+                continue
+            ca, cb = (cost_plan(plan_of(s), x).cost for s in (a, b))
+            if abs(ca - cb) > 1e-5 * abs(cb):
+                raise AssertionError(f"{label}: call {i} subproblem {j}: "
+                                     f"cost {ca} on cuda vs {cb} on cpu")
+            log(f"{label}: call {i} subproblem {j} (n={x.n}) is a tie broken "
+                f"by rounding ({ca!r} on cuda, {cb!r} on cpu); compared no "
+                f"further")
+        return (f"matches the cpu run up to a shown tie at call {i} (final "
+                f"cost {r.cost!r} on cuda, {cost!r} on cpu)")
+    if (len(calls), plan_shape(r.plan), r.cost,
+            (r.counters.evaluated, r.counters.ccp)) != \
+            (len(cpu_calls), shape, cost, counters):
+        raise AssertionError(f"{label}: cuda run {r.cost} {r.counters} after "
+                             f"{len(calls)} calls, cpu run {cost} {counters} "
+                             f"after {len(cpu_calls)}")
+    return (f"matches the cpu run ({len(calls)} calls: equal subproblems and "
+            f"plan shapes, equal plan, cost == and counters)")
+
+
+def run_heuristic(label, mod, g, opts):
+    """One heuristic part on cuda: timed, validated, its sub-solver calls,
+    flights and launches checked and printed.  Returns (result, calls)."""
+    before = dict(ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SubSolverCalls(on_card=True) as spy:
+        r = HEURISTICS[mod].solve(g, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = spy.calls
+    launches = {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                if v != before[k]}
+    runs = [flights(gs, algo) for gs, algo, _, _, _ in calls]
+    inside = sum(c[3] for c in calls)
+    stages = {}
+    for c in calls:
+        for k, v in c[4].items():
+            stages[k] = stages.get(k, 0.0) + v
+    log(f"heuristic {label}: n={g.n} m={g.m} {r.algorithm} in {wall:.3f} s on "
+        f"cuda; {len(calls)} optimize_many calls, "
+        f"{sum(len(f) for f, _ in runs)} batched flights and "
+        f"{sum(len(s) for _, s in runs)} solo runs, "
+        f"{sum(len(c[0]) for c in calls)} subproblems (n "
+        f"{min(x.n for c in calls for x in c[0])}-"
+        f"{max(x.n for c in calls for x in c[0])}); optimize_many "
+        f"{inside:.3f} s, the heuristic's host work {wall - inside:.3f} s; "
+        f"stage seconds " + json.dumps({k: round(v, 4) for k, v in
+                                        sorted(stages.items())})
+        + "; launches " + json.dumps(launches))
+    want = sum(bspan_launches(gs, algo) for gs, algo, _, _, _ in calls)
+    got = launches.get("bconnectivity_span", 0)
+    if got != want:
+        raise AssertionError(f"{label}: {got} bconnectivity_span launches for "
+                             f"{want} levels and flights")
+    want = sum(span_launches(x) for _, solo in runs for x in solo)
+    got = launches.get("connectivity_span", 0)
+    if got != want:
+        raise AssertionError(f"{label}: {got} connectivity_span launches for "
+                             f"{want} level spans of solo subproblems")
+    validate_plan(r.plan, g)
+    canon = cost_plan(r.plan, g).cost
+    if r.cost != canon:
+        raise AssertionError(f"{label}: cost {r.cost} is not its plan's "
+                             f"{canon}")
+    return r, calls
+
+
+def phase_heuristics():
+    """The heuristics path on cuda, launch counters read around exactly
+    it; the cpu runs of h1, h2 and h5 go on in worker processes meanwhile.
+    Returns the launches."""
+    parts = heuristic_parts()
+    t_start = time.perf_counter()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=3, mp_context=spawn) as pool:
+        futs = {i: pool.submit(heuristic_cpu_run, i)
+                for i, p in enumerate(parts) if p[4]}
+        out = {}
+        ops.reset_launches()
+        with ChunkCalls() as chunks:
+            for i, (label, mod, g, opts, _) in enumerate(parts):
+                out[i] = run_heuristic(label, mod, g, opts)
+        heur = dict(ops.LAUNCHES)
+        log(f"heuristics path: {time.perf_counter() - t_start:.1f} s on cuda; "
+            f"launches " + json.dumps(heur))
+        check_path("heuristics", heur, HEUR_PATH, chunks.count)
+        cpu = {i: f.result() for i, f in futs.items()}
+    log(f"heuristics cpu runs: {len(cpu)} parts, done at "
+        f"{time.perf_counter() - t_start:.1f} s (3 worker processes)")
+    for i, (label, mod, g, _, vs_cpu) in enumerate(parts):
+        r, calls = out[i]
+        note = []
+        if mod == "uniondp" and not g.typed:
+            goo_cost = goo.solve(g).cost
+            rc = r.info["round_costs"]
+            if r.cost > goo_cost * (1 + GOO_EPS):
+                raise AssertionError(f"{label}: cost {r.cost} above GOO's "
+                                     f"{goo_cost} x (1 + {GOO_EPS})")
+            if any(b > a for a, b in zip(rc, rc[1:])):
+                raise AssertionError(f"{label}: round costs rise: {rc}")
+            note.append(f"{r.cost / goo_cost!r} x GOO, round costs "
+                        f"non-increasing {rc}")
+        if vs_cpu:
+            note.append(hold_against_cpu(label, r, calls, cpu[i]))
+        log(f"heuristic {label}: plan valid"
+            + (" (conflict rules included)" if g.typed else "")
+            + f", cost {r.cost!r} == cost_plan of its plan"
+            + "".join(f"; {x}" for x in note))
+    return heur
 
 
 def main() -> int:
@@ -1321,12 +1572,18 @@ def main() -> int:
     typed = phase_typed()
     log(f"max_memory_allocated (typed path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
+    log(f"phase typed path done at {time.perf_counter() - t_start:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    heur = phase_heuristics()
+    log(f"max_memory_allocated (heuristics path): "
+        f"{torch.cuda.max_memory_allocated()} bytes")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
-            "launches": batched[k] + solo[k] + typed[k],
+            "launches": batched[k] + solo[k] + typed[k] + heur[k],
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

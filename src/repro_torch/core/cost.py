@@ -110,6 +110,21 @@ def np_join_cost_kind(rl2_l, rl2_r, rl2_out, kind):
     return np.where(np.asarray(kind) >= 3, hj, base)
 
 
+# ----------------------------------------------- partition-boundary helper --
+
+def np_boundary_cost(rl2_a, rl2_b, sel_l2) -> np.float32:
+    """Cost of the *boundary join* between two partitions (UnionDP's merge
+    score): ``rl2_a``/``rl2_b`` are their aggregated log2 rows, ``sel_l2``
+    the summed log2 selectivity of every edge crossing the boundary; the
+    join yields ``max(rl2_a + rl2_b + sel_l2, 0)`` log2 rows and costs the
+    cheapest physical operator's price.  Cast to f32 in the reference's
+    order, so the score is bit-identical to it."""
+    ra = np.float32(rl2_a)
+    rb = np.float32(rl2_b)
+    out = np.maximum(ra + rb + np.float32(sel_l2), np.float32(0.0))
+    return np_join_cost(ra, rb, out)
+
+
 # --------------------------------------------------- set-cardinality helper --
 
 def np_rows_for_sets(sets_np: np.ndarray, g) -> np.ndarray:

@@ -160,6 +160,9 @@ class JoinGraph:
         """True when any edge is non-inner (conflict rules apply)."""
         return bool(self.kinds) and any(k != cf.KIND_INNER for k in self.kinds)
 
+    def kind(self, i: int) -> int:
+        return self.kinds[i] if self.kinds else cf.KIND_INNER
+
     def left_op(self, i: int) -> int:
         """Left-operand (preserved/probe side) vertex of edge ``i``."""
         u, v = self.edges[i]

@@ -20,7 +20,10 @@ MODULES = sorted(
 def test_module_list_covers_the_port():
     assert "repro_torch.core.batch" in MODULES
     assert "repro_torch.kernels.ops" in MODULES
-    assert len(MODULES) >= 18
+    heuristics = {f"repro_torch.heuristics.{m}" for m in
+                  ("common", "goo", "idp", "ikkbz", "geqo", "lindp", "uniondp")}
+    assert heuristics <= set(MODULES), heuristics - set(MODULES)
+    assert len(MODULES) >= 26
 
 
 def test_import_leaves_jax_and_reference_unloaded():
