@@ -89,7 +89,23 @@ Phases, in order, none of them caught:
      ``connectivity_span`` launch per level span of each solo
      subproblem; per part its wall, sub-solver calls, flights,
      subproblems, the seconds inside ``optimize_many`` against the
-     heuristic's own host seconds, and launches.
+     heuristic's own host seconds, and launches;
+  8. service path — ``service.optimize_stream`` on ``cuda``: s1, stream
+     (a) plus d1's graph (solo) under ``auto``, once synchronous and
+     three times pipelined; s2, stream (b) plus d3's graph (solo) under
+     ``dpsub``, synchronous and pipelined; every pipelined run bit for bit
+     the synchronous one (cost ``==``, plan shape, ``Counters``,
+     ``algorithm``) with equal launches per kernel, s1 also equal to phase
+     4's stream (a) and phase 5's d1, the flights ``admit``'s, one solo
+     query; s3, s1's stream plus 16 relabelled duplicates through a
+     ``PlanCache`` (each distinct query computed once, the duplicates
+     deferred hits), saved, loaded and run again: all 49 hits, no flight,
+     no launch, the first pass's plans and each cost ``==`` its
+     ``cost_plan``; s4, ``uniondp.solve`` and ``idp.solve`` on h1's graph
+     with ``pipeline=True``, round by round equal to phase 7's runs; then
+     a profile of one pipelined s1 run, which raises unless every
+     ``bconnectivity_span`` launch ran on another CUDA stream than the
+     evaluate kernels and prints the device time the two streams overlap.
 On every path the evaluates make one launch a chunk: ``ChunkCalls``
 counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
@@ -113,12 +129,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.core import batch, dpccp, engine  # noqa: E402
+from repro_torch.core import batch, dpccp, engine, service  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.config import MAX_FLIGHT  # noqa: E402
-from repro_torch.core.joingraph import graph_to_wire  # noqa: E402
+from repro_torch.core.joingraph import JoinGraph, graph_to_wire  # noqa: E402
 from repro_torch.core.plan import Plan, cost_plan, validate_plan  # noqa: E402
+from repro_torch.core.plancache import PlanCache, canonical_signature  # noqa: E402
 from repro_torch.heuristics import goo, idp, uniondp  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
@@ -933,7 +950,8 @@ def ulps(a: float, b: float) -> int:
 def flights(graphs, algorithm):
     """How ``optimize_many`` runs ``graphs``: the relation counts of each
     batched flight, and the graphs it sends solo."""
-    pending = batch.probe_stream(graphs, [None] * len(graphs), algorithm)
+    pending = batch.probe_stream(graphs, [None] * len(graphs), None,
+                                 algorithm)
     buckets, solo = batch.bucket_pending(graphs, pending, algorithm)
     out = []
     for idxs in buckets.values():
@@ -1143,7 +1161,7 @@ def hold(label, g, r, c=None, oracle_cost=None):
 
 def run_solo(label, g, algorithm, opts, vs_cpu):
     """One solo query on cuda: timed, its stages and launches printed, held
-    against DPccp and (vs_cpu) the port's cpu run."""
+    against DPccp and (vs_cpu) the port's cpu run.  Returns the result."""
     before = dict(ops.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1167,6 +1185,7 @@ def run_solo(label, g, algorithm, opts, vs_cpu):
     log(f"solo {label}: plan valid, cost within 1e-4 of DPccp"
         + (f", matches the cpu run (counters exact, {u} ulp)" if vs_cpu else "")
         + f" (host check {time.perf_counter() - t1:.1f} s)")
+    return r
 
 
 def run_solo_many(stream_c):
@@ -1467,7 +1486,7 @@ def run_heuristic(label, mod, g, opts):
 def phase_heuristics():
     """The heuristics path on cuda, launch counters read around exactly
     it; the cpu runs of h1, h2 and h5 go on in worker processes meanwhile.
-    Returns the launches."""
+    Returns the launches and each part's (result, sub-solver calls)."""
     parts = heuristic_parts()
     t_start = time.perf_counter()
     spawn = multiprocessing.get_context("spawn")
@@ -1505,7 +1524,283 @@ def phase_heuristics():
             + (" (conflict rules included)" if g.typed else "")
             + f", cost {r.cost!r} == cost_plan of its plan"
             + "".join(f"; {x}" for x in note))
-    return heur
+    return heur, out
+
+# ---------------------------------------------------------------- phase 8 --
+
+SERVICE_PATH = SPAN_FORMS + BATCHED_FORMS      # flights, solo d1/d3, s4
+EVAL_FORMS = ("bccp_eval_decode", "btree_eval_decode", "bgeneral_eval_decode")
+S3_DUPS = 16                                   # relabelled duplicates in s3
+
+
+def relabel(g, seed: int):
+    """An isomorphic copy of the inner-join graph ``g`` under a seeded
+    vertex permutation, its log2 stats carried bit for bit."""
+    perm = np.random.default_rng(seed).permutation(g.n).tolist()
+    inv = [0] * g.n
+    for old, new in enumerate(perm):
+        inv[new] = old
+    return JoinGraph.from_log2(
+        g.n, [(perm[u], perm[v]) for u, v in g.edges],
+        [g.log2_card[inv[v]] for v in range(g.n)], list(g.log2_sel),
+        names=[g.names[inv[v]] for v in range(g.n)],
+        fans_l2=None if g.fan_l2 is None else list(g.fan_l2))
+
+
+def same_results(label, got, want) -> None:
+    """Raise unless two runs' results are bit for bit equal: cost ``==``,
+    plan shape, ``Counters`` and ``algorithm``."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results for {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        ka = (a.cost, plan_shape(a.plan), a.counters.evaluated,
+              a.counters.ccp, a.algorithm)
+        kb = (b.cost, plan_shape(b.plan), b.counters.evaluated,
+              b.counters.ccp, b.algorithm)
+        if ka != kb:
+            raise AssertionError(f"{label} query {i}: {a.algorithm} {a.cost!r} "
+                                 f"{a.counters} vs {b.algorithm} {b.cost!r} "
+                                 f"{b.counters}")
+
+
+def stream_stages(res, rep) -> dict:
+    """Stage seconds summed over a stream's flights and solo runs."""
+    members = {qi for fl in rep.flights for qi in fl.queries}
+    runs = [fl.queries[0] for fl in rep.flights] + [
+        qi for qi, r in enumerate(res)
+        if qi not in members and not r.algorithm.startswith("cache[")]
+    stages = {}
+    for qi in runs:
+        for k, v in res[qi].timings.items():
+            stages[k] = stages.get(k, 0.0) + v
+    return {k: round(v, 4) for k, v in sorted(stages.items())}
+
+
+def run_service(label, graphs, algorithm, pipeline, cache=None):
+    """One ``service.optimize_stream`` run on cuda, timed and printed: its
+    flights (each ``wall_s`` and ``finalize_s``), latency percentiles,
+    stage seconds, telemetry summary and launches.  Without a cache it
+    raises unless the flights are ``admit``'s and the filters made one
+    launch per level and flight (batched) and per level span (solo).
+    Returns (results, report, wall, launches)."""
+    before = dict(ops.LAUNCHES)
+    (res, rep), wall = timed(lambda: service.optimize_stream(
+        graphs, algorithm, cache=cache, pipeline=pipeline))
+    launches = {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                if v != before[k]}
+    mode = "pipelined" if pipeline else "synchronous"
+    pct = rep.latency_percentiles()
+    log(f"service {label} {mode}: {len(graphs)} queries in {wall:.3f} s on "
+        f"cuda; {len(rep.flights)} flights, {rep.solo} solo, "
+        f"{rep.cache_hits} cache hits; latency p50 {pct[50]:.4f} s, p95 "
+        f"{pct[95]:.4f} s, p99 {pct[99]:.4f} s; stage seconds "
+        + json.dumps(stream_stages(res, rep)) + "; launches "
+        + json.dumps(launches))
+    for fl in rep.flights:
+        log(f"service {label} {mode}: flight {fl.space} nmax {fl.nmax} x"
+            f"{len(fl.queries)}: wall_s {fl.wall_s:.4f}, finalize_s "
+            f"{fl.finalize_s:.4f}")
+    if rep.flights:
+        log(f"service {label} {mode}: telemetry "
+            + json.dumps(rep.telemetry_summary()))
+    if cache is None:
+        opt = service.StreamOptimizer(algorithm)
+        flights_, solo = opt.admit(graphs, list(range(len(graphs))))
+        if [(f.nmax, f.space, f.queries) for f in rep.flights] != \
+                [(f.nmax, f.space, f.queries) for f in flights_] \
+                or rep.solo != len(solo):
+            raise AssertionError(f"service {label}: flights and solo queries "
+                                 f"are not admit's")
+        check_bspan(f"service {label}", graphs, algorithm, before)
+        want = sum(span_launches(graphs[qi]) for qi in solo)
+        if launches.get("connectivity_span", 0) != want:
+            raise AssertionError(f"service {label}: "
+                                 f"{launches.get('connectivity_span', 0)} "
+                                 f"connectivity_span launches for {want} "
+                                 f"level spans")
+    return res, rep, wall, launches
+
+
+def sync_and_pipelined(label, graphs, algorithm, repeats: int):
+    """One synchronous and ``repeats`` pipelined runs: each pipelined run
+    bit for bit the synchronous one with equal launches, one solo query.
+    Returns the synchronous results and the walls."""
+    sync, rep, wall, launches = run_service(label, graphs, algorithm, False)
+    walls = {"synchronous": wall, "pipelined": []}
+    if rep.solo != 1:
+        raise AssertionError(f"service {label}: {rep.solo} solo queries")
+    for k in range(repeats):
+        pipe, _, wall, got = run_service(label, graphs, algorithm, True)
+        same_results(f"service {label} pipelined run {k + 1}", pipe, sync)
+        if got != launches:
+            raise AssertionError(f"service {label}: launches {got} "
+                                 f"pipelined vs {launches} synchronous")
+        walls["pipelined"].append(wall)
+    log(f"service {label}: {repeats} pipelined runs equal the synchronous "
+        f"run bit for bit (cost ==, plan shapes, counters, algorithm) with "
+        f"equal launches; walls " + json.dumps(walls))
+    return sync, walls
+
+
+def kernel_of(name: str):
+    """The ``ops`` kernel a profiler event name belongs to, or None."""
+    for k in KERNELS:
+        sym = re.escape(SYMBOL.get(k, f"{k}_kernel"))
+        if re.search(rf"(^|[^A-Za-z0-9_]){sym}(?![A-Za-z0-9_])", name):
+            return k
+    return None
+
+
+def overlap_us(intervals: dict) -> float:
+    """Device microseconds during which kernels of two or more streams
+    run (``intervals``: stream -> [(start, end)])."""
+    marks = []
+    for spans in intervals.values():
+        cur = None
+        for a, b in sorted(spans):                 # this stream's union
+            if cur is not None and a <= cur[1]:
+                cur[1] = max(cur[1], b)
+                continue
+            if cur is not None:
+                marks += [(cur[0], 1), (cur[1], -1)]
+            cur = [a, b]
+        if cur is not None:
+            marks += [(cur[0], 1), (cur[1], -1)]
+    total, depth, last = 0.0, 0, None
+    for t, d in sorted(marks):
+        if depth >= 2:
+            total += t - last
+        depth += d
+        last = t
+    return total
+
+
+def device_events(prof):
+    """(name, stream, start us, end us) of each device event of a finished
+    profile, read from the raw Kineto events: building the profiler's
+    ``FunctionEvent`` tree over a stream's 10^5-10^6 events takes
+    minutes."""
+    from torch.autograd import DeviceType
+    cuda = DeviceType.CUDA
+    return [(e.name(), e.device_resource_id(), e.start_ns() / 1e3,
+             e.end_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def profile_streams(label, fn):
+    """Profile the device work of one call of fn; raise unless every
+    ``bconnectivity_span`` launch ran on a CUDA stream on which no
+    evaluate kernel ran; print the launches by stream and the device time
+    in which two streams' work overlaps."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    intervals, by_kernel, kinds = {}, {}, {}
+    events = device_events(prof)
+    for name, st, a, b in events:
+        intervals.setdefault(st, []).append((a, b))
+        if name not in kinds:                 # a few distinct names
+            kinds[name] = kernel_of(name)
+        k = kinds[name]
+        if k is not None:
+            by_kernel.setdefault(k, {}).setdefault(st, 0)
+            by_kernel[k][st] += 1
+    filt = set(by_kernel.get("bconnectivity_span", {}))
+    ev = {st for k in EVAL_FORMS for st in by_kernel.get(k, {})}
+    busy = sum(b - a for spans in intervals.values() for a, b in spans)
+    log(f"profile {label}: wall {wall:.3f} s (profiler on, device activity "
+        f"only); launches by stream "
+        + json.dumps({k: {str(st): n for st, n in v.items()}
+                      for k, v in sorted(by_kernel.items())})
+        + f"; {len(events)} device events on {len(intervals)} streams, "
+        f"busy {busy / 1e6:.4f} s, two streams overlapping "
+        f"{overlap_us(intervals) / 1e6:.6f} s; read in "
+        f"{time.perf_counter() - t0 - wall:.1f} s")
+    if not filt or not ev or filt & ev:
+        raise AssertionError(f"profile {label}: bconnectivity_span on streams "
+                             f"{sorted(filt)}, evaluate kernels on "
+                             f"{sorted(ev)}: the filter did not run on a "
+                             f"stream of its own")
+    return out
+
+
+def phase_service(stream_a, res_a, d1_res, heur_out):
+    """The service path on cuda, launch counters read around exactly it
+    (s1-s4), then a profile of one pipelined s1 run.  Returns the
+    launches."""
+    t_start = time.perf_counter()
+    s1 = stream_a + [gen.musicbrainz_query(20, seed=11)]
+    s2 = stream_b() + [gen.musicbrainz_query(17, seed=11)]
+    dups = [relabel(s1[i], 100 + i) for i in range(0, 2 * S3_DUPS, 2)]
+    s3 = s1 + dups
+    distinct = len({canonical_signature(g)[0] for g in s3})
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(build.BUILD_DIR / "phase8.plancache")     # gitignored
+    ops.reset_launches()
+    with ChunkCalls() as chunks:
+        sync1, walls1 = sync_and_pipelined("s1", s1, "auto", 3)
+        same_results("service s1 vs phase 4's stream (a) and phase 5's d1",
+                     sync1, list(res_a) + [d1_res])
+        sync_and_pipelined("s2", s2, "dpsub", 1)
+
+        cache = PlanCache()
+        first, rep, _, _ = run_service("s3 first pass", s3, "auto", True,
+                                       cache)
+        if (cache.stats.inserts, rep.cache_hits) != (distinct, S3_DUPS):
+            raise AssertionError(f"service s3: {cache.stats.inserts} plans "
+                                 f"computed for {distinct} distinct queries, "
+                                 f"{rep.cache_hits} deferred hits for "
+                                 f"{S3_DUPS} duplicates")
+        same_results("service s3 first pass vs s1", first[:len(s1)], sync1)
+        cache.save(path)
+        loaded = PlanCache.load(path)
+        os.remove(path)
+        if loaded.stale_load or len(loaded) != len(cache):
+            raise AssertionError(f"service s3: the saved cache loaded "
+                                 f"{len(loaded)} of {len(cache)} entries")
+        second, rep, wall, launches = run_service("s3 second pass", s3, "auto",
+                                                  True, loaded)
+        if launches or rep.flights or rep.solo or rep.cache_hits != len(s3):
+            raise AssertionError(f"service s3 second pass: {rep.cache_hits} "
+                                 f"hits of {len(s3)}, {len(rep.flights)} "
+                                 f"flights, launches {launches}")
+        for i, (g, a, b) in enumerate(zip(s3, first, second)):
+            if plan_shape(a.plan) != plan_shape(b.plan) or \
+                    b.cost != cost_plan(b.plan, g).cost:
+                raise AssertionError(f"service s3 query {i}: the hit's plan "
+                                     f"or cost differs")
+        log(f"service s3: {len(s3)} queries, {distinct} computed once and "
+            f"{S3_DUPS} deferred hits; saved and loaded {len(loaded)} "
+            f"entries; second pass {len(s3)} hits in {wall:.4f} s, no "
+            f"flight, no launch, plans == the first pass's, each cost == "
+            f"its cost_plan")
+
+        for j, (label, mod, g, opts, _) in enumerate(heuristic_parts()[:2]):
+            r, calls = run_heuristic(f"s4 {label} pipelined", mod, g,
+                                     dict(opts, pipeline=True))
+            r7, calls7 = heur_out[j]
+            if [c[2] for c in calls] != [c[2] for c in calls7] or \
+                    (plan_shape(r.plan), r.cost) != (plan_shape(r7.plan),
+                                                     r7.cost):
+                raise AssertionError(f"s4 {label}: the pipelined run differs "
+                                     f"from phase 7's")
+            log(f"service s4 {label}: pipelined run equals phase 7's "
+                f"synchronous run ({len(calls)} calls, equal plan shapes "
+                f"call by call, plan, cost {r.cost!r} ==)")
+    svc = dict(ops.LAUNCHES)
+    log(f"service path: {time.perf_counter() - t_start:.1f} s on cuda; "
+        f"launches " + json.dumps(svc))
+    check_path("service", svc, SERVICE_PATH, chunks.count)
+    log(f"max_memory_allocated (service path): "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    res, _ = profile_streams("service s1 pipelined", lambda: service.
+                             optimize_stream(s1, "auto", pipeline=True))
+    same_results("service s1 profiled run", res, sync1)
+    return svc
 
 
 def main() -> int:
@@ -1540,8 +1835,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     with ChunkCalls() as chunks:
-        for label, graphs, algorithm, n_cpu in streams:
-            run_stream(label, graphs, algorithm, n_cpu)
+        stream_res = {label: run_stream(label, graphs, algorithm, n_cpu)
+                      for label, graphs, algorithm, n_cpu in streams}
     batched = dict(ops.LAUNCHES)
     log("launches on the batched path: " + json.dumps(batched))
     check_path("batched", batched, BATCHED_PATH, chunks.count)
@@ -1555,8 +1850,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     with ChunkCalls() as chunks:
-        for label, g, algorithm, opts, vs_cpu in parts:
-            run_solo(label, g, algorithm, opts, vs_cpu)
+        solo_res = {label: run_solo(label, g, algorithm, opts, vs_cpu)
+                    for label, g, algorithm, opts, vs_cpu in parts}
         run_solo_many(stream_c)
     solo = dict(ops.LAUNCHES)
     log("launches on the solo path: " + json.dumps(solo))
@@ -1575,15 +1870,20 @@ def main() -> int:
     log(f"phase typed path done at {time.perf_counter() - t_start:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    heur = phase_heuristics()
+    heur, heur_out = phase_heuristics()
     log(f"max_memory_allocated (heuristics path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
+    log(f"phase heuristics path done at {time.perf_counter() - t_start:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    svc = phase_service(streams[0][1], stream_res["a"], solo_res["d1"],
+                        heur_out)
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
-            "launches": batched[k] + solo[k] + typed[k] + heur[k],
+            "launches": batched[k] + solo[k] + typed[k] + heur[k] + svc[k],
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

@@ -19,8 +19,17 @@ PyTorch versions for CPU tensors; the filter's unrank
 (``bconnectivity_span``, one launch per level) and the DPSUB, MPDP:Tree
 and MPDP-general lane decodes (``bccp_eval_decode``,
 ``btree_eval_decode``, ``bgeneral_eval_decode``) run inside the kernels.
-The level loop is the reference's synchronous driver; the memo tensors are
-updated in place.
+The memo tensors are updated in place.
+
+The level loop (``_LevelLoop``) is the reference's: the synchronous driver,
+or with ``pipeline=True`` the pipelined one, which dispatches level i's
+evaluate and, while it runs, fetches and compacts level i+1's filter,
+costs its memo rows and (MPDP-general) runs its phase A.  On the card the
+level i+1 work runs on a second CUDA stream (``_Streams``), so its host
+syncs wait for its own kernels only and not for level i's evaluate on the
+caller's stream; on the CPU the same schedule runs in program order.
+Chunk grids, kernels and merge order are those of the synchronous driver,
+so results are bit-identical.
 
 Typed queries (a LEFT, FULL, SEMI or ANTI edge) fly apart from inner ones
 (``bucket_pending`` keys on ``typed``); a typed flight carries the stacked
@@ -36,15 +45,19 @@ spells them out: out-of-range gather indices are clamped (``_take``),
 identities (``engine._prune``) and ``searchsorted(side="right")`` is
 ``right=True``.
 
-``optimize_many`` is the public entry point.  It batches queries with
-``nmax_bucket(n) <= 16`` and sends the rest (larger queries,
-``dpsize``, ``dpccp``, ``mpdp_tree`` forced on a cyclic graph) to the solo
-``engine.optimize``, as the reference does; what the reference serves
-beyond that raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+``optimize_many`` is the public entry point.  It consults an optional
+``plancache.PlanCache`` first, batches queries with ``nmax_bucket(n) <=
+16`` and sends the rest (larger queries, ``dpsize``, ``dpccp``,
+``mpdp_tree`` forced on a cyclic graph) to the solo ``engine.optimize``,
+as the reference does; what the reference serves beyond that raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  The
+stream-admission steps (``probe_stream``, ``dedup_pending``,
+``bucket_pending``, ``resolve_deferred``) are shared with
+``core.service``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from math import comb
@@ -62,8 +75,10 @@ from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .engine import (_CLIP, INF, SPAN, _cap, _fetch, _merge_best,
                      _merge_scattered, _not_ported, _pair_table, _prune,
-                     _scatter_into, _take, _typed_lane_cost, resolve_device)
+                     _scatter_into, _take, _typed_lane_cost, _use_pipeline,
+                     resolve_device)
 from .joingraph import JoinGraph, typed_edge_arrays
+from .plancache import canonical_signature
 from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
 NMAX_BATCH = 16          # memo is (bcap << NMAX): larger queries go solo
@@ -187,7 +202,126 @@ def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
 
 # ============================================================== host driver ==
 
-class BatchEngine:
+class _Streams:
+    """The pipelined level loop's two CUDA streams: ``main``, the caller's
+    current stream, runs the evaluate chunks and the commits; ``side`` runs
+    the next level's filter, its compaction, its memo-row and ``all_sets``
+    registration and its phase A.  On the CPU there is no stream: ``side()``
+    enters nothing and the joins do nothing.
+
+    Every tensor that the side-stream work allocates (the filter spans'
+    ``(S, conn, qid)``, the uploads of ``_dev`` and ``_scatter_into``,
+    phase A's inputs and scratch) is allocated while ``side`` is current,
+    so the caching allocator orders its reuse on ``side``, the stream that
+    reads it; nothing allocated there is read on ``main``, which gets the
+    level's sets as numpy arrays.  The tensors ``main`` allocated and
+    ``side`` reads (the memo, ``all_sets``, the adjacency and edge tables)
+    live as long as the engine, and ``main`` joins ``side`` before
+    ``run_levels`` returns."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.main = torch.cuda.current_stream(device)
+            self.side = torch.cuda.Stream(device)
+            self.side.wait_stream(self.main)       # the memo's initial writes
+
+    def side_work(self):
+        return torch.cuda.stream(self.side) if self.cuda \
+            else contextlib.nullcontext()
+
+    def join(self) -> None:
+        """Order everything queued on ``main`` from here after the side
+        work queued so far."""
+        if self.cuda:
+            self.main.wait_stream(self.side)
+
+
+class _LevelLoop:
+    """The level-loop drivers of the batched engine: the synchronous loop
+    and the reference's pipelined rotation (ref ``batch.py:343-401``),
+    over the engine's per-level hooks (``_filter_dispatch`` /
+    ``_filter_collect``, ``_register_level``, ``_pairs_level``,
+    ``_eval[_general]_dispatch`` / ``_eval[_general]_finalize``)."""
+
+    def run_levels(self) -> None:
+        """Run the level-synchronous DP; the memo stays on the device
+        (``collect`` fetches it).  The pipelined driver gives bit-identical
+        memo contents: same chunk grids, same kernels, same merge order."""
+        t0 = time.perf_counter()
+        max_n = max(g.n for g in self.graphs)
+        general = self.algorithm == "mpdp_general"
+        if self.pipeline:
+            self._run_levels_pipelined(max_n, general)
+        else:
+            for i in range(2, max_n + 1):
+                sets = self._filter_collect(self._filter_dispatch(i))
+                self._register_level(i, sets)
+                if general:
+                    ctx = self._eval_general_dispatch(
+                        i, sets, self._pairs_level(sets))
+                    self._eval_general_finalize(i, sets, ctx)
+                else:
+                    self._eval_finalize(i, sets, self._eval_dispatch(i, sets))
+        self._wall += time.perf_counter() - t0
+
+    def _run_levels_pipelined(self, max_n: int, general: bool) -> None:
+        """Pipelined level loop.  Per level i:
+
+          1. dispatch level i+1's (memo-independent) filter first (side);
+          2. dispatch level i's evaluate chunks, the bulk of the device
+             work (main);
+          3. while they run, fetch and compact the filter, cost the new
+             sets' rows, register them and run phase A (side): the host
+             syncs here wait for side-stream kernels only;
+          4. only then drain level i's chunks, merge and commit (main), and
+             order main's next work after the side work (``join``).
+
+        Level i+1's registration writes ``memo_rows`` at level-(i+1) sets
+        and ``all_sets`` past level i's slots while level i's evaluate
+        reads them.  A live lane of level i reads ``memo_rows`` and
+        ``memo_cost`` only at sets of levels <= i and ``all_sets`` only at
+        level i's offsets (``_level_off``), so the two never touch the same
+        entry.  A dead lane (past the chunk's last live lane) may read a
+        slot being written; its ccp flag is masked by the live test in the
+        kernel, so its cost is ``INF`` and it cannot win or tie a finite
+        segment minimum, and no ``INF`` segment is committed.
+        """
+        st = _Streams(self.device)
+        with st.side_work():
+            sets = self._filter_collect(self._filter_dispatch(2))
+            self._register_level(2, sets)
+            pairs = self._pairs_level(sets) if general else None
+        st.join()
+        for i in range(2, max_n + 1):
+            fpend = None
+            if i < max_n:
+                with st.side_work():
+                    fpend = self._filter_dispatch(i + 1)
+            if general:
+                ctx = self._eval_general_dispatch(i, sets, pairs)
+            else:
+                ctx = self._eval_dispatch(i, sets)
+            nxt = nxt_pairs = None
+            if fpend is not None:
+                with st.side_work():
+                    nxt = self._filter_collect(fpend)
+                    self._register_level(i + 1, nxt)
+                    if general:
+                        nxt_pairs = self._pairs_level(nxt)
+            if general:
+                self._eval_general_finalize(i, sets, ctx)
+            else:
+                self._eval_finalize(i, sets, ctx)
+            st.join()                   # level i+1's evaluate reads its rows
+            sets, pairs = nxt, nxt_pairs
+
+    def run(self) -> list[OptimizeResult]:
+        self.run_levels()
+        return self.collect()
+
+
+class BatchEngine(_LevelLoop):
     """Level-synchronous DP over a batch of queries in one device pipeline.
 
     ``algorithm`` selects the evaluate lane space: ``dpsub``, ``mpdp_tree``
@@ -196,11 +330,18 @@ class BatchEngine:
     where the memo and every lane tensor live (``cuda`` by default).  A
     flight with a typed query carries the stacked conflict arrays
     (``typed``); an inner-only one carries none.
+
+    ``pipeline`` (default: the ``REPRO_PIPELINE`` environment flag) runs
+    the pipelined level loop, on a second CUDA stream on the card.
+    ``pend_window`` is the number of un-fetched filter spans and evaluate
+    chunks a level keeps in flight (default ``PEND_WINDOW``); results are
+    bit-identical for any ``pend_window >= 0``.
     """
 
     def __init__(self, graphs: list[JoinGraph], chunk: int = CHUNK,
                  algorithm: str = "dpsub", cyc_cap: int = CYC_CAP_DEFAULT,
-                 device=None):
+                 pipeline: bool | None = None,
+                 pend_window: int | None = None, device=None):
         if not graphs:
             raise ValueError("empty batch")
         if algorithm not in ("dpsub", "mpdp_tree", "mpdp_general"):
@@ -217,6 +358,10 @@ class BatchEngine:
         self.graphs = graphs
         self.algorithm = algorithm
         self.cyc_cap = cyc_cap
+        self.pipeline = _use_pipeline() if pipeline is None else bool(pipeline)
+        self.pend_window = (PEND_WINDOW if pend_window is None
+                            else int(pend_window))
+        self.chunks_dispatched = 0        # filter spans + evaluate chunks
         self._wall = 0.0
         self.B = len(graphs)
         self.bcap = _bcap(self.B)
@@ -313,17 +458,19 @@ class BatchEngine:
     @property
     def stats(self) -> dict:
         """Kernel launches made since this engine was built, per kernel
-        (``{"launches": {...}, "pipeline": False}``)."""
+        (``{"launches": {...}, "pipeline": bool}``)."""
         return {"launches": {k: ops.LAUNCHES[k] - self._launch0[k]
                              for k in ops.LAUNCHES},
-                "pipeline": False}
+                "pipeline": self.pipeline}
 
     # ------------------------------------------------------------ filter ---
     def _filter_dispatch(self, i: int) -> dict:
         """Dispatch level i's unrank+filter: one ``bconnectivity_span``
         launch per ``SPAN`` ranks of the flight's level (one launch at nmax
         <= 16, bcap <= 32: at most 32 x C(16, 8) ranks), draining all but
-        ``PEND_WINDOW`` of them as newer ones run."""
+        ``pend_window`` of them as newer ones run.  The final fetch is
+        ``_filter_collect``'s, so the pipelined driver can run it under the
+        previous level's evaluate."""
         t0 = time.perf_counter()
         totals = np.array([comb(g.n, i) if g.n >= i else 0
                            for g in self.graphs], np.int64)
@@ -338,7 +485,8 @@ class BatchEngine:
             ctx["pend"].append(ops.bconnectivity_span(
                 i, self._dev(fpad), min(SPAN, total - lane0), self.binom,
                 self.adj_b, self.nmax))
-            self._filter_drain(ctx, PEND_WINDOW)
+            self.chunks_dispatched += 1
+            self._filter_drain(ctx, self.pend_window)
         self._time("filter", t0)
         return ctx
 
@@ -450,7 +598,8 @@ class BatchEngine:
                     self.adj_b, self.memo_cost, self.memo_rows, **self._tkw,
                     **statics)
             ctx["pend"].append((seg0, out))
-            self._eval_drain(ctx, PEND_WINDOW)
+            self.chunks_dispatched += 1
+            self._eval_drain(ctx, self.pend_window)
         self._time("evaluate", t0)
         return ctx
 
@@ -532,7 +681,8 @@ class BatchEngine:
                 self.memo_cost, self.memo_rows, nmax=self.nmax,
                 chunk=self.chunk, bcap=self.bcap, **self._tkw)
             ctx["pend"].append((p0, npair, out))
-            self._eval_general_drain(ctx, PEND_WINDOW)
+            self.chunks_dispatched += 1
+            self._eval_general_drain(ctx, self.pend_window)
         self._time("evaluate", t0)
         return ctx
 
@@ -570,23 +720,10 @@ class BatchEngine:
         self._time("evaluate", t0)
 
     # ------------------------------------------------------------ driver ---
-    def run_levels(self) -> None:
-        """Run the level-synchronous DP; the memo stays on the device."""
-        t0 = time.perf_counter()
-        max_n = max(g.n for g in self.graphs)
-        general = self.algorithm == "mpdp_general"
-        for i in range(2, max_n + 1):
-            sets = self._filter_collect(self._filter_dispatch(i))
-            self._register_level(i, sets)
-            if general:
-                ctx = self._eval_general_dispatch(i, sets, self._pairs_level(sets))
-                self._eval_general_finalize(i, sets, ctx)
-            else:
-                self._eval_finalize(i, sets, self._eval_dispatch(i, sets))
-        self._wall += time.perf_counter() - t0
-
     def collect(self) -> list[OptimizeResult]:
-        """Fetch the memo and extract one ``OptimizeResult`` per query."""
+        """Fetch the memo and extract one ``OptimizeResult`` per query (the
+        streaming service defers this to after the next flight's
+        ``run_levels``)."""
         t0 = time.perf_counter()
         cost_all = self.memo_cost.cpu().numpy()
         left_all = self.memo_left.cpu().numpy()
@@ -605,10 +742,6 @@ class BatchEngine:
             out.append(r)
         return out
 
-    def run(self) -> list[OptimizeResult]:
-        self.run_levels()
-        return self.collect()
-
 
 # ============================================================ public entry ==
 
@@ -626,13 +759,23 @@ def _lane_space(g: JoinGraph, algorithm: str) -> str | None:
     return None
 
 
-def probe_stream(graphs, results, algorithm: str) -> list[int]:
-    """Single-relation short-circuit: fills leaf plans into ``results`` (in
-    place), returns the stream indices that still need an engine."""
+# Stream-admission steps, shared verbatim by ``optimize_many`` and the
+# streaming service (``core.service``): the service's bit-identity with
+# ``optimize_many`` rests on both using exactly these.
+
+def probe_stream(graphs, results, cache, algorithm: str) -> list[int]:
+    """Upfront cache probe and single-relation short-circuit: fills hits
+    and leaf plans into ``results`` (in place), returns the stream indices
+    that still need an engine."""
     pending: list[int] = []
     for qi, g in enumerate(graphs):
         if results[qi] is not None:
             continue
+        if cache is not None:
+            hit = cache.get(g)
+            if hit is not None:
+                results[qi] = hit
+                continue
         if g.n == 1:
             p = leaf_plan(0, g)
             results[qi] = OptimizeResult(plan=p, cost=p.cost,
@@ -641,6 +784,27 @@ def probe_stream(graphs, results, algorithm: str) -> list[int]:
             continue
         pending.append(qi)
     return pending
+
+
+def dedup_pending(graphs, pending: list[int], cache):
+    """Intra-stream dedup (caching only): canonically-equal queries compute
+    once; duplicates are deferred and resolve as cache hits after their
+    representative lands.  Returns ``(kept, deferred, dup_rep)``."""
+    if cache is None:
+        return pending, [], {}
+    rep_of: dict = {}
+    kept: list[int] = []
+    deferred: list[int] = []
+    dup_rep: dict[int, int] = {}          # duplicate index -> representative
+    for qi in pending:
+        key, _ = canonical_signature(graphs[qi])
+        if key in rep_of:
+            deferred.append(qi)
+            dup_rep[qi] = rep_of[key]
+        else:
+            rep_of[key] = qi
+            kept.append(qi)
+    return kept, deferred, dup_rep
 
 
 def bucket_pending(graphs, pending: list[int], algorithm: str):
@@ -660,6 +824,32 @@ def bucket_pending(graphs, pending: list[int], algorithm: str):
     return buckets, solo
 
 
+def resolve_deferred(graphs, results, cache, deferred, dup_rep) -> None:
+    """Resolve deduped duplicates as cache hits (re-inserting the
+    representative when a small LRU evicted it mid-stream)."""
+    for qi in deferred:
+        hit = cache.get(graphs[qi])
+        if hit is None:
+            rep = dup_rep[qi]
+            cache.put(graphs[rep], results[rep])
+            hit = cache.get(graphs[qi])
+        results[qi] = hit
+
+
+def refuse_unported(cfg: OptimizerConfig, where: str) -> None:
+    """Raise ``NotImplementedError`` for the options the port does not
+    serve yet, naming the ROADMAP item that ports each."""
+    if cfg.devices is not None or cfg.mesh is not None:
+        raise _not_ported(f"{where}(devices=/mesh=)",
+                          "batch and lattice sharding")
+    if cfg.policy is not None:
+        raise _not_ported(f"{where}(policy=...)",
+                          "telemetry, policy, deadlines and faults")
+    if cfg.deadline_s is not None:
+        raise _not_ported(f"{where}(deadline_s=...)",
+                          "telemetry, policy, deadlines and faults")
+
+
 def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
                   cache=UNSET, max_flight=UNSET, devices=UNSET, mesh=UNSET,
                   pipeline=UNSET, max_batch=UNSET, policy=UNSET, *,
@@ -674,38 +864,43 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
     mpdp_tree, mpdp_general, dpsize, dpccp}; ``auto``/``mpdp`` run acyclic
     buckets in the MPDP:Tree lane space and the rest in MPDP-general.
     Queries no batched lane space serves run solo (``engine.optimize``).
+
+    * ``cache``: an optional ``plancache.PlanCache`` consulted first;
+      canonically-equal queries of the stream compute once, and computed
+      plans are inserted back.
+    * ``pipeline``: run the batched engines pipelined (level i+1's host
+      work under level i's evaluate, on a second CUDA stream on the card;
+      bit-identical results).  ``None`` defers to ``REPRO_PIPELINE``.
+    * ``devices``/``mesh``, ``policy`` and ``deadline_s`` raise
+      ``NotImplementedError`` naming their ROADMAP item.
+
     Results come back in input order.
     """
     max_flight = alias_kwarg(max_flight, max_batch, "max_batch", "max_flight")
     cfg = resolve_config(config, algorithm=algorithm, chunk=chunk,
                          cache=cache, max_flight=max_flight, devices=devices,
                          mesh=mesh, pipeline=pipeline, policy=policy)
-    if cfg.cache is not None:
-        raise _not_ported("optimize_many(cache=...)", "plan cache")
-    if cfg.devices is not None or cfg.mesh is not None:
-        raise _not_ported("optimize_many(devices=/mesh=)",
-                          "batch and lattice sharding")
-    if cfg.pipeline:
-        raise _not_ported("optimize_many(pipeline=True)", "pipelined driver")
-    if cfg.policy is not None:
-        raise _not_ported("optimize_many(policy=...)",
-                          "telemetry, policy, deadlines and faults")
-    if cfg.deadline_s is not None:
-        raise _not_ported("optimize_many(deadline_s=...)",
-                          "telemetry, policy, deadlines and faults")
-    algorithm = cfg.algorithm
+    refuse_unported(cfg, "optimize_many")
+    algorithm, cache = cfg.algorithm, cfg.cache
     dev = resolve_device(device)
     results: list[OptimizeResult | None] = [None] * len(graphs)
-    pending = probe_stream(graphs, results, algorithm)
+    pending = probe_stream(graphs, results, cache, algorithm)
+    pending, deferred, dup_rep = dedup_pending(graphs, pending, cache)
     buckets, solo = bucket_pending(graphs, pending, algorithm)
     for (_b, space, _typed), idxs in sorted(buckets.items()):
         for s0 in range(0, len(idxs), cfg.max_flight):
             group = idxs[s0: s0 + cfg.max_flight]
             rs = BatchEngine([graphs[qi] for qi in group], chunk=cfg.chunk,
-                             algorithm=space, device=dev).run()
+                             algorithm=space, pipeline=cfg.pipeline,
+                             device=dev).run()
             for qi, r in zip(group, rs):
                 results[qi] = r
+                if cache is not None:
+                    cache.put(graphs[qi], r)
     for qi in solo:
-        results[qi] = _eng.optimize(graphs[qi], algorithm, chunk=cfg.chunk,
-                                    device=dev)
+        r = _eng.optimize(graphs[qi], algorithm, chunk=cfg.chunk, device=dev)
+        results[qi] = r
+        if cache is not None:
+            cache.put(graphs[qi], r)
+    resolve_deferred(graphs, results, cache, deferred, dup_rep)
     return results

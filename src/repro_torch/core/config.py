@@ -3,9 +3,9 @@
 The port's own copy of ``repro.core.config``: the same constants, the same
 ``OptimizerConfig`` fields and validation, and the same legacy-kwarg shim
 (``resolve_config``/``alias_kwarg``), so a config built for the reference
-means the same thing here.  Fields the port does not serve yet (``cache``,
-``devices``/``mesh``, ``pipeline=True``, ``policy``, ``deadline_s``) are
-accepted here and refused by the entry point that would consume them.
+means the same thing here.  Fields the port does not serve yet
+(``devices``/``mesh``, ``policy``, ``deadline_s``) are accepted here and
+refused by the entry point that would consume them.
 """
 from __future__ import annotations
 

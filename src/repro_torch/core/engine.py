@@ -43,6 +43,7 @@ as before.  DPSIZE refuses typed graphs, as the reference does.
 """
 from __future__ import annotations
 
+import os
 import time
 from math import comb
 
@@ -83,6 +84,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("repro_torch runs on a CUDA device and none is "
                            "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def _use_pipeline() -> bool:
+    """``REPRO_PIPELINE=1`` makes the batched engines run pipelined when the
+    caller passes ``pipeline=None`` (the reference's switch, by the same
+    name): level i's evaluate runs on the device while the host compacts,
+    rows-costs and block-decomposes level i+1.  Results are bit-identical
+    to the synchronous default."""
+    return os.environ.get("REPRO_PIPELINE", "0") == "1"
 
 
 def _not_ported(what: str, item: str):

@@ -280,9 +280,11 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
     """IDP2 over ``g`` with exact subproblems of at most ``k`` units, up to
     ``batch`` of them a round in one ``optimize_many`` call on ``device``
     (``cuda`` unless the caller names another; ``subsolver="lindp"`` runs
-    on the host).  ``devices``, ``mesh``, ``pipeline=True`` and ``policy``
-    go to ``optimize_many``, which refuses them with the ROADMAP item that
-    ports them."""
+    on the host).  ``pipeline`` goes to ``optimize_many``: with ``True``
+    every round's flights run the pipelined level loop, with results
+    equal to the synchronous ones.  ``devices``, ``mesh`` and ``policy``
+    go there too, and it refuses them with the ROADMAP item that ports
+    them."""
     t0 = time.perf_counter()
     counters = Counters()
     if g.typed:

@@ -202,8 +202,10 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
     round's subproblems run as one ``optimize_many`` call on ``device``
     (``cuda`` unless the caller names another).  ``policy`` raises
     ``NotImplementedError`` (ROADMAP.md, queue 1: telemetry, policy,
-    deadlines and faults); ``devices``, ``mesh`` and ``pipeline=True`` go
-    to ``optimize_many``, which refuses them the same way."""
+    deadlines and faults).  ``pipeline`` goes to ``optimize_many``: with
+    ``True`` every round's flights run the pipelined level loop, with
+    results equal to the synchronous ones.  ``devices`` and ``mesh`` go
+    there too, and it refuses them the same way."""
     t0 = time.perf_counter()
     counters = Counters()
     if g.typed:

@@ -12,7 +12,8 @@
   ``mpdp_tree`` on a cyclic graph, n > 16) go to the solo engine and give
   the reference's results, or its error; a typed query (non-inner edges)
   runs batched and gives the reference's results;
-* every option the reference serves outside the ported slices raises
+* ``cache=`` and ``pipeline=True`` give the reference's results; every
+  option the reference serves outside the ported slices raises
   ``NotImplementedError``, and no card without ``device="cpu"`` raises.
 """
 import math
@@ -24,11 +25,13 @@ import pytest
 import torch
 
 from repro.core import batch as rbatch, blocks as rbl, bitset as rbs
+from repro.core.plancache import PlanCache as RPlanCache
 from repro.daemon.protocol import graph_to_wire
 from repro.workloads import generators as rgen
 from repro_torch.core import batch as tbatch, blocks as tbl
 from repro_torch.core import joingraph as tjg
 from repro_torch.core.plan import Plan, cost_plan, validate_plan
+from repro_torch.core.plancache import PlanCache as TPlanCache
 from repro_torch.workloads import generators as tgen
 from tests.helpers import rand_graph
 
@@ -233,10 +236,8 @@ def test_leaf_queries_and_stats():
 G6_REF = rgen.cycle(6, 1)
 G6 = port(G6_REF)
 EXCLUDED = {
-    "cache": dict(cache=object()),
     "devices": dict(devices=2),
     "mesh": dict(mesh=object()),
-    "pipeline": dict(pipeline=True),
     "policy": dict(policy=object()),
     "deadline": dict(config=tbatch.OptimizerConfig(deadline_s=1.0)),
     "dpsize": dict(algorithm="dpsize"),
@@ -245,6 +246,8 @@ EXCLUDED = {
 }
 # outside the batched lane spaces, but served by the solo engine
 SOLO_ROUTED = ("dpsize", "dpccp", "tree_on_cycle")
+# outside the first slices, served since the service slice
+SERVED = ("cache", "pipeline")
 
 
 def assert_solo_route_matches_reference(graphs, **kw):
@@ -259,11 +262,34 @@ def assert_solo_route_matches_reference(graphs, **kw):
     assert_same_results(graphs, ref, got)
 
 
-@pytest.mark.parametrize("case", list(EXCLUDED))
+def assert_served_matches_reference(case):
+    """``cache=`` (a duplicate in the stream, then a second pass of hits)
+    and ``pipeline=True`` give the reference's results and cache counts."""
+    graphs = [G6_REF, rgen.chain(5, 2), G6_REF]
+    ported = [port(g) for g in graphs]
+    if case == "pipeline":
+        ref = rbatch.optimize_many(graphs, pipeline=True)
+        got = tbatch.optimize_many(ported, pipeline=True, device="cpu")
+        assert_same_results(graphs, ref, got)
+        return
+    rc, tc = RPlanCache(), TPlanCache()
+    for _ in range(2):
+        ref = rbatch.optimize_many(graphs, cache=rc)
+        got = tbatch.optimize_many(ported, cache=tc, device="cpu")
+        assert_same_results(graphs, ref, got)
+        assert vars(tc.stats) == vars(rc.stats)
+    assert all(r.algorithm.startswith("cache[") for r in got)
+
+
+@pytest.mark.parametrize("case", [*SERVED, *EXCLUDED])
 def test_outside_slice_raises(case):
     """Options outside the batched slice: the ones the solo engine serves
-    (``dpsize``, ``dpccp``, ``mpdp_tree`` on a cycle) equal the reference,
-    the rest raise ``NotImplementedError`` naming their ROADMAP item."""
+    (``dpsize``, ``dpccp``, ``mpdp_tree`` on a cycle) and the plan cache
+    and pipelined driver equal the reference, the rest raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    if case in SERVED:
+        assert_served_matches_reference(case)
+        return
     if case in SOLO_ROUTED:
         assert_solo_route_matches_reference([G6_REF], **EXCLUDED[case])
         return

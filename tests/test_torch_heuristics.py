@@ -16,9 +16,10 @@ JAX reference's (``repro.heuristics``), on the CPU.
   final plan shapes, costs (host ``cost_plan`` in both), ``Counters``,
   ``algorithm`` strings and the UnionDP explain payload are equal;
 * typed graphs go through ``solve_typed`` the same way;
-* ``policy=``, ``devices=``, ``mesh=`` and ``pipeline=True`` raise
-  ``NotImplementedError`` naming their ROADMAP item, and without a card a
-  call that names no ``device`` raises.
+* ``pipeline=True`` runs equal the synchronous runs round by round;
+  ``policy=``, ``devices=`` and ``mesh=`` raise ``NotImplementedError``
+  naming their ROADMAP item, and without a card a call that names no
+  ``device`` raises.
 """
 import math
 
@@ -333,15 +334,47 @@ REFUSED = {
     "policy": (dict(policy=object()), "telemetry, policy, deadlines and faults"),
     "devices": (dict(devices=2), "batch and lattice sharding"),
     "mesh": (dict(mesh=object()), "batch and lattice sharding"),
-    "pipeline": (dict(pipeline=True), "pipelined driver"),
 }
+SERVED = ("pipeline",)       # refused until the service slice
+
+
+def sub_solver_calls(monkeypatch, solve, **kw):
+    """One run of ``solve`` on G with the port's sub-solver spied on: per
+    ``optimize_many`` call its subproblems' wires, plan shapes, costs and
+    counters; then the result."""
+    calls = []
+    real = teng.optimize_many
+
+    def spy(graphs, *a, **k):
+        rs = real(graphs, *a, **k)
+        calls.append(([tjg.graph_to_wire(g) for g in graphs],
+                      [(shape(r.plan), r.cost, r.algorithm,
+                        (r.counters.evaluated, r.counters.ccp)) for r in rs]))
+        return rs
+    monkeypatch.setattr(teng, "optimize_many", spy)
+    r = solve(G, k=6, device="cpu", **kw)
+    monkeypatch.setattr(teng, "optimize_many", real)
+    return calls, r
 
 
 @pytest.mark.parametrize("solver", ["idp", "uniondp"])
-@pytest.mark.parametrize("option", list(REFUSED))
-def test_unported_options_raise(solver, option):
-    kw, item = REFUSED[option]
+@pytest.mark.parametrize("option", [*REFUSED, *SERVED])
+def test_unported_options_raise(solver, option, monkeypatch):
+    """``pipeline=True`` equals the synchronous run call for call (equal
+    subproblems, plan shapes, costs ``==`` and counters) and at the end;
+    the options still outside the port raise, naming their item."""
     solve = {"idp": idp.solve, "uniondp": uniondp.solve}[solver]
+    if option in SERVED:
+        sync_calls, sync = sub_solver_calls(monkeypatch, solve, pipeline=False)
+        pipe_calls, pipe = sub_solver_calls(monkeypatch, solve, pipeline=True)
+        assert len(sync_calls) > 1
+        assert pipe_calls == sync_calls
+        assert (shape(pipe.plan), pipe.cost, pipe.algorithm, pipe.info) == \
+            (shape(sync.plan), sync.cost, sync.algorithm, sync.info)
+        assert (pipe.counters.evaluated, pipe.counters.ccp) == \
+            (sync.counters.evaluated, sync.counters.ccp)
+        return
+    kw, item = REFUSED[option]
     with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
         solve(G, k=6, device="cpu", **kw)
 

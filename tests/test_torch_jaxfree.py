@@ -23,7 +23,10 @@ def test_module_list_covers_the_port():
     heuristics = {f"repro_torch.heuristics.{m}" for m in
                   ("common", "goo", "idp", "ikkbz", "geqo", "lindp", "uniondp")}
     assert heuristics <= set(MODULES), heuristics - set(MODULES)
-    assert len(MODULES) >= 26
+    service = {f"repro_torch.core.{m}" for m in
+               ("telemetry", "plancache", "service")}
+    assert service <= set(MODULES), service - set(MODULES)
+    assert len(MODULES) >= 29
 
 
 def test_import_leaves_jax_and_reference_unloaded():
