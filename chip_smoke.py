@@ -106,18 +106,41 @@ Phases, in order, none of them caught:
      a profile of one pipelined s1 run, which raises unless every
      ``bconnectivity_span`` launch ran on another CUDA stream than the
      evaluate kernels and prints the device time the two streams overlap.
+  9. daemon path — ``repro_torch.daemon`` on ``cuda``: an
+     ``OptimizerDaemon`` in this process on a unix socket, driven by a
+     ``DaemonClient``: v1, s1 (``auto``, synchronous) bit for bit phase
+     8's synchronous s1 with equal launches; v2, s1 pipelined: all hits,
+     no flight, no launch, no build since serving started; v3, s2
+     (``dpsub``) bit for bit phase 8's s2 with equal launches; v4, a new
+     stream (``mixed_stream(32, seed=2, sizes=12..16)`` plus
+     ``musicbrainz_query(20, seed=13)``) with ``deadline_s`` a quarter of
+     v1's wall: degraded results stop short, cost between the exact run's
+     and GOO's, are not cached, and the reply's overrun is printed; launch
+     counters read around exactly v1-v4.  v5, the fake deadline clock of
+     ``tests/test_faults.py`` on the card (stream (c)'s flights at every
+     level, synchronous and pipelined, and d1 at k 4, 8, 12) against the
+     port's cpu run in worker processes; v6, ``python -m
+     repro_torch.daemon`` as its own process with ``REPRO_FAULTS``: a
+     crashed worker answered retryably, a chunk fault mid-flight answered
+     with a structured error, then s1 bit for bit under the policy table,
+     and a SIGTERM drain (exit 0) to a cache file that serves all of s1 as
+     hits.
 On every path the evaluates make one launch a chunk: ``ChunkCalls``
 counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
 per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
+import itertools
 import json
 import multiprocessing
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 from math import comb
@@ -129,13 +152,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.core import batch, dpccp, engine, service  # noqa: E402
+from repro_torch.core import batch, dpccp, engine, faults, service  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
-from repro_torch.core.config import MAX_FLIGHT  # noqa: E402
+from repro_torch.core.config import MAX_FLIGHT, OptimizerConfig  # noqa: E402
 from repro_torch.core.joingraph import JoinGraph, graph_to_wire  # noqa: E402
 from repro_torch.core.plan import Plan, cost_plan, validate_plan  # noqa: E402
 from repro_torch.core.plancache import PlanCache, canonical_signature  # noqa: E402
+from repro_torch.core.policy import PolicyTable  # noqa: E402
+from repro_torch.daemon import (DaemonClient, DaemonError,  # noqa: E402
+                                OptimizerDaemon)
 from repro_torch.heuristics import goo, idp, uniondp  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
@@ -1624,7 +1650,8 @@ def run_service(label, graphs, algorithm, pipeline, cache=None):
 def sync_and_pipelined(label, graphs, algorithm, repeats: int):
     """One synchronous and ``repeats`` pipelined runs: each pipelined run
     bit for bit the synchronous one with equal launches, one solo query.
-    Returns the synchronous results and the walls."""
+    Returns the synchronous results, the walls and the launches of one
+    run."""
     sync, rep, wall, launches = run_service(label, graphs, algorithm, False)
     walls = {"synchronous": wall, "pipelined": []}
     if rep.solo != 1:
@@ -1639,7 +1666,7 @@ def sync_and_pipelined(label, graphs, algorithm, repeats: int):
     log(f"service {label}: {repeats} pipelined runs equal the synchronous "
         f"run bit for bit (cost ==, plan shapes, counters, algorithm) with "
         f"equal launches; walls " + json.dumps(walls))
-    return sync, walls
+    return sync, walls, launches
 
 
 def kernel_of(name: str):
@@ -1730,7 +1757,8 @@ def profile_streams(label, fn):
 
 def phase_service(stream_a, res_a, d1_res, heur_out):
     """The service path on cuda, launch counters read around exactly it
-    (s1-s4), then a profile of one pipelined s1 run.  Returns the
+    (s1-s4), then a profile of one pipelined s1 run.  Returns the launches
+    and, for phase 9, s1's and s2's graphs, synchronous results and
     launches."""
     t_start = time.perf_counter()
     s1 = stream_a + [gen.musicbrainz_query(20, seed=11)]
@@ -1742,10 +1770,10 @@ def phase_service(stream_a, res_a, d1_res, heur_out):
     path = str(build.BUILD_DIR / "phase8.plancache")     # gitignored
     ops.reset_launches()
     with ChunkCalls() as chunks:
-        sync1, walls1 = sync_and_pipelined("s1", s1, "auto", 3)
+        sync1, _, launches1 = sync_and_pipelined("s1", s1, "auto", 3)
         same_results("service s1 vs phase 4's stream (a) and phase 5's d1",
                      sync1, list(res_a) + [d1_res])
-        sync_and_pipelined("s2", s2, "dpsub", 1)
+        sync2, _, launches2 = sync_and_pipelined("s2", s2, "dpsub", 1)
 
         cache = PlanCache()
         first, rep, _, _ = run_service("s3 first pass", s3, "auto", True,
@@ -1800,7 +1828,359 @@ def phase_service(stream_a, res_a, d1_res, heur_out):
     res, _ = profile_streams("service s1 pipelined", lambda: service.
                              optimize_stream(s1, "auto", pipeline=True))
     same_results("service s1 profiled run", res, sync1)
-    return svc
+    return svc, {"s1": (s1, sync1, launches1), "s2": (s2, sync2, launches2)}
+
+
+# ---------------------------------------------------------------- phase 9 --
+
+V6_FAULTS = "worker@1:raise;chunk@5:raise"
+WAIT_S = 120.0          # bound of each wait on a daemon (connect, reply)
+
+
+def client_run(label, c, graphs, before, **kw):
+    """One optimize request through DaemonClient ``c``: its wall, the
+    reply's metadata and the launches made in this process since
+    ``before``, printed.  Returns (results, meta, launches)."""
+    t0 = time.perf_counter()
+    res = c.optimize(graphs, timeout=WAIT_S, **kw)
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                if v != before[k]}
+    st = c.stats()
+    pct = st["request_wall_s"]
+    log(f"daemon {label}: {len(graphs)} queries, request wall {wall:.3f} s "
+        f"(reply wall_s {c.last_meta['wall_s']:.3f}); {c.last_meta['flights']} "
+        f"flights, {c.last_meta['solo']} solo, {c.last_meta['cache_hits']} "
+        f"cache hits, {c.last_meta['degraded']} degraded; STATS latency p50 "
+        f"{pct['p50']:.4f} s, p95 {pct['p95']:.4f} s, p99 {pct['p99']:.4f} s; "
+        f"launches " + json.dumps(launches) + "; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    return res, dict(c.last_meta, wall=wall), launches
+
+
+def check_hits(label, graphs, got, want) -> None:
+    """Cache hits: the computed run's plan shapes, each cost == its
+    ``cost_plan`` on the probing graph."""
+    for i, (g, a, b) in enumerate(zip(graphs, got, want)):
+        if plan_shape(a.plan) != plan_shape(b.plan) or \
+                a.cost != cost_plan(a.plan, g).cost:
+            raise AssertionError(f"{label} query {i}: the hit's plan or cost "
+                                 f"differs")
+
+
+def v4_parts():
+    """v4's request: 32 queries of 12-16 relations and one of 20 (solo)."""
+    return gen.mixed_stream(32, seed=2, sizes=(12, 13, 14, 15, 16)) + \
+        [gen.musicbrainz_query(20, seed=13)]
+
+
+def check_degraded(label, graphs, res, exact, goo_costs, cache) -> int:
+    """Every degraded result stops short (``levels_done <
+    levels_total``), costs no less than the exact run's (f32 on the card
+    against the stitch's host ``cost_plan``: relative 1e-5) and no more
+    than GOO's, and is not in the cache; every other result is the exact
+    run's, or a hit (two of v4's queries are canonically v3's) within 1e-5
+    of it.  Returns the count."""
+    n = 0
+    for i, (g, r, e, gc) in enumerate(zip(graphs, res, exact, goo_costs)):
+        validate_plan(r.plan, g)
+        if "degraded" not in r.info:
+            hit = r.algorithm.startswith("cache[")
+            if (r.cost != e.cost and not hit) or rel(r.cost, e.cost) > 1e-5:
+                raise AssertionError(f"{label} query {i}: {r.algorithm} cost "
+                                     f"{r.cost!r} vs {e.cost!r}")
+            continue
+        n += 1
+        d = r.info["degraded"]
+        if not d["levels_done"] < d["levels_total"]:
+            raise AssertionError(f"{label} query {i}: degraded {d}")
+        if r.cost < e.cost * (1 - 1e-5) or r.cost > gc:
+            raise AssertionError(f"{label} query {i}: degraded cost "
+                                 f"{r.cost!r} outside [exact {e.cost!r}, GOO "
+                                 f"{gc!r}]")
+        if cache.get(g) is not None:
+            raise AssertionError(f"{label} query {i}: a degraded plan was "
+                                 f"cached")
+    return n
+
+
+def v5_flights():
+    """Stream (c)'s flights as ``optimize_many`` forms them under auto:
+    (lane space, member graphs)."""
+    stream_c = [gen.chain(8, 1), gen.cycle(7, 2), gen.star(6, 3),
+                gen.job_like(8, 4)]
+    buckets, _ = batch.bucket_pending(stream_c, list(range(4)), "auto")
+    return [(space, [stream_c[q] for q in idxs])
+            for (_b, space, _t), idxs in sorted(buckets.items())]
+
+
+def summary(r):
+    return (r.info.get("degraded"), r.levels, r.algorithm,
+            r.counters.evaluated, r.counters.ccp, r.cost, plan_shape(r.plan))
+
+
+def v5_runs(device: str, part) -> list:
+    """v5's runs under the fake clock of ``tests/test_faults.py`` on
+    ``device`` (on cpu in a worker process): ``faults.now`` returns its
+    call count, so ``deadline_s = k - 1.5`` expires at level k.  ``part``
+    "flights": stream (c)'s flights synchronous and pipelined at every k;
+    an int k: d1 solo under ``mpdp``.  Returns [(label, graphs,
+    [summary])]."""
+    if device == "cpu":
+        torch.set_num_threads(1)
+    real, clock = faults.now, itertools.count()
+    faults.now = lambda: next(clock)
+    out = []
+    try:
+        if part == "flights":
+            for space, members in v5_flights():
+                for pipeline in (False, True):
+                    for k in range(2, max(g.n for g in members) + 1):
+                        rs = batch.BatchEngine(
+                            members, algorithm=space, pipeline=pipeline,
+                            deadline_s=k - 1.5, device=device).run()
+                        mode = "pipelined" if pipeline else "synchronous"
+                        out.append((f"{space} {mode} k={k}", members,
+                                    [summary(r) for r in rs]))
+        else:
+            g = gen.musicbrainz_query(20, seed=11)
+            r = engine.optimize(g, config=OptimizerConfig(
+                algorithm="mpdp", deadline_s=part - 1.5), device=device)
+            out.append((f"d1 k={part}", [g], [summary(r)]))
+    finally:
+        faults.now = real
+    return out
+
+
+def hold_v5(card, cpu) -> tuple:
+    """The card's fake-clock runs against the cpu's: degraded dicts,
+    levels, algorithm and Counters equal, costs within 1e-5, plans equal or
+    a shown tie.  Returns (runs, degraded results, ties, largest ulps)."""
+    runs = degraded = ties = worst = 0
+    for (label, graphs, a), (label2, _, b) in zip(card, cpu):
+        if label != label2 or len(a) != len(b):
+            raise AssertionError(f"v5: {label} vs {label2}")
+        runs += 1
+        for q, (g, x, y) in enumerate(zip(graphs, a, b)):
+            if x[:5] != y[:5] or rel(x[5], y[5]) > 1e-5:
+                raise AssertionError(f"v5 {label} query {q}: {x[:6]} on cuda "
+                                     f"vs {y[:6]} on cpu")
+            worst = max(worst, ulps(x[5], y[5]))
+            degraded += x[0] is not None
+            if x[6] != y[6]:
+                ca = cost_plan(plan_of(x[6]), g).cost
+                cb = cost_plan(plan_of(y[6]), g).cost
+                if rel(ca, cb) > 1e-5:
+                    raise AssertionError(f"v5 {label} query {q}: plans "
+                                         f"differ ({ca!r} vs {cb!r})")
+                ties += 1
+                log(f"daemon v5 {label} query {q}: rounding tie, plans cost "
+                    f"{ca!r} (cuda) and {cb!r} (cpu)")
+    return runs, degraded, ties, worst
+
+
+def run_daemon_process(tmp, s1, sync1) -> None:
+    """v6: ``python -m repro_torch.daemon`` as its own process on the card
+    with ``REPRO_FAULTS`` (a worker crash on the first job, a chunk fault
+    at the fifth device dispatch), a cache file and a policy file.  The
+    first s1 request gets a retryable error; s1 resent pipelined meets the
+    chunk fault mid-flight and gets a structured error; s1 resent once
+    more (``retries=2``) is bit for bit phase 8's synchronous s1, with the
+    policy on; SIGTERM drains the daemon (exit 0) to a cache file that
+    serves all of s1 as hits and a policy file that loads."""
+    sock = os.path.join(tmp, "v6.sock")
+    cache_file = os.path.join(tmp, "v6.plancache")
+    policy_file = os.path.join(tmp, "v6.policy")
+    env = dict(os.environ, REPRO_FAULTS=V6_FAULTS,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "v6.log"), "w+") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.daemon", "--socket", sock,
+             "--cache-file", cache_file, "--policy-file", policy_file],
+            env=env, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            with DaemonClient(socket_path=sock, connect_timeout=WAIT_S,
+                              tenant="v6") as c:
+                log(f"daemon v6: process up in {time.perf_counter() - t0:.1f}"
+                    f" s (REPRO_FAULTS={V6_FAULTS})")
+                try:
+                    c.optimize(s1, timeout=WAIT_S)
+                except DaemonError as e:
+                    if not getattr(e, "retryable", False):
+                        raise
+                    log(f"daemon v6: first request: retryable error: {e}")
+                else:
+                    raise AssertionError("v6: the worker fault did not fire")
+                cfg = OptimizerConfig(pipeline=True)
+                try:
+                    c.optimize(s1, config=cfg, timeout=WAIT_S)
+                except DaemonError as e:
+                    if getattr(e, "retryable", False) or \
+                            "InjectedFault" not in str(e):
+                        raise
+                    log(f"daemon v6: pipelined request: structured error: {e}")
+                else:
+                    raise AssertionError("v6: the chunk fault did not fire")
+                res, meta, _ = client_run("v6 resent, pipelined, policy on", c,
+                                          s1, dict(ops.LAUNCHES), config=cfg,
+                                          retries=2)
+                same_results("daemon v6 vs phase 8's synchronous s1", res,
+                             sync1)
+                st = c.stats()
+                if (st["worker_restarts"], st["errors"]) != (1, 1) or \
+                        st["exec"]["compiles"] != 0:
+                    raise AssertionError(f"v6: STATS {st}")
+                log(f"daemon v6: results == phase 8's synchronous s1 (cost "
+                    f"==, plan shapes, counters, algorithm); launches in the "
+                    f"daemon's own process, not counted here; STATS "
+                    f"worker_restarts 1, errors 1, exec " + json.dumps(
+                        st["exec"]) + ", policy " + json.dumps(st["policy"]))
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=WAIT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=WAIT_S)
+            out.seek(0)
+            tail = out.read()[-2000:]
+        if rc != 0:
+            raise AssertionError(f"v6: the daemon exited {rc}:\n{tail}")
+    loaded = PlanCache.load(cache_file)
+    table = PolicyTable.load(policy_file)
+    if loaded.stale_load or table.stale_load or len(table) == 0:
+        raise AssertionError(f"v6: cache file stale {loaded.stale_load}, "
+                             f"policy file stale {table.stale_load}")
+    before = dict(ops.LAUNCHES)
+    hits, rep = service.optimize_stream(s1, "auto", cache=loaded)
+    if rep.cache_hits != len(s1) or rep.flights or ops.LAUNCHES != before:
+        raise AssertionError(f"v6: the drained cache served {rep.cache_hits} "
+                             f"of {len(s1)} as hits")
+    check_hits("daemon v6 drained cache", s1, hits, sync1)
+    log(f"daemon v6: SIGTERM drained it (exit 0) in {meta['wall']:.3f} s of "
+        f"request wall; its cache file serves all {len(s1)} s1 queries as "
+        f"hits (no flight, no launch); its policy file loads "
+        f"({len(table)} entries); {time.perf_counter() - t0:.1f} s in all")
+
+
+def phase_daemon(svc_out):
+    """The daemon path on cuda: v1-v4 through an ``OptimizerDaemon`` in
+    this process (launch counters read around exactly them), v5 the fake
+    clock on the card against the cpu (worker processes meanwhile), v6 the
+    daemon as its own process.  Returns v1-v4's launches."""
+    t_start = time.perf_counter()
+    v4 = v4_parts()
+    (exact4, _), wall4 = timed(lambda: service.optimize_stream(v4, "auto"))
+    goo4 = [goo.solve(g).cost for g in v4]
+    log(f"daemon v4: exact run without a deadline in {wall4:.3f} s (in "
+        f"process, not counted)")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="d", dir=build.BUILD_DIR)   # gitignored
+    try:
+        dmn = daemon_parts(tmp, svc_out, (v4, exact4, goo4))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"daemon path (phase 9): {time.perf_counter() - t_start:.1f} s")
+    return dmn
+
+
+def daemon_parts(tmp, svc_out, v4_ref):
+    """Phase 9's parts v1-v6 in the directory ``tmp``, against phase 8's
+    s1 and s2 (``svc_out``) and v4's exact and GOO costs (``v4_ref``);
+    returns v1-v4's launches."""
+    t_start = time.perf_counter()
+    s1, sync1, launches1 = svc_out["s1"]
+    s2, sync2, launches2 = svc_out["s2"]
+    v4, exact4, goo4 = v4_ref
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=4, mp_context=spawn) as pool:
+        futs = [pool.submit(v5_runs, "cpu", part)
+                for part in ("flights", 4, 8, 12)]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        d = OptimizerDaemon(socket_path=os.path.join(tmp, "v.sock"),
+                            device="cuda")
+        d.start()
+        try:
+            with ChunkCalls() as chunks, \
+                    DaemonClient(socket_path=d.address,
+                                 connect_timeout=WAIT_S, tenant="smoke") as c:
+                exec0 = c.stats()["exec"]
+                res, meta, got = client_run("v1 s1 auto synchronous", c, s1,
+                                            dict(ops.LAUNCHES))
+                same_results("daemon v1 vs phase 8's synchronous s1", res,
+                             sync1)
+                if got != launches1 or meta["cache_hits"]:
+                    raise AssertionError(f"v1: launches {got} vs phase 8's "
+                                         f"{launches1}")
+                log(f"daemon v1: == phase 8's synchronous s1 (cost ==, plan "
+                    f"shapes, counters, algorithm) with equal launches")
+                wall1 = meta["wall"]
+
+                res2, meta, got = client_run(
+                    "v2 s1 pipelined", c, s1, dict(ops.LAUNCHES),
+                    config=OptimizerConfig(pipeline=True))
+                exec2 = c.stats()["exec"]
+                if meta["cache_hits"] != len(s1) or meta["flights"] or got \
+                        or exec2["compiles"] != exec0["compiles"]:
+                    raise AssertionError(f"v2: {meta}, launches {got}, exec "
+                                         f"{exec0} -> {exec2}")
+                check_hits("daemon v2", s1, res2, sync1)
+                log(f"daemon v2: {len(s1)} cache hits, no flight, no launch, "
+                    f"exec " + json.dumps(exec2) + " (compiles unchanged "
+                    "since serving started)")
+
+                res, meta, got = client_run(
+                    "v3 s2 dpsub", c, s2, dict(ops.LAUNCHES),
+                    config=OptimizerConfig(algorithm="dpsub"))
+                same_results("daemon v3 vs phase 8's synchronous s2", res,
+                             sync2)
+                if got != launches2 or meta["cache_hits"]:
+                    raise AssertionError(f"v3: launches {got} vs phase 8's "
+                                         f"{launches2}")
+                log("daemon v3: == phase 8's synchronous s2 with equal "
+                    "launches")
+
+                dl = wall1 / 4
+                res, meta, got = client_run(
+                    f"v4 deadline_s {dl:.3f}", c, v4, dict(ops.LAUNCHES),
+                    config=OptimizerConfig(deadline_s=dl))
+                n = check_degraded("daemon v4", v4, res, exact4, goo4,
+                                   d.cache)
+                if n == 0 or n != meta["degraded"]:
+                    raise AssertionError(f"v4: {n} degraded results, reply "
+                                         f"says {meta['degraded']}")
+                log(f"daemon v4: {n} of {len(v4)} results degraded (each "
+                    f"levels_done < levels_total, cost in [exact, GOO], not "
+                    f"cached); reply overrun past deadline_s "
+                    f"{meta['wall_s'] - dl:.3f} s (reply wall_s "
+                    f"{meta['wall_s']:.3f} s), client wall {meta['wall']:.3f}"
+                    f" s")
+            dmn = dict(ops.LAUNCHES)
+        finally:
+            d.drain()
+        if not d._stopped.wait(WAIT_S):
+            raise AssertionError("the in-process daemon did not drain")
+        log("daemon path: launches " + json.dumps(dmn))
+        check_path("daemon", dmn, SERVICE_PATH, chunks.count)
+        log(f"max_memory_allocated (daemon v1-v4): "
+            f"{torch.cuda.max_memory_allocated()} bytes; v1-v4 in "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        card = [run for part in ("flights", 4, 8, 12)
+                for run in v5_runs("cuda", part)]
+        cpu = [run for f in futs for run in f.result()]
+    runs, degraded, ties, worst = hold_v5(card, cpu)
+    log(f"daemon v5: fake clock on the card: {runs} runs (stream (c)'s "
+        f"flights synchronous and pipelined at every k, d1 at k 4, 8, 12), "
+        f"{degraded} degraded results; levels_done, Counters and degraded "
+        f"dicts == the cpu run's, costs within 1e-5 (max {worst} ulp), "
+        f"{ties} rounding ties")
+
+    run_daemon_process(tmp, s1, sync1)
+    return dmn
 
 
 def main() -> int:
@@ -1876,14 +2256,19 @@ def main() -> int:
     log(f"phase heuristics path done at {time.perf_counter() - t_start:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    svc = phase_service(streams[0][1], stream_res["a"], solo_res["d1"],
-                        heur_out)
+    svc, svc_out = phase_service(streams[0][1], stream_res["a"],
+                                 solo_res["d1"], heur_out)
+    log(f"phase service path done at {time.perf_counter() - t_start:.1f} s")
+
+    dmn = phase_daemon(svc_out)
+    log(f"phase daemon path done at {time.perf_counter() - t_start:.1f} s")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
-            "launches": batched[k] + solo[k] + typed[k] + heur[k] + svc[k],
+            "launches": (batched[k] + solo[k] + typed[k] + heur[k] + svc[k]
+                         + dmn[k]),
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

@@ -31,6 +31,14 @@ caller's stream; on the CPU the same schedule runs in program order.
 Chunk grids, kernels and merge order are those of the synchronous driver,
 so results are bit-identical.
 
+Both drivers honour a cooperative ``deadline_s``: the clock
+(``faults.now``) is read once when ``run_levels`` starts and once at the
+top of every level; past the deadline the remaining levels are abandoned
+and ``collect`` stitches a best-effort plan for each unfinished query from
+the committed memo levels (``heuristics.idp.stitch_partial_memo``), with
+``info["degraded"]`` saying why.  Each device dispatch (a filter span or
+an evaluate chunk) passes the ``"chunk"`` fault site.
+
 Typed queries (a LEFT, FULL, SEMI or ANTI edge) fly apart from inner ones
 (``bucket_pending`` keys on ``typed``); a typed flight carries the stacked
 ``(bcap, emax)`` conflict arrays, and its chunk bodies cost both operand
@@ -49,8 +57,9 @@ identities (``engine._prune``) and ``searchsorted(side="right")`` is
 ``plancache.PlanCache`` first, batches queries with ``nmax_bucket(n) <=
 16`` and sends the rest (larger queries, ``dpsize``, ``dpccp``,
 ``mpdp_tree`` forced on a cyclic graph) to the solo ``engine.optimize``,
-as the reference does; what the reference serves beyond that raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  The
+as the reference does, under one stream-wide deadline and an optional
+learned ``policy.PolicyTable``; the sharded paths raise
+``NotImplementedError`` naming the ROADMAP item that ports them.  The
 stream-admission steps (``probe_stream``, ``dedup_pending``,
 ``bucket_pending``, ``resolve_deferred``) are shared with
 ``core.service``.
@@ -69,6 +78,8 @@ from . import bitset as bs
 from . import blocks as bl
 from . import cost as cm
 from . import engine as _eng
+from . import faults
+from . import telemetry as _telemetry
 from . import unrank as ur
 from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
@@ -217,7 +228,8 @@ class _Streams:
     level's sets as numpy arrays.  The tensors ``main`` allocated and
     ``side`` reads (the memo, ``all_sets``, the adjacency and edge tables)
     live as long as the engine, and ``main`` joins ``side`` before
-    ``run_levels`` returns."""
+    ``run_levels`` returns or raises, so no side-stream write is pending
+    when the engine's tensors go back to the allocator."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -242,7 +254,27 @@ class _LevelLoop:
     and the reference's pipelined rotation (ref ``batch.py:343-401``),
     over the engine's per-level hooks (``_filter_dispatch`` /
     ``_filter_collect``, ``_register_level``, ``_pairs_level``,
-    ``_eval[_general]_dispatch`` / ``_eval[_general]_finalize``)."""
+    ``_eval[_general]_dispatch`` / ``_eval[_general]_finalize``).
+
+    Both drivers honour the engine's ``deadline_s``: ``faults.now`` is
+    read once when ``run_levels`` starts and once at the top of every
+    level, as in the reference, so a fake clock expires both packages at
+    the same level."""
+
+    def _arm_deadline(self) -> None:
+        self._deadline_at = (None if self.deadline_s is None
+                             else faults.now() + self.deadline_s)
+
+    def _expired(self, i: int, max_n: int) -> bool:
+        """One check per DP level; with ``deadline_s=None`` a single
+        attribute test."""
+        if self._deadline_at is None:
+            return False
+        if faults.now() < self._deadline_at:
+            return False
+        self.degraded = {"reason": "deadline", "deadline_s": self.deadline_s,
+                         "levels_done": i - 1, "levels_total": max_n}
+        return True
 
     def run_levels(self) -> None:
         """Run the level-synchronous DP; the memo stays on the device
@@ -251,10 +283,13 @@ class _LevelLoop:
         t0 = time.perf_counter()
         max_n = max(g.n for g in self.graphs)
         general = self.algorithm == "mpdp_general"
+        self._arm_deadline()
         if self.pipeline:
             self._run_levels_pipelined(max_n, general)
         else:
             for i in range(2, max_n + 1):
+                if self._expired(i, max_n):
+                    break
                 sets = self._filter_collect(self._filter_dispatch(i))
                 self._register_level(i, sets)
                 if general:
@@ -286,35 +321,47 @@ class _LevelLoop:
         slot being written; its ccp flag is masked by the live test in the
         kernel, so its cost is ``INF`` and it cannot win or tie a finite
         segment minimum, and no ``INF`` segment is committed.
+
+        A level that raises (an injected ``chunk`` fault, a failed launch)
+        leaves the loop without its ``join``; the ``finally`` joins, so
+        main's later work, and a later engine that gets this engine's
+        memory back from the allocator, is ordered after every pending
+        side-stream write.  A deadline breaks at the top of a level, after
+        the join.
         """
         st = _Streams(self.device)
-        with st.side_work():
-            sets = self._filter_collect(self._filter_dispatch(2))
-            self._register_level(2, sets)
-            pairs = self._pairs_level(sets) if general else None
-        st.join()
-        for i in range(2, max_n + 1):
-            fpend = None
-            if i < max_n:
-                with st.side_work():
-                    fpend = self._filter_dispatch(i + 1)
-            if general:
-                ctx = self._eval_general_dispatch(i, sets, pairs)
-            else:
-                ctx = self._eval_dispatch(i, sets)
-            nxt = nxt_pairs = None
-            if fpend is not None:
-                with st.side_work():
-                    nxt = self._filter_collect(fpend)
-                    self._register_level(i + 1, nxt)
-                    if general:
-                        nxt_pairs = self._pairs_level(nxt)
-            if general:
-                self._eval_general_finalize(i, sets, ctx)
-            else:
-                self._eval_finalize(i, sets, ctx)
-            st.join()                   # level i+1's evaluate reads its rows
-            sets, pairs = nxt, nxt_pairs
+        try:
+            with st.side_work():
+                sets = self._filter_collect(self._filter_dispatch(2))
+                self._register_level(2, sets)
+                pairs = self._pairs_level(sets) if general else None
+            st.join()
+            for i in range(2, max_n + 1):
+                if self._expired(i, max_n):
+                    break
+                fpend = None
+                if i < max_n:
+                    with st.side_work():
+                        fpend = self._filter_dispatch(i + 1)
+                if general:
+                    ctx = self._eval_general_dispatch(i, sets, pairs)
+                else:
+                    ctx = self._eval_dispatch(i, sets)
+                nxt = nxt_pairs = None
+                if fpend is not None:
+                    with st.side_work():
+                        nxt = self._filter_collect(fpend)
+                        self._register_level(i + 1, nxt)
+                        if general:
+                            nxt_pairs = self._pairs_level(nxt)
+                if general:
+                    self._eval_general_finalize(i, sets, ctx)
+                else:
+                    self._eval_finalize(i, sets, ctx)
+                st.join()               # level i+1's evaluate reads its rows
+                sets, pairs = nxt, nxt_pairs
+        finally:
+            st.join()
 
     def run(self) -> list[OptimizeResult]:
         self.run_levels()
@@ -335,13 +382,15 @@ class BatchEngine(_LevelLoop):
     the pipelined level loop, on a second CUDA stream on the card.
     ``pend_window`` is the number of un-fetched filter spans and evaluate
     chunks a level keeps in flight (default ``PEND_WINDOW``); results are
-    bit-identical for any ``pend_window >= 0``.
+    bit-identical for any ``pend_window >= 0``.  ``deadline_s`` is the
+    cooperative deadline (``None``: no checks).
     """
 
     def __init__(self, graphs: list[JoinGraph], chunk: int = CHUNK,
                  algorithm: str = "dpsub", cyc_cap: int = CYC_CAP_DEFAULT,
                  pipeline: bool | None = None,
-                 pend_window: int | None = None, device=None):
+                 pend_window: int | None = None,
+                 deadline_s: float | None = None, device=None):
         if not graphs:
             raise ValueError("empty batch")
         if algorithm not in ("dpsub", "mpdp_tree", "mpdp_general"):
@@ -361,6 +410,9 @@ class BatchEngine(_LevelLoop):
         self.pipeline = _use_pipeline() if pipeline is None else bool(pipeline)
         self.pend_window = (PEND_WINDOW if pend_window is None
                             else int(pend_window))
+        self.deadline_s = deadline_s
+        self._deadline_at: float | None = None
+        self.degraded: dict | None = None
         self.chunks_dispatched = 0        # filter spans + evaluate chunks
         self._wall = 0.0
         self.B = len(graphs)
@@ -470,7 +522,8 @@ class BatchEngine(_LevelLoop):
         <= 16, bcap <= 32: at most 32 x C(16, 8) ranks), draining all but
         ``pend_window`` of them as newer ones run.  The final fetch is
         ``_filter_collect``'s, so the pipelined driver can run it under the
-        previous level's evaluate."""
+        previous level's evaluate.  Each launch passes the ``"chunk"``
+        fault site."""
         t0 = time.perf_counter()
         totals = np.array([comb(g.n, i) if g.n >= i else 0
                            for g in self.graphs], np.int64)
@@ -485,6 +538,7 @@ class BatchEngine(_LevelLoop):
             ctx["pend"].append(ops.bconnectivity_span(
                 i, self._dev(fpad), min(SPAN, total - lane0), self.binom,
                 self.adj_b, self.nmax))
+            faults.fire("chunk")
             self.chunks_dispatched += 1
             self._filter_drain(ctx, self.pend_window)
         self._time("filter", t0)
@@ -598,6 +652,7 @@ class BatchEngine(_LevelLoop):
                     self.adj_b, self.memo_cost, self.memo_rows, **self._tkw,
                     **statics)
             ctx["pend"].append((seg0, out))
+            faults.fire("chunk")
             self.chunks_dispatched += 1
             self._eval_drain(ctx, self.pend_window)
         self._time("evaluate", t0)
@@ -681,6 +736,7 @@ class BatchEngine(_LevelLoop):
                 self.memo_cost, self.memo_rows, nmax=self.nmax,
                 chunk=self.chunk, bcap=self.bcap, **self._tkw)
             ctx["pend"].append((p0, npair, out))
+            faults.fire("chunk")
             self.chunks_dispatched += 1
             self._eval_general_drain(ctx, self.pend_window)
         self._time("evaluate", t0)
@@ -723,7 +779,10 @@ class BatchEngine(_LevelLoop):
     def collect(self) -> list[OptimizeResult]:
         """Fetch the memo and extract one ``OptimizeResult`` per query (the
         streaming service defers this to after the next flight's
-        ``run_levels``)."""
+        ``run_levels``).  After a deadline, a query whose full set was not
+        reached gets the stitched plan of its committed memo levels: the
+        entries of later levels hold ``INF`` costs (their rows may be
+        registered), which the stitch skips."""
         t0 = time.perf_counter()
         cost_all = self.memo_cost.cpu().numpy()
         left_all = self.memo_left.cpu().numpy()
@@ -732,12 +791,23 @@ class BatchEngine(_LevelLoop):
         for q, g in enumerate(self.graphs):
             base = q << self.nmax
             cost = float(cost_all[base + g.full_set])
-            if not np.isfinite(cost):
+            lefts = left_all[base: base + self.size]
+            if np.isfinite(cost):
+                r = OptimizeResult(plan=extract_plan(g.full_set, lefts, g),
+                                   cost=cost, counters=self.counters[q],
+                                   algorithm=f"batch_{self.algorithm}",
+                                   wall_s=wall / self.B, levels=g.n)
+            elif self.degraded is not None:
+                from ..heuristics.idp import stitch_partial_memo
+                p, c, dinfo = stitch_partial_memo(
+                    g, cost_all[base: base + self.size], lefts)
+                r = OptimizeResult(plan=p, cost=c, counters=self.counters[q],
+                                   algorithm=f"batch_{self.algorithm}",
+                                   wall_s=wall / self.B,
+                                   levels=self.degraded["levels_done"])
+                r.info["degraded"] = {**self.degraded, **dinfo}
+            else:
                 raise RuntimeError(f"no plan found for batch query {q}")
-            p = extract_plan(g.full_set, left_all[base: base + self.size], g)
-            r = OptimizeResult(plan=p, cost=cost, counters=self.counters[q],
-                               algorithm=f"batch_{self.algorithm}",
-                               wall_s=wall / self.B, levels=g.n)
             r.timings = dict(self.timings)
             out.append(r)
         return out
@@ -836,18 +906,29 @@ def resolve_deferred(graphs, results, cache, deferred, dup_rep) -> None:
         results[qi] = hit
 
 
+def policy_dispatch(policy, nmax: int, space: str, chunk: int):
+    """A flight's (lane space, chunk, engine kwargs) under a learned
+    ``policy.PolicyTable`` (or the static ones without it); shared by
+    ``optimize_many`` and the streaming service."""
+    run_space, run_chunk, kw = space, chunk, {}
+    if policy is not None:
+        dec = policy.choose(nmax, space, default_chunk=chunk,
+                            default_pend=PEND_WINDOW)
+        if dec.space is not None:
+            run_space = dec.space
+        if dec.chunk is not None:
+            run_chunk = dec.chunk
+        if dec.pend_window is not None:
+            kw["pend_window"] = dec.pend_window
+    return run_space, run_chunk, kw
+
+
 def refuse_unported(cfg: OptimizerConfig, where: str) -> None:
-    """Raise ``NotImplementedError`` for the options the port does not
-    serve yet, naming the ROADMAP item that ports each."""
+    """Raise ``NotImplementedError`` for the sharded paths, which the port
+    does not serve yet, naming the ROADMAP item that ports them."""
     if cfg.devices is not None or cfg.mesh is not None:
         raise _not_ported(f"{where}(devices=/mesh=)",
                           "batch and lattice sharding")
-    if cfg.policy is not None:
-        raise _not_ported(f"{where}(policy=...)",
-                          "telemetry, policy, deadlines and faults")
-    if cfg.deadline_s is not None:
-        raise _not_ported(f"{where}(deadline_s=...)",
-                          "telemetry, policy, deadlines and faults")
 
 
 def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
@@ -871,8 +952,17 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
     * ``pipeline``: run the batched engines pipelined (level i+1's host
       work under level i's evaluate, on a second CUDA stream on the card;
       bit-identical results).  ``None`` defers to ``REPRO_PIPELINE``.
-    * ``devices``/``mesh``, ``policy`` and ``deadline_s`` raise
-      ``NotImplementedError`` naming their ROADMAP item.
+    * ``policy``: an optional ``policy.PolicyTable``.  Under
+      ``auto``/``mpdp`` it may swap a bucket's lane space for a
+      learned-faster one and shrink the chunk and the drain window; every
+      flight's telemetry is fed back.  Costs and plans are the same
+      either way.
+    * ``config.deadline_s``: one deadline for the whole stream; each
+      engine and solo run gets the time still left, and a query whose
+      levels it cuts comes back degraded (``info["degraded"]``), never
+      cached.
+    * ``devices``/``mesh`` raise ``NotImplementedError`` naming their
+      ROADMAP item.
 
     Results come back in input order.
     """
@@ -881,26 +971,55 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
                          cache=cache, max_flight=max_flight, devices=devices,
                          mesh=mesh, pipeline=pipeline, policy=policy)
     refuse_unported(cfg, "optimize_many")
-    algorithm, cache = cfg.algorithm, cfg.cache
+    algorithm, chunk, cache = cfg.algorithm, cfg.chunk, cfg.cache
+    # learned policies only steer the auto dispatcher: an explicit lane
+    # space is a user decision the policy must not override
+    adaptive = cfg.policy if algorithm in ("auto", "mpdp") else None
     dev = resolve_device(device)
     results: list[OptimizeResult | None] = [None] * len(graphs)
     pending = probe_stream(graphs, results, cache, algorithm)
     pending, deferred, dup_rep = dedup_pending(graphs, pending, cache)
     buckets, solo = bucket_pending(graphs, pending, algorithm)
-    for (_b, space, _typed), idxs in sorted(buckets.items()):
+
+    # one absolute deadline for the whole stream: each engine gets the time
+    # still remaining, so sequential buckets share the budget
+    deadline_at = (None if cfg.deadline_s is None
+                   else faults.now() + cfg.deadline_s)
+
+    def _left() -> float | None:
+        if deadline_at is None:
+            return None
+        return max(deadline_at - faults.now(), 1e-9)
+
+    for (b, space, _typed), idxs in sorted(buckets.items()):
         for s0 in range(0, len(idxs), cfg.max_flight):
             group = idxs[s0: s0 + cfg.max_flight]
-            rs = BatchEngine([graphs[qi] for qi in group], chunk=cfg.chunk,
-                             algorithm=space, pipeline=cfg.pipeline,
-                             device=dev).run()
+            run_space, run_chunk, run_kw = policy_dispatch(adaptive, b, space,
+                                                           chunk)
+            t_fl = time.perf_counter()
+            eng = BatchEngine([graphs[qi] for qi in group], chunk=run_chunk,
+                              algorithm=run_space, pipeline=cfg.pipeline,
+                              deadline_s=_left(), device=dev, **run_kw)
+            rs = eng.run()
+            if adaptive is not None:
+                adaptive.observe(b, space, run_space, _telemetry.capture(
+                    eng, rs, nmax=b, queries=len(group),
+                    wall_s=time.perf_counter() - t_fl))
             for qi, r in zip(group, rs):
                 results[qi] = r
-                if cache is not None:
+                # degraded plans are best-effort, never cached: a later
+                # undegraded run must not hit a deadline-truncated plan
+                if cache is not None and "degraded" not in r.info:
                     cache.put(graphs[qi], r)
     for qi in solo:
-        r = _eng.optimize(graphs[qi], algorithm, chunk=cfg.chunk, device=dev)
+        if cfg.deadline_s is None:
+            r = _eng.optimize(graphs[qi], algorithm, chunk=chunk, device=dev)
+        else:
+            r = _eng.optimize(graphs[qi], config=OptimizerConfig(
+                algorithm=algorithm, chunk=chunk, cyc_cap=cfg.cyc_cap,
+                enum=cfg.enum, deadline_s=_left()), device=dev)
         results[qi] = r
-        if cache is not None:
+        if cache is not None and "degraded" not in r.info:
             cache.put(graphs[qi], r)
     resolve_deferred(graphs, results, cache, deferred, dup_rep)
     return results

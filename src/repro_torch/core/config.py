@@ -1,11 +1,13 @@
 """Optimizer configuration: one frozen object for every entry point.
 
 The port's own copy of ``repro.core.config``: the same constants, the same
-``OptimizerConfig`` fields and validation, and the same legacy-kwarg shim
-(``resolve_config``/``alias_kwarg``), so a config built for the reference
-means the same thing here.  Fields the port does not serve yet
-(``devices``/``mesh``, ``policy``, ``deadline_s``) are accepted here and
-refused by the entry point that would consume them.
+``OptimizerConfig`` fields and validation, the same legacy-kwarg shim
+(``resolve_config``/``alias_kwarg``) and the same wire form
+(``to_wire``/``from_wire``, the daemon's request config), so a config built
+for the reference means the same thing here and a wire dict from either
+package builds an equal config in the other.  ``devices``/``mesh`` and the
+lattice are accepted here and refused by the entry point that would
+consume them (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -34,6 +36,13 @@ class _Unset:
 
 UNSET = _Unset()
 
+# Fields that cross the daemon wire.  ``cache``/``mesh``/``policy`` are
+# process-local and excluded: a config carrying any of them cannot
+# serialize (``to_wire`` raises); the daemon owns its own shared cache and
+# policy table.
+_WIRE_FIELDS = ("algorithm", "chunk", "devices", "pipeline", "max_flight",
+                "cyc_cap", "enum", "lattice", "deadline_s")
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -44,8 +53,24 @@ class OptimizerConfig:
     * ``chunk`` — lanes per evaluate/filter chunk.
     * ``max_flight`` — sub-batch (flight) size cap.
     * ``cyc_cap`` — max cyclomatic number for the MPDP-general block pass.
-    * ``cache``, ``devices``, ``mesh``, ``pipeline``, ``enum``, ``lattice``,
-      ``policy``, ``deadline_s`` — carried for config compatibility.
+    * ``cache`` — optional ``plancache.PlanCache`` probed before any device
+      work; process-local, never wired.
+    * ``devices`` / ``mesh`` — the sharded paths (not ported; the entry
+      points refuse them); ``mesh`` is process-local, never wired.
+    * ``pipeline`` — pipelined level loops (``None`` defers to the
+      ``REPRO_PIPELINE`` environment flag).
+    * ``enum`` — level enumeration: "unrank" (paper Alg.5) | "expand".
+    * ``lattice`` — the intra-query lattice (not ported; refused).
+    * ``policy`` — optional ``policy.PolicyTable`` consulted by the batched
+      and streaming dispatchers under ``auto``/``mpdp`` and fed each
+      flight's telemetry; ``None`` (the default) is the static dispatch.
+      Process-local, never wired.
+    * ``deadline_s`` — cooperative anytime deadline in seconds, checked at
+      DP-level boundaries; on expiry the remaining levels are abandoned
+      and a best-effort plan is returned (the committed memo levels
+      stitched with a GOO completion, cost <= plain GOO) with
+      ``OptimizeResult.info["degraded"]`` saying why.  ``None`` (the
+      default) disables the checks.
     """
 
     algorithm: str = "auto"
@@ -75,6 +100,37 @@ class OptimizerConfig:
                              "(expected 'unrank' or 'expand')")
         if self.devices is not None and self.mesh is not None:
             raise ValueError("pass devices= or mesh=, not both")
+
+    def replace(self, **changes) -> "OptimizerConfig":
+        return dataclasses.replace(self, **changes)
+
+    # ------------------------------------------------------------- wire ----
+    def to_wire(self) -> dict:
+        """Pure-literal dict of the wire fields (the daemon request form).
+        Raises when ``cache``, ``mesh`` or ``policy`` is set: they are live
+        process-local objects with no wire form."""
+        if self.cache is not None:
+            raise ValueError("OptimizerConfig.cache is process-local and "
+                             "cannot be wired; the daemon owns the shared "
+                             "plan cache")
+        if self.mesh is not None:
+            raise ValueError("OptimizerConfig.mesh is process-local and "
+                             "cannot be wired; pass devices=N instead")
+        if self.policy is not None:
+            raise ValueError("OptimizerConfig.policy is process-local and "
+                             "cannot be wired; the daemon owns the shared "
+                             "policy table")
+        return {f: getattr(self, f) for f in _WIRE_FIELDS}
+
+    @staticmethod
+    def from_wire(d: dict) -> "OptimizerConfig":
+        """Inverse of ``to_wire``; unknown keys raise (a version-skewed
+        client must fail loudly, not silently drop knobs)."""
+        unknown = set(d) - set(_WIRE_FIELDS)
+        if unknown:
+            raise ValueError(
+                f"unknown OptimizerConfig wire fields: {sorted(unknown)}")
+        return OptimizerConfig(**{f: d[f] for f in _WIRE_FIELDS if f in d})
 
 
 def resolve_config(config: OptimizerConfig | None, **legacy) -> OptimizerConfig:

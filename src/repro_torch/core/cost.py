@@ -156,6 +156,39 @@ def np_rows_for_sets(sets_np: np.ndarray, g) -> np.ndarray:
     return out
 
 
+def np_corrected_graph(g, rows_l2: dict):
+    """``g`` with per-relation log2 cardinalities replaced by learned values.
+
+    ``rows_l2`` maps relation name -> corrected log2 rows (typically
+    ``policy.PolicyTable.drift_rows()``).  Relations not named keep their
+    stats; with no matching name ``g`` itself is returned (the same
+    object, so callers can test identity).  Edge selectivities are left
+    alone.  A typed graph is rebuilt from its raw stats, so its effective
+    selectivities fold the new cards exactly as the reference's do.
+    """
+    import dataclasses
+    new = np.array(g.log2_card, np.float32, copy=True)
+    changed = False
+    for v, name in enumerate(g.names):
+        if name in rows_l2:
+            val = np.float32(max(float(rows_l2[name]), 0.0))
+            if val != new[v]:
+                new[v] = val
+                changed = True
+    if not changed:
+        return g
+    if g.typed:
+        fans = None
+        if g.fan_l2 is not None and len(g.fan_l2):
+            fans = [float(f) if np.isfinite(f) else None for f in g.fan_l2]
+        raw = g.log2_sel_raw if g.log2_sel_raw is not None else g.log2_sel
+        return type(g).from_log2(
+            n=g.n, edges=list(g.edges), cards_l2=new,
+            sels_l2=[float(np.float32(raw[i])) for i in range(g.m)],
+            kinds=g.kinds, ldirs=g.ldirs, fans_l2=fans, names=g.names)
+    return dataclasses.replace(g, log2_card=new)
+
+
 def np_rows_log2(s: int, g) -> np.float32:
     """log2 rows of the join over relation set ``s`` (host; JoinGraph g)."""
     out = np.float32(0.0)

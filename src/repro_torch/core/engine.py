@@ -36,10 +36,15 @@ operand orientations of each lane under the conflict mask
 (``_typed_lane_cost``); an inner-only graph passes none and runs exactly
 as before.  DPSIZE refuses typed graphs, as the reference does.
 
+``ExactEngine`` honours a cooperative ``deadline_s`` as the reference's
+does: ``faults.now`` is read once when a run starts and once at the top of
+every level; past the deadline ``result`` stitches a best-effort plan from
+the committed memo levels (``heuristics.idp.stitch_partial_memo``).
+
 ``optimize`` is the solo entry point; ``optimize_many`` forwards to
 ``batch.optimize_many``.  Both run on ``cuda`` unless the caller passes
-``device``; what the reference serves beyond this port raises
-``NotImplementedError`` naming its ROADMAP item.
+``device``; the sharded paths and the lattice raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from . import blocks as bl
 from . import conflicts as cf
 from . import cost as cm
 from . import dpccp as _dpccp
+from . import faults
 from . import unrank as ur
 from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
@@ -323,14 +329,17 @@ def _eval_dpsize_chunk(all_sets, off_a: int, off_b: int, count_b: int,
 
 class ExactEngine:
     """Runs one exact algorithm (dpsub / mpdp / dpsize) over a JoinGraph on
-    ``device`` (``cuda`` by default)."""
+    ``device`` (``cuda`` by default), within ``deadline_s`` if given."""
 
     def __init__(self, g: JoinGraph, chunk: int = CHUNK,
                  cyc_cap: int = CYC_CAP_DEFAULT, enum: str = "unrank",
-                 device=None):
+                 deadline_s: float | None = None, device=None):
         if not g.is_connected():
             raise ValueError("query graph must be connected (no cross products)")
         self.g = g
+        self.deadline_s = deadline_s
+        self._deadline_at: float | None = None
+        self.degraded: dict | None = None
         self.enum = enum              # "unrank" (paper Alg.5) | "expand"
         self.device = resolve_device(device)
         self.dg = DeviceGraph.from_graph(g, self.device)
@@ -461,9 +470,31 @@ class ExactEngine:
         self.counters.evaluated += int(ev[0])
         self.counters.ccp += int(cc[0])
 
+    # ---------------------------------------------------------- deadline ---
+    def _arm_deadline(self) -> None:
+        """Start the cooperative deadline clock (one ``faults.now()`` call;
+        nothing without ``deadline_s``)."""
+        self._deadline_at = (None if self.deadline_s is None
+                             else faults.now() + self.deadline_s)
+
+    def _expired(self, i: int) -> bool:
+        """Checked once at the top of every DP level: past the deadline the
+        run abandons levels >= i and ``result`` stitches a best-effort plan
+        from the committed memo levels."""
+        if self._deadline_at is None:
+            return False
+        if faults.now() < self._deadline_at:
+            return False
+        self.degraded = {"reason": "deadline", "deadline_s": self.deadline_s,
+                         "levels_done": i - 1, "levels_total": self.n}
+        return True
+
     # -------------------------------------------------------------- DPSUB --
     def run_dpsub(self) -> None:
+        self._arm_deadline()
         for i in range(2, self.n + 1):
+            if self._expired(i):
+                break
             sets_np = self._level_sets(i)
             if not len(sets_np):
                 continue
@@ -489,7 +520,10 @@ class ExactEngine:
     # ---------------------------------------------------------- MPDP tree --
     def run_mpdp_tree(self) -> None:
         m = self.g.m
+        self._arm_deadline()
         for i in range(2, self.n + 1):
+            if self._expired(i):
+                break
             sets_np = self._level_sets(i)
             if not len(sets_np):
                 continue
@@ -526,7 +560,10 @@ class ExactEngine:
         return ps, pb
 
     def run_mpdp_general(self) -> None:
+        self._arm_deadline()
         for i in range(2, self.n + 1):
+            if self._expired(i):
+                break
             sets_np = self._level_sets(i)
             if not len(sets_np):
                 continue
@@ -573,7 +610,10 @@ class ExactEngine:
             raise ValueError(
                 "dpsize does not support non-inner join edges (use dpsub / "
                 "mpdp / dpccp — the conflict-masked lane spaces)")
+        self._arm_deadline()
         for i in range(2, self.n + 1):
+            if self._expired(i):
+                break
             self._level_sets(i)
             t0 = time.perf_counter()
             s_all, c_all, l_all = [], [], []
@@ -629,12 +669,27 @@ class ExactEngine:
     def result(self, algorithm: str, t0: float) -> OptimizeResult:
         full = self.g.full_set
         cost = float(self.memo_cost[full])
-        if not np.isfinite(cost):
+        if np.isfinite(cost):
+            p = extract_plan(full, self._plan_lefts(full), self.g)
+            return OptimizeResult(plan=p, cost=cost, counters=self.counters,
+                                  algorithm=algorithm,
+                                  wall_s=time.perf_counter() - t0,
+                                  levels=self.n)
+        if self.degraded is None:
             raise RuntimeError("no plan found — disconnected graph?")
-        p = extract_plan(full, self._plan_lefts(full), self.g)
-        return OptimizeResult(plan=p, cost=cost, counters=self.counters,
-                              algorithm=algorithm,
-                              wall_s=time.perf_counter() - t0, levels=self.n)
+        # deadline expired before the full set was memoized: stitch the
+        # committed memo levels with a GOO completion (anytime contract)
+        from ..heuristics.idp import stitch_partial_memo
+        size = 1 << self.n
+        p, c, dinfo = stitch_partial_memo(
+            self.g, self.memo_cost[:size].cpu().numpy(),
+            self.memo_left[:size].cpu().numpy())
+        r = OptimizeResult(plan=p, cost=c, counters=self.counters,
+                           algorithm=algorithm,
+                           wall_s=time.perf_counter() - t0,
+                           levels=self.degraded["levels_done"])
+        r.info["degraded"] = {**self.degraded, **dinfo}
+        return r
 
 
 def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
@@ -650,9 +705,11 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
     mpdp_general, dpsub, dpsize, dpccp}; ``enum`` in {unrank (paper
     Alg.5), expand (frontier growth)}.  Typed graphs run under every
     algorithm but ``dpsize``, which raises ``ValueError`` as the
-    reference's does.  The lattice (``config.lattice``,
-    ``lattice_devices=``, ``lattice_mesh=``) and ``deadline_s`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    reference's does.  ``config.deadline_s`` bounds the run
+    cooperatively: past it the result is a stitched best-effort plan with
+    ``info["degraded"]`` (``dpccp``, on the host, has no deadline).  The
+    lattice (``config.lattice``, ``lattice_devices=``, ``lattice_mesh=``)
+    raises ``NotImplementedError`` naming its ROADMAP item.
     """
     devices = mesh = lattice = UNSET
     if lattice_devices is not UNSET or lattice_mesh is not UNSET:
@@ -668,9 +725,6 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
                          mesh=mesh, lattice=lattice)
     if cfg.lattice:
         raise _not_ported("optimize(lattice=True)", "batch and lattice sharding")
-    if cfg.deadline_s is not None:
-        raise _not_ported("optimize(deadline_s=...)",
-                          "telemetry, policy, deadlines and faults")
     dev = resolve_device(device)
     algorithm = cfg.algorithm
     if algorithm == "dpccp":
@@ -688,7 +742,7 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
     if algo not in runs:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     eng = ExactEngine(g, chunk=cfg.chunk, cyc_cap=cfg.cyc_cap, enum=cfg.enum,
-                      device=dev)
+                      deadline_s=cfg.deadline_s, device=dev)
     getattr(eng, runs[algo])()
     res = eng.result(algo, t0)
     res.timings = dict(eng.timings)

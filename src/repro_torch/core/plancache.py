@@ -28,7 +28,9 @@ cache *miss*, never as a wrong hit.
 Staleness: a persisted file whose format version or quantization epsilon
 differs is wholly invalidated on load, and entries whose recorded
 per-relation cardinalities have drifted are dropped by
-``PlanCache.invalidate_drift``.
+``PlanCache.invalidate_drift``.  ``save`` writes to a temporary file and
+renames it into place; the ``"cache_write"`` fault site (``core.faults``)
+can tear that write, and the torn file loads as a cold cache.
 """
 from __future__ import annotations
 
@@ -284,6 +286,14 @@ class PlanCache:
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             f.write(repr(blob))
+        from . import faults
+        rule = faults.check("cache_write")
+        if rule is not None and rule.action == "corrupt":
+            # injected torn write: truncate the temp file mid-literal so the
+            # next load() self-invalidates (cold boot), never a wrong hit
+            text = repr(blob)
+            with open(tmp, "w") as f:
+                f.write(text[: len(text) // 3])
         os.replace(tmp, path)
 
     @classmethod

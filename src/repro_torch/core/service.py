@@ -30,11 +30,17 @@ query through ``engine.optimize`` after all flights land; deferred
 duplicates resolve last (``resolve_deferred``).  Results are
 bit-identical to the port's ``optimize_many`` over the same stream: the
 probe, dedup, bucket and resolve steps are the same functions, and each
-flight runs the same engine on the same sub-batch.  The mesh, the
+flight runs the same engine on the same sub-batch.
+
+``config.deadline_s`` arms one deadline for the whole stream: each flight
+and solo run gets the time still left (``_left``), a result whose levels
+it cuts comes back degraded (``info["degraded"]``) and is never cached.
+A ``policy.PolicyTable`` (under ``auto``/``mpdp``) chooses each flight's
+lane space, chunk and drain window in ``_spawn`` and learns from its
+telemetry in ``_finalize``; costs and plans do not move.  The mesh, the
 intra-query lattice flights and the redispatch of a failed sharded flight
 raise ``NotImplementedError`` (ROADMAP queue 1, batch and lattice
-sharding), as do ``policy`` and ``deadline_s`` (telemetry, policy,
-deadlines and faults).
+sharding).
 """
 from __future__ import annotations
 
@@ -44,9 +50,11 @@ import time
 import numpy as np
 
 from . import engine as _eng
+from . import faults
 from . import telemetry as _telemetry
-from .batch import (BatchEngine, bucket_pending, dedup_pending, probe_stream,
-                    refuse_unported, resolve_deferred)
+from .batch import (BatchEngine, bucket_pending, dedup_pending,
+                    policy_dispatch, probe_stream, refuse_unported,
+                    resolve_deferred)
 from .config import UNSET, OptimizerConfig, resolve_config
 from .engine import resolve_device
 from .joingraph import JoinGraph
@@ -62,7 +70,10 @@ class FlightReport:
     lattice: bool = False          # always False: the lattice is not ported
     wall_s: float = 0.0            # run_levels dispatch -> finalize done
     finalize_s: float = 0.0        # host-only finalize share
-    telemetry: object | None = None    # telemetry.FlightTelemetry
+    # execution profile captured at finalize (telemetry.FlightTelemetry);
+    # ``space`` above is the admission space, ``telemetry.space`` the lane
+    # space executed (they differ only under a learned policy)
+    telemetry: object | None = None
 
     @property
     def key(self) -> tuple[int, str]:
@@ -115,7 +126,19 @@ class StreamOptimizer:
         self.cache = cfg.cache
         self.pipeline = cfg.pipeline
         self.max_flight = cfg.max_flight
+        # learned policies steer only the auto dispatcher (an explicit lane
+        # space is a user decision); flights record telemetry either way
+        self.policy = (cfg.policy
+                       if cfg.algorithm in ("auto", "mpdp") else None)
         self.device = resolve_device(device)
+        # armed per stream: one expiry shared by every flight and solo run
+        self._deadline_at: float | None = None
+
+    def _left(self) -> float | None:
+        """Remaining stream budget (None when no deadline is armed)."""
+        if self._deadline_at is None:
+            return None
+        return max(self._deadline_at - faults.now(), 1e-9)
 
     # -------------------------------------------------------- admission ----
     def admit(self, graphs: list[JoinGraph], idxs: list[int]
@@ -131,10 +154,15 @@ class StreamOptimizer:
         return flights, solo
 
     def _spawn(self, graphs: list[JoinGraph], fl: FlightReport) -> BatchEngine:
-        """Build the flight's engine and run its level loop."""
-        eng = BatchEngine([graphs[qi] for qi in fl.queries], chunk=self.chunk,
-                          algorithm=fl.space, pipeline=self.pipeline,
-                          device=self.device)
+        """Build the flight's engine and run its level loop, within the
+        stream's remaining budget.  With a policy table the flight runs
+        under its learned lane-space / chunk / drain-window decision
+        (``fl.space`` stays the admission space)."""
+        space, chunk, kw = policy_dispatch(self.policy, fl.nmax, fl.space,
+                                           self.chunk)
+        eng = BatchEngine([graphs[qi] for qi in fl.queries], chunk=chunk,
+                          algorithm=space, pipeline=self.pipeline,
+                          deadline_s=self._left(), device=self.device, **kw)
         eng.run_levels()
         return eng
 
@@ -146,7 +174,9 @@ class StreamOptimizer:
         collected = eng.collect()
         for qi, r in zip(fl.queries, collected):
             results[qi] = r
-            if self.cache is not None:
+            # degraded (deadline-stitched) plans are best-effort, never
+            # cached, so a later unhurried run recomputes the exact plan
+            if self.cache is not None and "degraded" not in r.info:
                 self.cache.put(graphs[qi], r)
         done = time.perf_counter()
         fl.finalize_s = done - t0
@@ -154,6 +184,9 @@ class StreamOptimizer:
         fl.telemetry = _telemetry.capture(
             eng, collected, nmax=fl.nmax, queries=len(fl.queries),
             wall_s=fl.wall_s, finalize_s=fl.finalize_s)
+        if self.policy is not None:
+            self.policy.observe(fl.nmax, fl.space, eng.algorithm,
+                                fl.telemetry)
         for qi in fl.queries:
             report.latency_s[qi] = done - t_stream
         report.flights.append(fl)
@@ -165,6 +198,8 @@ class StreamOptimizer:
         flight and latency report.  Results are bit-identical to
         ``optimize_many`` over the same list."""
         t_stream = time.perf_counter()
+        self._deadline_at = (None if self.config.deadline_s is None
+                             else faults.now() + self.config.deadline_s)
         report = StreamReport(latency_s=[0.0] * len(graphs))
         results: list[OptimizeResult | None] = [None] * len(graphs)
         pending = probe_stream(graphs, results, self.cache, self.algorithm)
@@ -191,11 +226,16 @@ class StreamOptimizer:
             self._finalize(graphs, *prev, t_stream, results, report)
 
         for qi in solo:
-            r = _eng.optimize(graphs[qi], self.algorithm, chunk=self.chunk,
-                              device=self.device)
+            if self.config.deadline_s is None:
+                r = _eng.optimize(graphs[qi], self.algorithm,
+                                  chunk=self.chunk, device=self.device)
+            else:
+                r = _eng.optimize(graphs[qi], config=OptimizerConfig(
+                    algorithm=self.algorithm, chunk=self.chunk,
+                    deadline_s=self._left()), device=self.device)
             results[qi] = r
             report.latency_s[qi] = time.perf_counter() - t_stream
-            if self.cache is not None:
+            if self.cache is not None and "degraded" not in r.info:
                 self.cache.put(graphs[qi], r)
         resolve_deferred(graphs, results, self.cache, deferred, dup_rep)
         for qi in deferred:

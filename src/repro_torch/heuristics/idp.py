@@ -21,9 +21,9 @@ DPSUB's ``sets x 2^i`` blow-up; subproblems past 16 relations take
 ``optimize_many``'s solo route.
 
 The host decisions (``_recost``, ``_costly_disjoint_subtrees``) compare
-the same Python and f32 values in the same order as the reference.  The
-deadline stitch of a partial memo (``stitch_partial_memo``) is not ported
-yet: the port has no deadlines (ROADMAP.md, queue 1).
+the same Python and f32 values in the same order as the reference.
+``stitch_partial_memo`` completes a deadline-abandoned exact DP from its
+committed memo levels, for the engines' degraded results.
 """
 from __future__ import annotations
 
@@ -261,6 +261,59 @@ def run_rounds(ug: UnitGraph, tree: _TNode, k: int, batch, batch_sub,
     return final_unit
 
 
+def stitch_partial_memo(g: JoinGraph, memo_cost, memo_left):
+    """Anytime completion of a deadline-abandoned exact DP (the paper's
+    time-budget contract, composed as IDP2 composes its rounds).
+
+    ``memo_cost``/``memo_left`` are one query's host memo slices with only
+    the first k levels committed.  Every finite composite entry is an
+    exact optimum over its relation set, so: cover the relations greedily
+    with the largest (cheapest first among equal sizes) disjoint solved
+    sets, extract each exact sub-plan, wrap them as temp-table ``Unit``\\ s
+    and let GOO order the remaining joins.  The result is compared with
+    plain GOO from scratch and the cheaper plan wins, so the degraded cost
+    is never worse than GOO's.
+
+    Returns ``(plan, cost, dinfo)``; ``dinfo`` describes the stitch and is
+    merged into ``OptimizeResult.info["degraded"]`` by the engines.
+    """
+    import numpy as np
+
+    from ..core.plan import extract_plan, leaf_plan
+    from . import goo as _goo
+    from .common import Unit
+
+    full = 1 << g.n
+    cost = np.asarray(memo_cost[:full], np.float32)
+    solved = [int(s) for s in np.flatnonzero(np.isfinite(cost))
+              if int(s).bit_count() >= 2]
+    # largest exact islands first; cheaper first among equal sizes
+    solved.sort(key=lambda s: (-s.bit_count(), float(cost[s])))
+    units, covered, stitched = [], 0, 0
+    for s in solved:
+        if s & covered:
+            continue
+        p = extract_plan(s, memo_left, g)
+        rows = float(cm.np_rows_for_sets(np.array([s]), g)[0])
+        units.append(Unit(rel_set=s, rows_log2=rows, plan=p))
+        covered |= s
+        stitched += 1
+    for v in range(g.n):
+        if not (covered >> v) & 1:
+            units.append(Unit(rel_set=1 << v,
+                              rows_log2=float(g.log2_card[v]),
+                              plan=leaf_plan(v, g)))
+    ug = UnitGraph(g, units=units)
+    unit = goo_plan(ug)
+    stitch = cost_plan(unit.plan, g)
+    plain = _goo.solve(g)
+    if plain.cost < stitch.cost:
+        return plain.plan, plain.cost, {"stitched_units": stitched,
+                                        "fallback": "goo"}
+    return stitch, stitch.cost, {"stitched_units": stitched,
+                                 "fallback": "stitch"}
+
+
 def _replace(root: _TNode, target: _TNode, leaf: _TNode) -> _TNode:
     if root is target:
         return leaf
@@ -282,9 +335,10 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
     (``cuda`` unless the caller names another; ``subsolver="lindp"`` runs
     on the host).  ``pipeline`` goes to ``optimize_many``: with ``True``
     every round's flights run the pipelined level loop, with results
-    equal to the synchronous ones.  ``devices``, ``mesh`` and ``policy``
-    go there too, and it refuses them with the ROADMAP item that ports
-    them."""
+    equal to the synchronous ones.  ``policy`` (a ``policy.PolicyTable``)
+    goes there too and learns per-bucket dispatch across the rounds;
+    ``devices`` and ``mesh`` go there and are refused with the ROADMAP
+    item that ports them."""
     t0 = time.perf_counter()
     counters = Counters()
     if g.typed:
@@ -320,7 +374,8 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
         def batch_sub(jgs):
             # "mpdp" routes through the per-bucket topology dispatcher:
             # acyclic subproblems get the sets x m tree lanes, cyclic ones
-            # the block prefix-sum lanes (cheap spaces, identical costs)
+            # the block prefix-sum lanes (cheap spaces, identical costs);
+            # a policy table learns per-bucket dispatch across the rounds
             rs = _e.optimize_many(jgs, algorithm=subsolver, devices=devices,
                                   mesh=mesh, pipeline=pipeline, policy=policy,
                                   device=device)

@@ -200,12 +200,14 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
           device=None) -> OptimizeResult:
     """UnionDP over ``g`` with partitions of at most ``k`` units; every
     round's subproblems run as one ``optimize_many`` call on ``device``
-    (``cuda`` unless the caller names another).  ``policy`` raises
-    ``NotImplementedError`` (ROADMAP.md, queue 1: telemetry, policy,
-    deadlines and faults).  ``pipeline`` goes to ``optimize_many``: with
-    ``True`` every round's flights run the pipelined level loop, with
-    results equal to the synchronous ones.  ``devices`` and ``mesh`` go
-    there too, and it refuses them the same way."""
+    (``cuda`` unless the caller names another).  ``policy`` (a
+    ``policy.PolicyTable``) sets ``reopt_rounds`` to one past the EMA of
+    the passes that improved earlier plans, learns from this run's, and
+    goes to ``optimize_many`` to learn per-bucket dispatch.  ``pipeline``
+    goes to ``optimize_many``: with ``True`` every round's flights run the
+    pipelined level loop, with results equal to the synchronous ones.
+    ``devices`` and ``mesh`` go there too, and are refused with the
+    ROADMAP item that ports them."""
     t0 = time.perf_counter()
     counters = Counters()
     if g.typed:
@@ -229,14 +231,17 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
                               info={"partitions": [], "round_costs": [p.cost]},
                               wall_s=time.perf_counter() - t0)
     if policy is not None:
-        raise _e._not_ported("uniondp.solve(policy=...)",
-                          "telemetry, policy, deadlines and faults")
+        # learned re-optimization budget: one past the EMA of passes that
+        # improved the plan before (cold table -> the static default)
+        reopt_rounds = policy.reopt_rounds_for(reopt_rounds)
 
     def batch_solve(jgs):
         """Disjoint subproblems -> one batched device pass ("mpdp" lands in
-        the per-bucket tree/general lane spaces, not DPSUB)."""
+        the per-bucket tree/general lane spaces, not DPSUB; ``policy``
+        learns per-bucket dispatch across the rounds)."""
         rs = _e.optimize_many(jgs, algorithm=subsolver, devices=devices,
-                              mesh=mesh, pipeline=pipeline, device=device)
+                              mesh=mesh, pipeline=pipeline, policy=policy,
+                              device=device)
         for r in rs:
             counters.evaluated += r.counters.evaluated
             counters.ccp += r.counters.ccp
@@ -274,6 +279,9 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
         p, info["round_costs"] = _reoptimize(g, p, k, batch_solve,
                                              reopt_batch, reopt_rounds)
         algo += "+reopt"
+        if policy is not None:
+            # accepted passes = improvements beyond the initial cost
+            policy.observe_reopt(len(info["round_costs"]) - 1)
     else:
         info["round_costs"] = [p.cost]
     # opt-in serving guard, OFF by default: the cost-aware partitioner plus

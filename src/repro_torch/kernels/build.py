@@ -5,7 +5,10 @@ with a plain C interface and loaded with ``ctypes``.  The build happens at
 first use, from the checkout's own sources, into ``build/repro_torch/`` at
 the repository root; the library's file name carries a hash of the source
 and flags, so an edited source is rebuilt.  A missing ``nvcc`` or a failed
-build raises.
+build raises.  ``library()`` is safe to call from several threads (the
+daemon's): one lock covers the check, the build and the load.
+``totals()`` counts what this process built and loaded, in the shape of
+the reference's executable-cache totals, for the daemon's STATS.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -44,7 +48,9 @@ _SIGNATURES = {
 }
 
 _LIB: ctypes.CDLL | None = None
+_LOCK = threading.Lock()
 BUILD_INFO: dict = {}     # {"seconds", "path", "log", "cached"} of the load
+_COUNTS = {"loads": 0, "builds": 0}     # this process's, under _LOCK
 
 
 def _nvcc() -> str:
@@ -61,9 +67,16 @@ def _nvcc() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
-    global _LIB
     if _LIB is not None:
         return _LIB
+    with _LOCK:
+        return _LIB if _LIB is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    """Build (unless a library of this source and these flags exists) and
+    load; the caller holds ``_LOCK``."""
+    global _LIB
     t0 = time.perf_counter()
     digest = hashlib.sha256(SRC.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -78,6 +91,7 @@ def library() -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SRC}:\n{log}")
         os.replace(tmp, out)
+        _COUNTS["builds"] += 1
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -87,5 +101,16 @@ def library() -> ctypes.CDLL:
     lib.rt_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(out),
                       log=log, cached=cached)
+    _COUNTS["loads"] += 1
     _LIB = lib
     return lib
+
+
+def totals() -> dict:
+    """``{"keys", "compiles", "retraces"}`` for this process: the CUDA
+    libraries loaded, the ``nvcc`` builds run, and 0 (torch does not
+    trace).  The keys are those of the reference's executable-cache
+    totals, so a client of either package reads the daemon's STATS."""
+    with _LOCK:
+        return {"keys": _COUNTS["loads"], "compiles": _COUNTS["builds"],
+                "retraces": 0}

@@ -12,8 +12,8 @@
   ``mpdp_tree`` on a cyclic graph, n > 16) go to the solo engine and give
   the reference's results, or its error; a typed query (non-inner edges)
   runs batched and gives the reference's results;
-* ``cache=`` and ``pipeline=True`` give the reference's results; every
-  option the reference serves outside the ported slices raises
+* ``cache=``, ``pipeline=True``, ``policy=`` and ``config.deadline_s``
+  give the reference's results; the sharded options raise
   ``NotImplementedError``, and no card without ``device="cpu"`` raises.
 """
 import math
@@ -238,16 +238,15 @@ G6 = port(G6_REF)
 EXCLUDED = {
     "devices": dict(devices=2),
     "mesh": dict(mesh=object()),
-    "policy": dict(policy=object()),
-    "deadline": dict(config=tbatch.OptimizerConfig(deadline_s=1.0)),
     "dpsize": dict(algorithm="dpsize"),
     "dpccp": dict(algorithm="dpccp"),
     "tree_on_cycle": dict(algorithm="mpdp_tree"),
 }
 # outside the batched lane spaces, but served by the solo engine
 SOLO_ROUTED = ("dpsize", "dpccp", "tree_on_cycle")
-# outside the first slices, served since the service slice
-SERVED = ("cache", "pipeline")
+# outside the first slices: cache and pipeline served since the service
+# slice, policy and deadline since the deadlines-and-faults slice
+SERVED = ("cache", "pipeline", "policy", "deadline")
 
 
 def assert_solo_route_matches_reference(graphs, **kw):
@@ -263,14 +262,24 @@ def assert_solo_route_matches_reference(graphs, **kw):
 
 
 def assert_served_matches_reference(case):
-    """``cache=`` (a duplicate in the stream, then a second pass of hits)
-    and ``pipeline=True`` give the reference's results and cache counts."""
+    """``cache=`` (a duplicate in the stream, then a second pass of hits),
+    ``pipeline=True``, a fresh ``policy=`` table and a generous
+    ``deadline_s`` give the reference's results (and cache counts)."""
     graphs = [G6_REF, rgen.chain(5, 2), G6_REF]
     ported = [port(g) for g in graphs]
-    if case == "pipeline":
-        ref = rbatch.optimize_many(graphs, pipeline=True)
-        got = tbatch.optimize_many(ported, pipeline=True, device="cpu")
+    if case in ("pipeline", "policy", "deadline"):
+        from repro.core.policy import PolicyTable as RPolicyTable
+        from repro_torch.core.policy import PolicyTable as TPolicyTable
+        kw = {"pipeline": (dict(pipeline=True), dict(pipeline=True)),
+              "policy": (dict(policy=RPolicyTable()),
+                         dict(policy=TPolicyTable())),
+              "deadline": (dict(config=rbatch.OptimizerConfig(
+                  deadline_s=3600.0)), dict(config=tbatch.OptimizerConfig(
+                      deadline_s=3600.0)))}[case]
+        ref = rbatch.optimize_many(graphs, **kw[0])
+        got = tbatch.optimize_many(ported, device="cpu", **kw[1])
         assert_same_results(graphs, ref, got)
+        assert not any("degraded" in r.info for r in got)
         return
     rc, tc = RPlanCache(), TPlanCache()
     for _ in range(2):
@@ -284,9 +293,10 @@ def assert_served_matches_reference(case):
 @pytest.mark.parametrize("case", [*SERVED, *EXCLUDED])
 def test_outside_slice_raises(case):
     """Options outside the batched slice: the ones the solo engine serves
-    (``dpsize``, ``dpccp``, ``mpdp_tree`` on a cycle) and the plan cache
-    and pipelined driver equal the reference, the rest raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    (``dpsize``, ``dpccp``, ``mpdp_tree`` on a cycle), the plan cache, the
+    pipelined driver, the policy and the deadline equal the reference, the
+    sharded ones raise ``NotImplementedError`` naming their ROADMAP
+    item."""
     if case in SERVED:
         assert_served_matches_reference(case)
         return

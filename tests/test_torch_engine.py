@@ -13,8 +13,8 @@ reference, on the CPU.
 * ``optimize_many`` routes the queries no batched lane space serves to the
   solo engine, as the reference does;
 * what the port does not serve yet raises ``NotImplementedError`` naming
-  its ROADMAP item (a typed graph, once refused, now equals the
-  reference), and no card without ``device="cpu"`` raises.
+  its ROADMAP item (a typed graph and a deadline, once refused, now equal
+  the reference), and no card without ``device="cpu"`` raises.
 """
 import pytest
 import torch
@@ -116,7 +116,8 @@ def test_optimize_many_mixes_batched_and_solo():
 
 # --------------------------------------------------------- outside the slice --
 
-G6 = port(rgen.cycle(6, 1))
+G6_REF = rgen.cycle(6, 1)
+G6 = port(G6_REF)
 OUTSIDE = {
     "deadline": (G6, dict(config=OptimizerConfig(deadline_s=1.0))),
     "lattice": (G6, dict(config=OptimizerConfig(lattice=True, devices=2))),
@@ -125,10 +126,24 @@ OUTSIDE = {
 
 
 @pytest.mark.parametrize("case", list(OUTSIDE))
-def test_outside_slice_raises(case):
+def test_outside_slice_raises(case, monkeypatch):
     g, kw = OUTSIDE[case]
     if case == "typed":                  # ported: equals the reference
         assert check_same(g)[1].algorithm == "mpdp_tree"
+        return
+    if case == "deadline":               # ported: equals the reference
+        import itertools
+        from repro.core import faults as rfaults
+        from repro.core.config import OptimizerConfig as RConfig
+        from repro_torch.core import faults as tfaults
+        for mod in (rfaults, tfaults):   # the clock ticks once a call, so
+            clock = itertools.count()    # deadline_s=1.0 expires at level 2
+            monkeypatch.setattr(mod, "now", lambda c=clock: next(c))
+        ref = reng.optimize(G6_REF, config=RConfig(deadline_s=1.0))
+        got = teng.optimize(g, device="cpu", **kw)
+        assert got.info["degraded"] == ref.info["degraded"]
+        assert got.info["degraded"]["levels_done"] == 1
+        assert_same_results([G6_REF], [ref], [got])
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.optimize(g, device="cpu", **kw)

@@ -16,10 +16,12 @@ JAX reference's (``repro.heuristics``), on the CPU.
   final plan shapes, costs (host ``cost_plan`` in both), ``Counters``,
   ``algorithm`` strings and the UnionDP explain payload are equal;
 * typed graphs go through ``solve_typed`` the same way;
-* ``pipeline=True`` runs equal the synchronous runs round by round;
-  ``policy=``, ``devices=`` and ``mesh=`` raise ``NotImplementedError``
-  naming their ROADMAP item, and without a card a call that names no
-  ``device`` raises.
+* ``pipeline=True`` runs equal the synchronous runs round by round, and
+  so do runs under a learning ``policy=`` table (equal subproblems and
+  costs, join trees up to mirrored equal-cost operands);
+  ``devices=`` and ``mesh=`` raise ``NotImplementedError`` naming their
+  ROADMAP item, and without a card a call that names no ``device``
+  raises.
 """
 import math
 
@@ -331,11 +333,12 @@ def test_typed_through_solve_typed(name, g, monkeypatch):
 
 G = port(rgen.snowflake(20, 1))
 REFUSED = {
-    "policy": (dict(policy=object()), "telemetry, policy, deadlines and faults"),
     "devices": (dict(devices=2), "batch and lattice sharding"),
     "mesh": (dict(mesh=object()), "batch and lattice sharding"),
 }
-SERVED = ("pipeline",)       # refused until the service slice
+# refused until the service slice (pipeline) and the deadlines-and-faults
+# slice (policy)
+SERVED = ("pipeline", "policy")
 
 
 def sub_solver_calls(monkeypatch, solve, **kw):
@@ -361,9 +364,23 @@ def sub_solver_calls(monkeypatch, solve, **kw):
 @pytest.mark.parametrize("option", [*REFUSED, *SERVED])
 def test_unported_options_raise(solver, option, monkeypatch):
     """``pipeline=True`` equals the synchronous run call for call (equal
-    subproblems, plan shapes, costs ``==`` and counters) and at the end;
-    the options still outside the port raise, naming their item."""
+    subproblems, plan shapes, costs ``==`` and counters) and at the end,
+    and so does a run under a policy table that learns chunks, drain
+    windows and the re-optimization budget (a learned lane space may break
+    an equal-cost tie another way, which sends later rounds apart;
+    ``tests/test_torch_policy.py`` holds those single-shot); the options
+    still outside the port raise, naming their item."""
     solve = {"idp": idp.solve, "uniondp": uniondp.solve}[solver]
+    if option == "policy":
+        from repro_torch.core.policy import PolicyTable
+        plain_calls, plain = sub_solver_calls(monkeypatch, solve)
+        table = PolicyTable(learn_space=False)
+        pol_calls, pol = sub_solver_calls(monkeypatch, solve, policy=table)
+        assert pol_calls == plain_calls
+        assert (shape(pol.plan), pol.cost, pol.algorithm, pol.info) == \
+            (shape(plain.plan), plain.cost, plain.algorithm, plain.info)
+        assert table.stats.observations > 0
+        return
     if option in SERVED:
         sync_calls, sync = sub_solver_calls(monkeypatch, solve, pipeline=False)
         pipe_calls, pipe = sub_solver_calls(monkeypatch, solve, pipeline=True)

@@ -24,9 +24,13 @@ def test_module_list_covers_the_port():
                   ("common", "goo", "idp", "ikkbz", "geqo", "lindp", "uniondp")}
     assert heuristics <= set(MODULES), heuristics - set(MODULES)
     service = {f"repro_torch.core.{m}" for m in
-               ("telemetry", "plancache", "service")}
+               ("telemetry", "plancache", "service", "faults", "policy")}
     assert service <= set(MODULES), service - set(MODULES)
-    assert len(MODULES) >= 29
+    daemon = {"repro_torch.daemon"} | {f"repro_torch.daemon.{m}" for m in
+                                       ("protocol", "client", "server",
+                                        "__main__")}
+    assert daemon <= set(MODULES), daemon - set(MODULES)
+    assert len(MODULES) >= 36
 
 
 def test_import_leaves_jax_and_reference_unloaded():

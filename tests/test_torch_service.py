@@ -121,7 +121,9 @@ def test_optimize_stream_matches_optimize_many_and_reference():
     """A cached pipelined stream with a duplicate and a solo query: the
     port's results equal its ``optimize_many`` bit for bit and the
     reference's stream; the reports agree; each flight's telemetry equals
-    the reference's but for dispatch counts and times."""
+    the reference's but for dispatch counts, times and ``retraces``: the
+    port traces nothing (0), and the reference's count includes the XLA
+    traces that earlier tests made of the same keys in this process."""
     graphs = mixed_stream() + tree_stream() + [rgen.chain(17, 3)]
     graphs.insert(3, graphs[0])
     ported = [port(g) for g in graphs]
@@ -145,7 +147,8 @@ def test_optimize_stream_matches_optimize_many_and_reference():
         assert (tf.nmax, tf.space, tf.queries) == (rf.nmax, rf.space, rf.queries)
         assert 0 < tf.finalize_s <= tf.wall_s
         t, r = tf.telemetry.to_dict(), rf.telemetry.to_dict()
-        for k in ("chunks", "occupancy", "wall_s", "finalize_s"):
+        assert t["retraces"] == 0
+        for k in ("chunks", "occupancy", "wall_s", "finalize_s", "retraces"):
             t.pop(k), r.pop(k)
         assert np.isclose(t.pop("result_cost"), r.pop("result_cost"),
                           rtol=1e-5, atol=0)
@@ -169,14 +172,25 @@ def test_service_cache_hits_skip_flights():
 
 
 def test_unported_service_options_raise():
+    """The sharded options raise, naming their item; ``policy=`` and
+    ``deadline_s`` (refused until the deadlines-and-faults slice) serve a
+    stream equal to the plain one (a generous deadline degrades
+    nothing)."""
     cases = [(dict(devices=2), "batch and lattice sharding"),
-             (dict(mesh=object()), "batch and lattice sharding"),
-             (dict(policy=object()), "telemetry, policy, deadlines and faults"),
-             (dict(config=tbatch.OptimizerConfig(deadline_s=1.0)),
-              "telemetry, policy, deadlines and faults")]
+             (dict(mesh=object()), "batch and lattice sharding")]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
             tservice.StreamOptimizer(device="cpu", **kw)
+    from repro_torch.core.policy import PolicyTable
+    graphs = [port(g) for g in mixed_stream()[:4]]
+    plain, _ = tservice.optimize_stream(graphs, device="cpu")
+    for kw in (dict(policy=PolicyTable()),
+               dict(config=tbatch.OptimizerConfig(deadline_s=3600.0))):
+        got, _ = tservice.StreamOptimizer(device="cpu", **kw) \
+            .optimize_stream(graphs)
+        assert [(r.cost, shape(r.plan)) for r in got] == \
+            [(r.cost, shape(r.plan)) for r in plain]
+        assert not any("degraded" in r.info for r in got)
 
 
 # ============================================= random flight compositions ==
