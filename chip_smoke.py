@@ -125,12 +125,33 @@ Phases, in order, none of them caught:
      with a structured error, then s1 bit for bit under the policy table,
      and a SIGTERM drain (exit 0) to a cache file that serves all of s1 as
      hits.
+ 10. sharded path — batch sharding and the lattice on logical shards of
+     the one card (``shard.batch_mesh([cuda:0] * N)``; they run one after
+     another): x1, streams (a)-(c) with ``devices=1``, bit for bit phase
+     4's with its launches per kernel; x2, (a) and (b) on 4 shards, x3,
+     (c) on 3 (inert pads), and (b), (c) pipelined on 4, each bit for bit
+     phase 4's, ``bconnectivity_span`` launches predicted per flight,
+     level and shard and the evaluate launches per shard and chunk from
+     x1's lanes per query and level; l1-l4, d1 through
+     ``engine.optimize(lattice_devices=1)`` and on 4 shards (also
+     pipelined), d2, d3 (``dpsub``, nmax 18) and t20 on 4, each equal to
+     its solo run (cost ``==``, plan shape, ``Counters``) with one
+     ``min_left_commit`` a level, equal memo replicas and launches as
+     predicted from its lane totals, d1 also against the port's cpu
+     lattice on 2 shards in a worker process; x4, s1 through the service
+     on 4 shards (d1 a lattice flight) equal to phase 8's; x5, h4 with
+     ``devices=1`` (its 18- and 20-relation subproblems on the lattice)
+     round by round equal to phase 7's; x6, an ``OptimizerDaemon(
+     devices=1)`` serving s1 equal to phase 8's, and a request pinning
+     ``devices=2`` answered with the structured error naming 1 card.  No
+     result may carry ``redispatched`` and no sharded flight may fail.
 On every path the evaluates make one launch a chunk: ``ChunkCalls``
 counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
 per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import itertools
 import json
 import multiprocessing
@@ -142,6 +163,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 from math import comb
 
@@ -153,12 +175,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch.core import batch, dpccp, engine, faults, service  # noqa: E402
+from repro_torch.core import lattice, shard  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.config import MAX_FLIGHT, OptimizerConfig  # noqa: E402
 from repro_torch.core.joingraph import JoinGraph, graph_to_wire  # noqa: E402
 from repro_torch.core.plan import Plan, cost_plan, validate_plan  # noqa: E402
 from repro_torch.core.plancache import PlanCache, canonical_signature  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.distributed.sharding import partition_lanes  # noqa: E402
 from repro_torch.core.policy import PolicyTable  # noqa: E402
 from repro_torch.daemon import (DaemonClient, DaemonError,  # noqa: E402
                                 OptimizerDaemon)
@@ -1010,6 +1035,9 @@ def check_bspan(label, graphs, algorithm, before) -> None:
                              f"{want} levels and flights")
 
 
+STREAM_LAUNCHES = {}        # phase 4's launches per stream, for phase 10
+
+
 def run_stream(label, graphs, algorithm, n_cpu):
     """One stream on cuda: timed, validated, held against DPccp and the
     port's CPU run of its first ``n_cpu`` queries."""
@@ -1019,9 +1047,10 @@ def run_stream(label, graphs, algorithm, n_cpu):
     res = batch.optimize_many(graphs, algorithm)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    STREAM_LAUNCHES[label] = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
     log(f"stream {label}: {len(graphs)} queries ({algorithm}) in {wall:.3f} s "
         f"= {len(graphs) / wall:.2f} queries/s on cuda; launches "
-        + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()}))
+        + json.dumps(STREAM_LAUNCHES[label]))
     check_bspan(f"stream {label}", graphs, algorithm, before)
     t1 = time.perf_counter()
     for g, r in zip(graphs, res):
@@ -1054,15 +1083,18 @@ def run_stream(label, graphs, algorithm, n_cpu):
 
 class ChunkCalls:
     """Counts, while it is entered, the calls on card tensors of the chunk
-    bodies that launch ``bgeneral_eval_decode`` (both MPDP-general ones),
-    ``btree_eval_decode`` (both MPDP:Tree ones) and ``bccp_eval_decode``
-    (the batched DPSUB one); the CPU runs that the checks make are not
-    counted."""
+    bodies that launch ``bgeneral_eval_decode`` (the MPDP-general ones),
+    ``btree_eval_decode`` (the MPDP:Tree ones) and ``bccp_eval_decode``
+    (the batched DPSUB one), as the batched, lattice and solo engines
+    call them; the CPU runs that the checks make are not counted."""
     BODIES = {"bgeneral_eval_decode": ((batch, "_beval_general_chunk"),
+                                       (lattice, "_beval_general_chunk"),
                                        (engine, "_eval_general_chunk")),
               "btree_eval_decode": ((batch, "_beval_tree_chunk"),
+                                    (lattice, "_beval_tree_chunk"),
                                     (engine, "_eval_tree_chunk")),
-              "bccp_eval_decode": ((batch, "_beval_dpsub_chunk"),)}
+              "bccp_eval_decode": ((batch, "_beval_dpsub_chunk"),
+                                   (lattice, "_beval_dpsub_chunk"))}
 
     def __init__(self):
         self.count = {k: 0 for k in self.BODIES}
@@ -1267,7 +1299,7 @@ def timed(fn):
 def phase_typed():
     """The typed path on cuda, launch counters read around exactly it;
     the typed DPccp oracle runs in worker processes meanwhile.  Returns the
-    launches."""
+    launches and t20's result."""
     stream, solo = typed_parts()
     t_start = time.perf_counter()
     spawn = multiprocessing.get_context("spawn")
@@ -1340,7 +1372,7 @@ def phase_typed():
         hold(f"typed solo {label}", g, res[label], oracle_cost=cost)
         log(f"typed solo {label}: plan valid, cost within 1e-4 of typed DPccp")
     log(f"typed checks on the host: {time.perf_counter() - t1:.1f} s")
-    return typed
+    return typed, res[solo[0][0]]
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -1461,9 +1493,18 @@ def hold_against_cpu(label, r, calls, cpu) -> str:
             f"plan shapes, equal plan, cost == and counters)")
 
 
-def run_heuristic(label, mod, g, opts):
+def lattice_spans(n: int, shards: int) -> int:
+    """``bconnectivity_span`` launches of a lattice run of an n-relation
+    query on ``shards`` shards: per level one a shard with ranks."""
+    return sum(-(-int(x) // engine.SPAN) for i in range(2, n + 1)
+               for x in np.diff(partition_lanes(comb(n, i), shards)))
+
+
+def run_heuristic(label, mod, g, opts, shards=None):
     """One heuristic part on cuda: timed, validated, its sub-solver calls,
-    flights and launches checked and printed.  Returns (result, calls)."""
+    flights and launches checked and printed; with a mesh of ``shards``
+    shards in ``opts`` the subproblems past a batched flight run on the
+    lattice instead of solo.  Returns (result, calls)."""
     before = dict(ops.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1480,10 +1521,18 @@ def run_heuristic(label, mod, g, opts):
     for c in calls:
         for k, v in c[4].items():
             stages[k] = stages.get(k, 0.0) + v
+    latt = []
+    if shards is not None:              # the mesh's lattice takes these
+        latt = [x for (_, solo), (_, algo, _, _, _) in zip(runs, calls)
+                for x in solo if x.n <= lattice.NMAX_LATTICE
+                and batch._lane_space(x, algo) is not None]
+        ids = {id(x) for x in latt}
+        runs = [(f, [x for x in solo if id(x) not in ids]) for f, solo in runs]
     log(f"heuristic {label}: n={g.n} m={g.m} {r.algorithm} in {wall:.3f} s on "
         f"cuda; {len(calls)} optimize_many calls, "
-        f"{sum(len(f) for f, _ in runs)} batched flights and "
-        f"{sum(len(s) for _, s in runs)} solo runs, "
+        f"{sum(len(f) for f, _ in runs)} batched flights, "
+        f"{sum(len(s) for _, s in runs)} solo runs and {len(latt)} lattice "
+        f"runs, "
         f"{sum(len(c[0]) for c in calls)} subproblems (n "
         f"{min(x.n for c in calls for x in c[0])}-"
         f"{max(x.n for c in calls for x in c[0])}); optimize_many "
@@ -1491,7 +1540,8 @@ def run_heuristic(label, mod, g, opts):
         f"stage seconds " + json.dumps({k: round(v, 4) for k, v in
                                         sorted(stages.items())})
         + "; launches " + json.dumps(launches))
-    want = sum(bspan_launches(gs, algo) for gs, algo, _, _, _ in calls)
+    want = sum(bspan_launches(gs, algo) for gs, algo, _, _, _ in calls) + \
+        sum(lattice_spans(x.n, shards) for x in latt)
     got = launches.get("bconnectivity_span", 0)
     if got != want:
         raise AssertionError(f"{label}: {got} bconnectivity_span launches for "
@@ -2183,6 +2233,481 @@ def daemon_parts(tmp, svc_out, v4_ref):
     return dmn
 
 
+# --------------------------------------------------------------- phase 10 --
+
+SHARDS = 4                      # logical shards of the one card
+SHARDED_PATH = BATCHED_FORMS    # sharded flights and the lattice
+EVAL_OF = {"dpsub": "bccp_eval_decode", "mpdp_tree": "btree_eval_decode",
+           "mpdp_general": "bgeneral_eval_decode"}
+
+
+def card_mesh(n: int):
+    """A mesh of ``n`` logical shards of the one card."""
+    return shard.batch_mesh([DEV] * n)
+
+
+class LaneSpy:
+    """Records, while it is entered, each (query, level)'s evaluate lanes
+    as the batched engine builds them: from the offsets of
+    ``_eval_begin`` (DPSUB, tree) and the pair tables of
+    ``_eval_general_begin`` (general)."""
+
+    def __init__(self):
+        self.lanes = {}                 # (id(graph), level) -> lanes
+
+    def __enter__(self):
+        E = batch.BatchEngine
+        self.real = (E._eval_begin, E._eval_general_begin)
+        seg, gen_ = self.real
+
+        def begin(eng, i, sets_by_q):
+            ctx = seg(eng, i, sets_by_q)
+            if ctx is not None:
+                for q, g in enumerate(eng.graphs):
+                    self.lanes[id(g), i] = int(ctx["eoff"][q + 1]
+                                               - ctx["eoff"][q])
+            return ctx
+
+        def gbegin(eng, sets_by_q, pairs):
+            ctx = gen_(eng, sets_by_q, pairs)
+            if ctx is not None:
+                ps, pb, pq, _ = pairs
+                i = int(bs.np_popcount(ps[:1])[0])
+                sz = (np.int64(1) << bs.np_popcount(pb).astype(np.int64))
+                per = np.zeros(eng.B, np.int64)
+                np.add.at(per, pq, sz)
+                for q, g in enumerate(eng.graphs):
+                    self.lanes[id(g), i] = int(per[q])
+            return ctx
+
+        E._eval_begin, E._eval_general_begin = begin, gbegin
+        return self
+
+    def __exit__(self, *exc):
+        batch.BatchEngine._eval_begin, batch.BatchEngine._eval_general_begin \
+            = self.real
+
+
+def pad_lanes() -> dict:
+    """Level-2 lanes of the 2-relation pad query in each lane space (a
+    cpu run)."""
+    out = {}
+    for space in EVAL_OF:
+        pad = shard._pad_graph()
+        with LaneSpy() as spy:
+            batch.BatchEngine([pad], algorithm=space, device="cpu").run()
+        out[space] = spy.lanes[id(pad), 2]
+    return out
+
+
+def sharded_prediction(graphs, algorithm, D, lanes, pads) -> dict:
+    """Launches ``optimize_many(devices=D)`` makes on ``graphs``: per
+    flight (up to MAX_FLIGHT x D queries of a bucket, dealt round-robin
+    and padded with 2-relation queries), level and shard, one
+    ``bconnectivity_span`` launch per ``SPAN`` ranks and one evaluate
+    launch per ``CHUNK`` lanes; ``lanes`` are the single-shard run's lanes
+    per (query, level), ``pads`` the pad's level-2 lanes."""
+    pending = batch.probe_stream(graphs, [None] * len(graphs), None,
+                                 algorithm)
+    buckets, solo = batch.bucket_pending(graphs, pending, algorithm)
+    want = {k: 0 for k in BATCHED_FORMS}
+    for (_, space, _), idxs in sorted(buckets.items()):
+        step = MAX_FLIGHT * D
+        for s0 in range(0, len(idxs), step):
+            group = [graphs[q] for q in idxs[s0: s0 + step]]
+            padded = group + [None] * ((-len(group)) % D)     # None: a pad
+            for d in range(D):
+                members = padded[d::D]
+                for i in range(2, max(g.n for g in group) + 1):
+                    ranks = sum(comb(2 if g is None else g.n, i)
+                                for g in members)
+                    want["bconnectivity_span"] += -(-ranks // engine.SPAN)
+                    lanes_d = sum((pads[space] if i == 2 else 0) if g is None
+                                  else lanes.get((id(g), i), 0)
+                                  for g in members)
+                    want[EVAL_OF[space]] += -(-lanes_d // L_MAIN)
+    return want
+
+
+def check_launches(label, got: dict, want: dict) -> None:
+    diff = {k: (got.get(k, 0), n) for k, n in want.items()
+            if got.get(k, 0) != n}
+    if diff:
+        raise AssertionError(f"{label}: launches (got, predicted) {diff}")
+
+
+class ShardFailures:
+    """Records, while it is entered, every exception a sharded flight's
+    level loop raises: ``optimize_many`` and the service would run such a
+    flight again on one device and mark it ``redispatched``, which the
+    heuristics' sub-solver calls do not return."""
+
+    def __init__(self):
+        self.errors = []
+
+    def __enter__(self):
+        real = self.real = shard.ShardedBatchEngine.run_levels
+        errors = self.errors
+
+        def run_levels(eng):
+            try:
+                return real(eng)
+            except Exception as e:
+                errors.append(repr(e))
+                raise
+        shard.ShardedBatchEngine.run_levels = run_levels
+        return self
+
+    def __exit__(self, *exc):
+        shard.ShardedBatchEngine.run_levels = self.real
+
+
+def no_redispatch(label, results) -> None:
+    bad = [i for i, r in enumerate(results) if r.info.get("redispatched")]
+    if bad:
+        raise AssertionError(f"{label}: results {bad} were redispatched")
+
+
+def same_modulo_lattice(label, got, want) -> None:
+    """``same_results``, but a query that ran on the lattice here and solo
+    there keeps its algorithm apart from the ``lattice_`` prefix."""
+    fixed = []
+    for a, b in zip(got, want):
+        if a.algorithm == f"lattice_{b.algorithm}":
+            a = dataclasses.replace(a, algorithm=b.algorithm)
+        fixed.append(a)
+    same_results(label, fixed, want)
+
+
+def run_sharded(label, graphs, algorithm, mesh_kw, want_res, lanes, pads):
+    """One stream through ``optimize_many`` on a mesh: bit for bit
+    ``want_res`` (phase 4's run), launches as predicted.  Returns the
+    launches."""
+    D = shard.mesh_size(mesh_kw["mesh"])
+    before = dict(ops.LAUNCHES)
+    res, wall = timed(lambda: batch.optimize_many(graphs, algorithm,
+                                                  **mesh_kw))
+    got = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    no_redispatch(label, res)
+    same_results(f"sharded {label} vs phase 4", res, want_res)
+    check_launches(f"sharded {label}", got,
+                   sharded_prediction(graphs, algorithm, D, lanes, pads))
+    stages = {}
+    for st in {tuple(sorted(r.timings.items())) for r in res}:
+        for k, v in st:
+            stages[k] = round(stages.get(k, 0.0) + v, 4)
+    log(f"sharded {label}: {len(graphs)} queries ({algorithm}) on {D} "
+        f"shard(s) of the card in {wall:.3f} s; == phase 4's run (cost ==, "
+        f"plan shapes, counters, algorithm); launches as predicted "
+        + json.dumps(got) + "; stage seconds " + json.dumps(stages))
+    return got
+
+
+class LatticeSpy:
+    """Records, while it is entered, the lattice engines built (through
+    ``lattice.LatticeShardedEngine``) and the lane totals they partition,
+    in call order (per level: the filter's ranks, then the evaluate's
+    lanes)."""
+
+    def __init__(self):
+        self.engines, self.totals = [], []
+
+    def __enter__(self):
+        real_cls, real_part = lattice.LatticeShardedEngine, lattice.partition_lanes
+        self.real = (real_cls, real_part)
+        spy = self
+
+        class Spied(real_cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                spy.engines.append(self)
+
+        def part(total, parts):
+            spy.totals.append(int(total))
+            return real_part(total, parts)
+
+        lattice.LatticeShardedEngine, lattice.partition_lanes = Spied, part
+        return self
+
+    def __exit__(self, *exc):
+        lattice.LatticeShardedEngine, lattice.partition_lanes = self.real
+
+
+def lattice_prediction(n: int, totals, D: int) -> dict:
+    """Launches of one synchronous lattice run of an n-relation query on D
+    shards: per level one ``bconnectivity_span`` launch per shard with
+    ranks (C(n, i) split by ``partition_lanes``, ``SPAN`` ranks a launch)
+    and one evaluate launch per shard and ``CHUNK`` of its lanes (the
+    level's lane total, ``totals[2k + 1]``, split the same way)."""
+    if len(totals) != 2 * (n - 1) or any(
+            totals[2 * k] != comb(n, k + 2) for k in range(n - 1)):
+        raise AssertionError(f"lattice totals {totals} are not (ranks, lanes)"
+                             f" per level of n = {n}")
+    spans = evals = 0
+    for k in range(n - 1):
+        spans += sum(-(-int(x) // engine.SPAN)
+                     for x in np.diff(partition_lanes(totals[2 * k], D)))
+        evals += sum(-(-int(x) // L_MAIN)
+                     for x in np.diff(partition_lanes(totals[2 * k + 1], D)))
+    return {"bconnectivity_span": spans, "evals": evals}
+
+
+def lattice_cpu_run(n_shards: int):
+    """d1 on the port's cpu lattice over ``n_shards`` logical cpu shards
+    (in a worker process): cost, plan shape, counters."""
+    torch.set_num_threads(4)
+    g = solo_parts()[0][1]
+    r = lattice.optimize_lattice(g, "mpdp", mesh=["cpu"] * n_shards,
+                                 device="cpu")
+    return r.cost, plan_shape(r.plan), (r.counters.evaluated, r.counters.ccp)
+
+
+def run_lattice(label, g, algorithm, D, want, launches=None):
+    """One query through ``engine.optimize`` with the lattice on D logical
+    shards: cost ``==`` and plan shape of ``want`` (its solo run), or a
+    shown tie; ``Counters`` exact; one collective a level; memo replicas
+    equal; launches as predicted, or with ``launches`` (a synchronous
+    run's) the pipelined loop and those launches.  Returns (result,
+    launches, engine)."""
+    if launches is not None:
+        kw = {"config": OptimizerConfig(algorithm=algorithm, lattice=True,
+                                        mesh=card_mesh(D), pipeline=True)}
+    elif D == 1:
+        kw = {"algorithm": algorithm, "lattice_devices": 1}
+    else:
+        kw = {"algorithm": algorithm, "lattice_mesh": card_mesh(D)}
+    before = dict(ops.LAUNCHES)
+    c0 = collectives.STATS.snapshot()
+    with warnings.catch_warnings(), LatticeSpy() as spy:
+        warnings.simplefilter("ignore", DeprecationWarning)
+        r, wall = timed(lambda: engine.optimize(g, **kw))
+    got = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    [eng] = spy.engines
+    if r.algorithm != f"lattice_{eng.algorithm}" or eng.D != D:
+        raise AssertionError(f"lattice {label}: {r.algorithm} on {eng.D}")
+    ncoll = collectives.STATS.snapshot() - c0
+    if eng.collectives != g.n - 1 or ncoll != g.n - 1:
+        raise AssertionError(f"lattice {label}: {eng.collectives} "
+                             f"collectives ({ncoll} counted) for {g.n - 1} "
+                             f"levels")
+    mc, ml = eng.memo_replicas()
+    if not all((mc[d] == mc[0]).all() and (ml[d] == ml[0]).all()
+               for d in range(D)):
+        raise AssertionError(f"lattice {label}: memo replicas differ")
+    if launches is None:
+        pred = lattice_prediction(g.n, spy.totals, D)
+        launches = {"bconnectivity_span": pred["bconnectivity_span"],
+                    EVAL_OF[eng.algorithm]: pred["evals"]}
+    elif not eng.pipeline:
+        raise AssertionError(f"lattice {label}: not pipelined")
+    check_launches(f"lattice {label}", got, launches)
+    note = "plan shape =="
+    if plan_shape(r.plan) != plan_shape(want.plan):
+        ca = cost_plan(r.plan, g).cost
+        cb = cost_plan(plan_of(plan_shape(want.plan)), g).cost
+        if abs(ca - cb) > 1e-5 * abs(cb):
+            raise AssertionError(f"lattice {label}: plan cost {ca} vs {cb}")
+        note = f"a tie broken by rounding ({ca!r} vs {cb!r})"
+    if r.cost != want.cost or (r.counters.evaluated, r.counters.ccp) != \
+            (want.counters.evaluated, want.counters.ccp):
+        raise AssertionError(f"lattice {label}: {r.cost!r} {r.counters} vs "
+                             f"{want.cost!r} {want.counters}")
+    log(f"lattice {label}: n={g.n} {r.algorithm} on {D} shard(s) of the card "
+        f"in {wall:.3f} s; cost == the solo run's, {note}, counters "
+        f"{r.counters} ==; {eng.collectives} collectives (one a level), "
+        f"memo replicas equal; launches as "
+        f"{'the synchronous run' if eng.pipeline else 'predicted'} "
+        + json.dumps(got)
+        + "; stage seconds " + json.dumps({k: round(v, 4) for k, v in
+                                           r.timings.items()}))
+    return r, got, eng
+
+
+def x6_daemon(s1, sync1) -> None:
+    """x6: an ``OptimizerDaemon(devices=1)`` on the card serving s1 (d1 on
+    the lattice), equal to phase 8's; a request pinning ``devices=2`` is
+    answered with the mesh's structured error."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="x", dir=build.BUILD_DIR)   # gitignored
+    try:
+        d = OptimizerDaemon(socket_path=os.path.join(tmp, "x.sock"),
+                            devices=1, device="cuda")
+        d.start()
+        try:
+            with DaemonClient(socket_path=d.address, connect_timeout=WAIT_S,
+                              tenant="x6") as c:
+                res, meta, _ = client_run("x6 s1 devices=1", c, s1,
+                                          dict(ops.LAUNCHES))
+                no_redispatch("x6", res)
+                if meta["lattice"] != 1 or meta["solo"]:
+                    raise AssertionError(f"x6: {meta}")
+                same_modulo_lattice("daemon x6 vs phase 8's s1", res, sync1)
+                try:
+                    c.optimize(s1[:1], timeout=WAIT_S,
+                               config=OptimizerConfig(devices=2))
+                except DaemonError as e:
+                    if "only 1 cuda device" not in str(e):
+                        raise
+                    log(f"daemon x6: a request pinning devices=2 answered "
+                        f"with the structured error: {e}")
+                else:
+                    raise AssertionError("x6: devices=2 served on one card")
+                if not c.ping():
+                    raise AssertionError("x6: the daemon stopped answering")
+            log("daemon x6: s1 with devices=1 == phase 8's synchronous s1 "
+                "(d1 on the lattice)")
+        finally:
+            d.drain()
+        if not d._stopped.wait(WAIT_S):
+            raise AssertionError("the x6 daemon did not drain")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_sharded(res4, solo_res, t20, heur_out, svc_out):
+    """Batch sharding and the lattice on the card (x1-x6, l1-l4), launch
+    counters read around exactly them; d1 on the cpu lattice runs in a
+    worker process meanwhile.  Logical shards of one card run one after
+    another.  Returns the launches."""
+    t_start = time.perf_counter()
+    streams = {"a": (gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)),
+                     "auto"),
+               "b": (stream_b(), "dpsub"),
+               "c": ([gen.chain(8, 1), gen.cycle(7, 2), gen.star(6, 3),
+                      gen.job_like(8, 4)], "auto")}
+    pads = pad_lanes()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=spawn) as pool:
+        cpu_fut = pool.submit(lattice_cpu_run, 2)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with ChunkCalls() as chunks, ShardFailures() as failures:
+            # x1: one shard, bit for bit phase 4 with its launches
+            walls = {}
+            with LaneSpy() as spy:
+                for label, (graphs, algorithm) in streams.items():
+                    before = dict(ops.LAUNCHES)
+                    res, walls[label] = timed(lambda: batch.optimize_many(
+                        graphs, algorithm, devices=1))
+                    got = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+                    no_redispatch(f"x1 {label}", res)
+                    same_results(f"sharded x1 stream ({label}) vs phase 4",
+                                 res, res4[label])
+                    if got != STREAM_LAUNCHES[label]:
+                        raise AssertionError(f"x1 ({label}): launches {got} "
+                                             f"vs phase 4's")
+            log(f"sharded x1: streams (a), (b), (c) with devices=1 == phase "
+                f"4's runs (cost ==, plan shapes, counters, algorithm) with "
+                f"equal launches per kernel; walls (s) " + json.dumps(
+                    {k: round(v, 3) for k, v in walls.items()}))
+            # x2, x3: four and three logical shards
+            run_sharded("x2 stream (a)", *streams["a"],
+                        {"mesh": card_mesh(SHARDS)}, res4["a"], spy.lanes,
+                        pads)
+            run_sharded("x2 stream (b)", *streams["b"],
+                        {"mesh": card_mesh(SHARDS)}, res4["b"], spy.lanes,
+                        pads)
+            run_sharded("x3 stream (c)", *streams["c"],
+                        {"mesh": card_mesh(3)}, res4["c"], spy.lanes, pads)
+            for label in ("b", "c"):      # the pipelined loop, a stream pair
+                run_sharded(f"x2 stream ({label}) pipelined", *streams[label],
+                            {"mesh": card_mesh(SHARDS), "pipeline": True},
+                            res4[label], spy.lanes, pads)
+
+            # l1-l4: the lattice
+            d1g, d2g, d3g = (p[1] for p in solo_parts()[:3])
+            r1, _, _ = run_lattice("l1 d1 x1", d1g, "mpdp", 1, solo_res["d1"])
+            r4, got4, _ = run_lattice(f"l1 d1 x{SHARDS}", d1g, "mpdp",
+                                      SHARDS, solo_res["d1"])
+            run_lattice(f"l1 d1 x{SHARDS} pipelined", d1g, "mpdp", SHARDS,
+                        solo_res["d1"], launches=got4)
+            if (r1.counters.evaluated, r1.counters.ccp) != \
+                    (r4.counters.evaluated, r4.counters.ccp):
+                raise AssertionError("l1: counters differ between 1 and 4 "
+                                     "shards")
+            run_lattice(f"l2 d2 x{SHARDS}", d2g, "mpdp_tree", SHARDS,
+                        solo_res["d2"])
+            run_lattice(f"l3 d3 x{SHARDS}", d3g, "dpsub", SHARDS,
+                        solo_res["d3"])
+            t20g = typed_parts()[1][0][1]
+            run_lattice(f"l4 t20 x{SHARDS}", t20g, "mpdp", SHARDS, t20)
+
+            # x4: s1 through the service on four logical shards
+            s1, sync1, _ = svc_out["s1"]
+            before = dict(ops.LAUNCHES)
+            (res, rep), wall = timed(lambda: service.optimize_stream(
+                s1, "auto", mesh=card_mesh(SHARDS)))
+            latt = [f for f in rep.flights if f.lattice]
+            if rep.lattice != 1 or len(latt) != 1 or \
+                    latt[0].queries != [len(s1) - 1] or rep.solo:
+                raise AssertionError(f"x4: lattice flights {rep.lattice}, "
+                                     f"solo {rep.solo}")
+            no_redispatch("x4", res)
+            same_modulo_lattice("sharded x4 vs phase 8's s1", res, sync1)
+            log(f"sharded x4: s1 through the service on {SHARDS} shards in "
+                f"{wall:.3f} s; {len(rep.flights)} flights (d1 a lattice "
+                f"flight at nmax {latt[0].nmax}), no solo; == phase 8's "
+                f"synchronous s1 (d1 as lattice_{sync1[-1].algorithm}); "
+                f"launches " + json.dumps(
+                    {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                     if v != before[k]}))
+
+            # x5: h4 with devices=1: its 17-20-relation subproblems on the
+            # lattice, round by round phase 7's
+            label, mod, g, opts, _ = heuristic_parts()[4]
+            r7, calls7 = heur_out[4]
+            with LatticeSpy() as lspy:
+                r, calls = run_heuristic(f"x5 {label} devices=1", mod, g,
+                                         dict(opts, devices=1), shards=1)
+            big = sorted(e.g.n for e in lspy.engines)
+            if not big or min(big) <= batch.NMAX_BATCH:
+                raise AssertionError(f"x5: lattice subproblems {big}")
+            ref7 = ([([graph_to_wire(x) for x in gs], shapes)
+                     for gs, _, shapes, _, _ in calls7], plan_shape(r7.plan),
+                    r7.cost, (r7.counters.evaluated, r7.counters.ccp))
+            log(f"sharded x5: {len(big)} subproblems (n {big[0]}-{big[-1]}) "
+                f"on the lattice; " + hold_against_cpu(f"x5 {label}", r,
+                                                       calls, ref7)
+                .replace("the cpu run", "phase 7's run"))
+
+            # x6: a daemon with devices=1 on the card serving s1
+            x6_daemon(s1, sync1)
+        shd = dict(ops.LAUNCHES)
+        if failures.errors:
+            raise AssertionError(f"sharded flights failed and were "
+                                 f"redispatched: {failures.errors}")
+        check_path("sharded", shd, SHARDED_PATH, chunks.count)
+        solo_made = {k: shd[k] for k in SPAN_FORMS if shd[k]}
+        if solo_made:
+            raise AssertionError(f"solo launches on the sharded path: "
+                                 f"{solo_made}")
+        log(f"sharded path: launches " + json.dumps(shd) + "; no solo launch, "
+            f"no sharded flight failed (none redispatched); "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+
+        # l1 against the port's cpu lattice on 2 logical shards
+        cost, shape_, counters = cpu_fut.result()
+        if counters != (r4.counters.evaluated, r4.counters.ccp) or \
+                rel(r4.cost, cost) > 1e-5:
+            raise AssertionError(f"l1: cuda {r4.cost} {r4.counters} vs cpu "
+                                 f"{cost} {counters}")
+        note = "plan shape =="
+        if shape_ != plan_shape(r4.plan):
+            ca = cost_plan(r4.plan, d1g).cost
+            cb = cost_plan(plan_of(shape_), d1g).cost
+            if abs(ca - cb) > 1e-5 * abs(cb):
+                raise AssertionError(f"l1: plan cost {ca} on cuda vs {cb} on "
+                                     f"cpu")
+            note = (f"plan shapes differ: a tie broken by rounding (cost_plan "
+                    f"{ca!r} on cuda, {cb!r} on cpu)")
+        log(f"lattice l1 vs the cpu lattice on 2 shards: counters exact, "
+            f"cost within 1e-5 ({ulps(r4.cost, cost)} ulp), {note}")
+
+    log(f"sharded path (phase 10): {time.perf_counter() - t_start:.1f} s; "
+        f"logical shards of one card run one after another")
+    return shd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2244,7 +2769,7 @@ def main() -> int:
     log(f"phase solo path done at {time.perf_counter() - t_start:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    typed = phase_typed()
+    typed, t20 = phase_typed()
     log(f"max_memory_allocated (typed path): "
         f"{torch.cuda.max_memory_allocated()} bytes")
     log(f"phase typed path done at {time.perf_counter() - t_start:.1f} s")
@@ -2262,13 +2787,16 @@ def main() -> int:
 
     dmn = phase_daemon(svc_out)
     log(f"phase daemon path done at {time.perf_counter() - t_start:.1f} s")
+
+    shd = phase_sharded(stream_res, solo_res, t20, heur_out, svc_out)
+    log(f"phase sharded path done at {time.perf_counter() - t_start:.1f} s")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
             "launches": (batched[k] + solo[k] + typed[k] + heur[k] + svc[k]
-                         + dmn[k]),
+                         + dmn[k] + shd[k]),
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

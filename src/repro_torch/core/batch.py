@@ -58,10 +58,13 @@ identities (``engine._prune``) and ``searchsorted(side="right")`` is
 16`` and sends the rest (larger queries, ``dpsize``, ``dpccp``,
 ``mpdp_tree`` forced on a cyclic graph) to the solo ``engine.optimize``,
 as the reference does, under one stream-wide deadline and an optional
-learned ``policy.PolicyTable``; the sharded paths raise
-``NotImplementedError`` naming the ROADMAP item that ports them.  The
-stream-admission steps (``probe_stream``, ``dedup_pending``,
-``bucket_pending``, ``resolve_deferred``) are shared with
+learned ``policy.PolicyTable``.  With ``devices=`` or ``mesh=`` each
+flight is dealt over the shards of a ``shard.DeviceMesh``
+(``shard.ShardedBatchEngine``), and the queries too big for a batched
+flight run on the intra-query lattice (``lattice.LatticeShardedEngine``)
+instead of the solo engine.  The stream-admission steps
+(``probe_stream``, ``dedup_pending``, ``bucket_pending``,
+``lattice_pending``, ``resolve_deferred``) are shared with
 ``core.service``.
 """
 from __future__ import annotations
@@ -85,7 +88,7 @@ from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .engine import (_CLIP, INF, SPAN, _cap, _fetch, _merge_best,
-                     _merge_scattered, _not_ported, _pair_table, _prune,
+                     _merge_scattered, _pair_table, _prune,
                      _scatter_into, _take, _typed_lane_cost, _use_pipeline,
                      resolve_device)
 from .joingraph import JoinGraph, typed_edge_arrays
@@ -214,11 +217,12 @@ def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
 # ============================================================== host driver ==
 
 class _Streams:
-    """The pipelined level loop's two CUDA streams: ``main``, the caller's
-    current stream, runs the evaluate chunks and the commits; ``side`` runs
-    the next level's filter, its compaction, its memo-row and ``all_sets``
-    registration and its phase A.  On the CPU there is no stream: ``side()``
-    enters nothing and the joins do nothing.
+    """The pipelined level loop's CUDA streams, a pair for each card the
+    engine's shards live on: ``main``, the caller's current stream there,
+    runs the evaluate chunks and the commits; ``side`` runs the next
+    level's filter, its compaction, its memo-row and ``all_sets``
+    registration and its phase A.  On the CPU there is no stream:
+    ``side_work()`` enters nothing and the joins do nothing.
 
     Every tensor that the side-stream work allocates (the filter spans'
     ``(S, conn, qid)``, the uploads of ``_dev`` and ``_scatter_into``,
@@ -231,22 +235,26 @@ class _Streams:
     ``run_levels`` returns or raises, so no side-stream write is pending
     when the engine's tensors go back to the allocator."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        if self.cuda:
-            self.main = torch.cuda.current_stream(device)
-            self.side = torch.cuda.Stream(device)
-            self.side.wait_stream(self.main)       # the memo's initial writes
+    def __init__(self, devices):
+        self.pairs = []
+        for dev in dict.fromkeys(devices):           # distinct, in order
+            if dev.type == "cuda":
+                main = torch.cuda.current_stream(dev)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(main)               # the memo's initial writes
+                self.pairs.append((main, side))
 
     def side_work(self):
-        return torch.cuda.stream(self.side) if self.cuda \
-            else contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        for _, side in self.pairs:
+            stack.enter_context(torch.cuda.stream(side))
+        return stack
 
     def join(self) -> None:
-        """Order everything queued on ``main`` from here after the side
-        work queued so far."""
-        if self.cuda:
-            self.main.wait_stream(self.side)
+        """Order everything queued on each ``main`` from here after the
+        side work queued so far."""
+        for main, side in self.pairs:
+            main.wait_stream(side)
 
 
 class _LevelLoop:
@@ -329,7 +337,7 @@ class _LevelLoop:
         side-stream write.  A deadline breaks at the top of a level, after
         the join.
         """
-        st = _Streams(self.device)
+        st = _Streams(self._devices())
         try:
             with st.side_work():
                 sets = self._filter_collect(self._filter_dispatch(2))
@@ -363,6 +371,21 @@ class _LevelLoop:
         finally:
             st.join()
 
+    def _time(self, key: str, t0: float) -> None:
+        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
+
+    @property
+    def stats(self) -> dict:
+        """Kernel launches made since this engine was built, per kernel
+        (``{"launches": {...}, "pipeline": bool}``)."""
+        return {"launches": {k: ops.LAUNCHES[k] - self._launch0[k]
+                             for k in ops.LAUNCHES},
+                "pipeline": self.pipeline}
+
+    def _devices(self) -> list[torch.device]:
+        """The devices the engine's tensors live on."""
+        return [self.device]
+
     def run(self) -> list[OptimizeResult]:
         self.run_levels()
         return self.collect()
@@ -383,14 +406,18 @@ class BatchEngine(_LevelLoop):
     ``pend_window`` is the number of un-fetched filter spans and evaluate
     chunks a level keeps in flight (default ``PEND_WINDOW``); results are
     bit-identical for any ``pend_window >= 0``.  ``deadline_s`` is the
-    cooperative deadline (``None``: no checks).
+    cooperative deadline (``None``: no checks).  ``layout`` fixes the
+    ``(nmax, bcap, emax)`` of the stacked tables instead of deriving them
+    from ``graphs``: the shards of a ``shard.ShardedBatchEngine`` share
+    one layout.
     """
 
     def __init__(self, graphs: list[JoinGraph], chunk: int = CHUNK,
                  algorithm: str = "dpsub", cyc_cap: int = CYC_CAP_DEFAULT,
                  pipeline: bool | None = None,
                  pend_window: int | None = None,
-                 deadline_s: float | None = None, device=None):
+                 deadline_s: float | None = None, device=None,
+                 layout: tuple[int, int, int] | None = None):
         if not graphs:
             raise ValueError("empty batch")
         if algorithm not in ("dpsub", "mpdp_tree", "mpdp_general"):
@@ -416,8 +443,11 @@ class BatchEngine(_LevelLoop):
         self.chunks_dispatched = 0        # filter spans + evaluate chunks
         self._wall = 0.0
         self.B = len(graphs)
-        self.bcap = _bcap(self.B)
-        self.nmax = max(bs.nmax_bucket(g.n) for g in graphs)
+        if layout is None:
+            max_m = max(g.m for g in graphs)
+            layout = (max(bs.nmax_bucket(g.n) for g in graphs), _bcap(self.B),
+                      max(8, int(np.ceil(max(max_m, 1) / 8.0)) * 8))
+        self.nmax, self.bcap, self.emax = layout
         if self.nmax > NMAX_BATCH:
             raise ValueError(f"batched path supports nmax <= {NMAX_BATCH}")
         self.chunk = chunk
@@ -432,8 +462,6 @@ class BatchEngine(_LevelLoop):
         self.adj_b = self._dev(adj)
         # per-query edge arrays: endpoint bitmaps (tree lane decode) and
         # endpoint indices (general phase A), stacked on a shared EMAX bucket
-        max_m = max(g.m for g in graphs)
-        self.emax = max(8, int(np.ceil(max(max_m, 1) / 8.0)) * 8)
         emu = np.zeros((self.bcap, self.emax), np.int32)
         emv = np.zeros((self.bcap, self.emax), np.int32)
         eui = np.full((self.bcap, self.emax), -1, np.int32)
@@ -469,9 +497,6 @@ class BatchEngine(_LevelLoop):
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _time(self, key: str, t0: float) -> None:
-        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
-
     # ------------------------------------------------------------- memo ----
     def _init_memo(self):
         kw = dict(device=self.device)
@@ -506,15 +531,6 @@ class BatchEngine(_LevelLoop):
     def _set_all_sets(self, pos_np, sets_np):
         _scatter_into(self.all_sets, pos_np, sets_np)
 
-    # ------------------------------------------------------------ stats ----
-    @property
-    def stats(self) -> dict:
-        """Kernel launches made since this engine was built, per kernel
-        (``{"launches": {...}, "pipeline": bool}``)."""
-        return {"launches": {k: ops.LAUNCHES[k] - self._launch0[k]
-                             for k in ops.LAUNCHES},
-                "pipeline": self.pipeline}
-
     # ------------------------------------------------------------ filter ---
     def _filter_dispatch(self, i: int) -> dict:
         """Dispatch level i's unrank+filter: one ``bconnectivity_span``
@@ -525,24 +541,33 @@ class BatchEngine(_LevelLoop):
         previous level's evaluate.  Each launch passes the ``"chunk"``
         fault site."""
         t0 = time.perf_counter()
-        totals = np.array([comb(g.n, i) if g.n >= i else 0
-                           for g in self.graphs], np.int64)
-        foff = np.zeros(self.B + 1, np.int64)
-        np.cumsum(totals, out=foff[1:])
-        total = int(foff[-1])
-        ctx = {"pend": deque(), "per_q": [[] for _ in range(self.B)]}
-        for lane0 in range(0, total, SPAN):
-            fl = np.clip(foff - lane0, -_CLIP, _CLIP)
-            fpad = np.full(self.bcap + 1, fl[self.B], np.int32)
-            fpad[: self.B + 1] = fl
-            ctx["pend"].append(ops.bconnectivity_span(
-                i, self._dev(fpad), min(SPAN, total - lane0), self.binom,
-                self.adj_b, self.nmax))
+        ctx = self._filter_begin(i)
+        for lane0 in range(0, ctx["total"], SPAN):
+            self._filter_step(ctx, i, lane0)
             faults.fire("chunk")
             self.chunks_dispatched += 1
             self._filter_drain(ctx, self.pend_window)
         self._time("filter", t0)
         return ctx
+
+    def _filter_begin(self, i: int) -> dict:
+        """Level i's filter context: the flight's rank prefix and total."""
+        totals = np.array([comb(g.n, i) if g.n >= i else 0
+                           for g in self.graphs], np.int64)
+        foff = np.zeros(self.B + 1, np.int64)
+        np.cumsum(totals, out=foff[1:])
+        return {"pend": deque(), "per_q": [[] for _ in range(self.B)],
+                "foff": foff, "total": int(foff[-1])}
+
+    def _filter_step(self, ctx: dict, i: int, lane0: int) -> None:
+        """Launch the filter span at rank ``lane0`` of the level."""
+        foff, total = ctx["foff"], ctx["total"]
+        fl = np.clip(foff - lane0, -_CLIP, _CLIP)
+        fpad = np.full(self.bcap + 1, fl[self.B], np.int32)
+        fpad[: self.B + 1] = fl
+        ctx["pend"].append(ops.bconnectivity_span(
+            i, self._dev(fpad), min(SPAN, total - lane0), self.binom,
+            self.adj_b, self.nmax))
 
     def _filter_drain(self, ctx: dict, limit: int) -> None:
         """Compact pending filter spans on the device and fetch them, down
@@ -607,6 +632,21 @@ class BatchEngine(_LevelLoop):
     def _eval_dispatch(self, i: int, sets_by_q: list[np.ndarray]):
         """Segmented lane spaces (DPSUB ``sets x 2^i``, tree ``sets x m``):
         lanes of query q are contiguous, ``ns_q * mult_q`` long."""
+        t0 = time.perf_counter()
+        ctx = self._eval_begin(i, sets_by_q)
+        if ctx is None:
+            return None
+        for j in range(len(ctx["lane0s"])):
+            self._eval_step(ctx, i, j)
+            faults.fire("chunk")
+            self.chunks_dispatched += 1
+            self._eval_drain(ctx, self.pend_window)
+        self._time("evaluate", t0)
+        return ctx
+
+    def _eval_begin(self, i: int, sets_by_q: list[np.ndarray]):
+        """Level i's evaluate context (offset tables on the device, the
+        chunk grid, the best arrays), or None when the level has no lane."""
         ns = np.array([len(s) for s in sets_by_q], np.int64)
         if self.algorithm == "mpdp_tree":
             mult = np.array([g.m for g in self.graphs], np.int64)
@@ -617,7 +657,6 @@ class BatchEngine(_LevelLoop):
         total = int(eoff[-1])
         if total == 0:
             return None
-        t0 = time.perf_counter()
         soff = np.zeros(self.B + 1, np.int64)
         np.cumsum(ns, out=soff[1:])
         loff = np.zeros(self.bcap, np.int64)
@@ -627,36 +666,37 @@ class BatchEngine(_LevelLoop):
         spad = np.full(self.bcap, soff[self.B], np.int64)
         spad[: self.B] = soff[: self.B]
         soff_d = self._dev(spad.astype(np.int32))
-        nseg = self.chunk + 2
-        ctx = {"pend": deque(),
-               "best_cost": np.full(int(soff[-1]), INF, np.float32),
-               "best_left": np.zeros(int(soff[-1]), np.int32),
-               "ev": np.zeros(self.B, np.int64),
-               "ccp": np.zeros(self.B, np.int64)}
-        statics = dict(nmax=self.nmax, chunk=self.chunk, nseg=nseg,
-                       bcap=self.bcap)
         lane0s = np.arange(0, total, self.chunk, dtype=np.int64)
-        eoff_d = self._dev(_offset_rows(eoff, lane0s, self.bcap))
-        for j, lane0 in enumerate(lane0s.tolist()):
-            p0 = int(np.searchsorted(eoff, lane0, side="right")) - 1
-            p0 = min(max(p0, 0), self.B - 1)
-            seg0 = int(soff[p0] + (lane0 - eoff[p0]) // mult[p0])
-            if self.algorithm == "mpdp_tree":
-                out = _beval_tree_chunk(
-                    self.all_sets, eoff_d[j], loff_d, soff_d, seg0,
-                    self.m_b, self.adj_b, self.emu_b, self.emv_b,
-                    self.memo_cost, self.memo_rows, **self._tkw, **statics)
-            else:
-                out = _beval_dpsub_chunk(
-                    self.all_sets, eoff_d[j], loff_d, soff_d, seg0, i,
-                    self.adj_b, self.memo_cost, self.memo_rows, **self._tkw,
-                    **statics)
-            ctx["pend"].append((seg0, out))
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._eval_drain(ctx, self.pend_window)
-        self._time("evaluate", t0)
-        return ctx
+        return {"pend": deque(),
+                "best_cost": np.full(int(soff[-1]), INF, np.float32),
+                "best_left": np.zeros(int(soff[-1]), np.int32),
+                "ev": np.zeros(self.B, np.int64),
+                "ccp": np.zeros(self.B, np.int64),
+                "eoff": eoff, "soff": soff, "mult": mult, "lane0s": lane0s,
+                "eoff_d": self._dev(_offset_rows(eoff, lane0s, self.bcap)),
+                "loff_d": loff_d, "soff_d": soff_d}
+
+    def _eval_step(self, ctx: dict, i: int, j: int) -> None:
+        """Launch the level's evaluate chunk j."""
+        eoff, soff, mult = ctx["eoff"], ctx["soff"], ctx["mult"]
+        lane0 = int(ctx["lane0s"][j])
+        p0 = int(np.searchsorted(eoff, lane0, side="right")) - 1
+        p0 = min(max(p0, 0), self.B - 1)
+        seg0 = int(soff[p0] + (lane0 - eoff[p0]) // mult[p0])
+        statics = dict(nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 2,
+                       bcap=self.bcap)
+        if self.algorithm == "mpdp_tree":
+            out = _beval_tree_chunk(
+                self.all_sets, ctx["eoff_d"][j], ctx["loff_d"],
+                ctx["soff_d"], seg0, self.m_b, self.adj_b, self.emu_b,
+                self.emv_b, self.memo_cost, self.memo_rows, **self._tkw,
+                **statics)
+        else:
+            out = _beval_dpsub_chunk(
+                self.all_sets, ctx["eoff_d"][j], ctx["loff_d"],
+                ctx["soff_d"], seg0, i, self.adj_b, self.memo_cost,
+                self.memo_rows, **self._tkw, **statics)
+        ctx["pend"].append((seg0, out))
 
     def _eval_drain(self, ctx: dict, limit: int) -> None:
         """Fetch pending chunk results down to ``limit``, folding them into
@@ -712,35 +752,46 @@ class BatchEngine(_LevelLoop):
     def _eval_general_dispatch(self, i: int, sets_by_q: list[np.ndarray], pairs):
         """Dispatch the level's block prefix-sum chunks over the fused pair
         arrays from ``_pairs_level``."""
-        ps, pb, pq, pk = pairs
-        if not len(ps):
-            return None
         t0 = time.perf_counter()
-        lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
-        offs = np.zeros(len(ps) + 1, np.int64)
-        np.cumsum(lane_sz, out=offs[1:])
-        total = int(offs[-1])
-        ctx = {"pend": deque(), "pk": pk,
-               "total_sets": sum(len(s) for s in sets_by_q),
-               "ev": np.zeros(self.B, np.int64),
-               "ccp": np.zeros(self.B, np.int64),
-               "k": [], "c": [], "l": []}
-        for lane0 in range(0, total, self.chunk):
-            lane1 = min(lane0 + self.chunk, total)
-            p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
-            p1 = int(np.searchsorted(offs, lane1, side="left"))
-            npair = p1 - p0
-            pairs = _pair_table(ps, pb, pq, offs, p0, p1, lane0)
-            out = _beval_general_chunk(
-                self._dev(pairs), npair, lane1 - lane0, self.adj_b,
-                self.memo_cost, self.memo_rows, nmax=self.nmax,
-                chunk=self.chunk, bcap=self.bcap, **self._tkw)
-            ctx["pend"].append((p0, npair, out))
+        ctx = self._eval_general_begin(sets_by_q, pairs)
+        if ctx is None:
+            return None
+        for lane0 in range(0, ctx["total"], self.chunk):
+            self._eval_general_step(ctx, lane0)
             faults.fire("chunk")
             self.chunks_dispatched += 1
             self._eval_general_drain(ctx, self.pend_window)
         self._time("evaluate", t0)
         return ctx
+
+    def _eval_general_begin(self, sets_by_q: list[np.ndarray], pairs):
+        """The level's block prefix-sum context, or None without pairs."""
+        ps, pb, pq, pk = pairs
+        if not len(ps):
+            return None
+        lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
+        offs = np.zeros(len(ps) + 1, np.int64)
+        np.cumsum(lane_sz, out=offs[1:])
+        return {"pend": deque(), "pairs": pairs, "pk": pk, "offs": offs,
+                "total": int(offs[-1]),
+                "total_sets": sum(len(s) for s in sets_by_q),
+                "ev": np.zeros(self.B, np.int64),
+                "ccp": np.zeros(self.B, np.int64),
+                "k": [], "c": [], "l": []}
+
+    def _eval_general_step(self, ctx: dict, lane0: int) -> None:
+        """Launch the level's MPDP-general chunk at lane ``lane0``."""
+        ps, pb, pq, _ = ctx["pairs"]
+        offs = ctx["offs"]
+        lane1 = min(lane0 + self.chunk, ctx["total"])
+        p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
+        p1 = int(np.searchsorted(offs, lane1, side="left"))
+        pairs = _pair_table(ps, pb, pq, offs, p0, p1, lane0)
+        out = _beval_general_chunk(
+            self._dev(pairs), p1 - p0, lane1 - lane0, self.adj_b,
+            self.memo_cost, self.memo_rows, nmax=self.nmax,
+            chunk=self.chunk, bcap=self.bcap, **self._tkw)
+        ctx["pend"].append((p0, p1 - p0, out))
 
     def _eval_general_drain(self, ctx: dict, limit: int) -> None:
         """Fetch pending pair chunks down to ``limit``, collecting finite
@@ -786,31 +837,40 @@ class BatchEngine(_LevelLoop):
         t0 = time.perf_counter()
         cost_all = self.memo_cost.cpu().numpy()
         left_all = self.memo_left.cpu().numpy()
-        out = []
         wall = self._wall + time.perf_counter() - t0
+        out = []
         for q, g in enumerate(self.graphs):
-            base = q << self.nmax
-            cost = float(cost_all[base + g.full_set])
-            lefts = left_all[base: base + self.size]
-            if np.isfinite(cost):
-                r = OptimizeResult(plan=extract_plan(g.full_set, lefts, g),
-                                   cost=cost, counters=self.counters[q],
-                                   algorithm=f"batch_{self.algorithm}",
-                                   wall_s=wall / self.B, levels=g.n)
-            elif self.degraded is not None:
-                from ..heuristics.idp import stitch_partial_memo
-                p, c, dinfo = stitch_partial_memo(
-                    g, cost_all[base: base + self.size], lefts)
-                r = OptimizeResult(plan=p, cost=c, counters=self.counters[q],
-                                   algorithm=f"batch_{self.algorithm}",
-                                   wall_s=wall / self.B,
-                                   levels=self.degraded["levels_done"])
-                r.info["degraded"] = {**self.degraded, **dinfo}
-            else:
-                raise RuntimeError(f"no plan found for batch query {q}")
-            r.timings = dict(self.timings)
-            out.append(r)
+            region = slice(q << self.nmax, (q + 1) << self.nmax)
+            out.append(_memo_result(
+                g, cost_all[region], left_all[region], self.counters[q],
+                f"batch_{self.algorithm}", wall / self.B, self.degraded,
+                self.timings, f"batch query {q}"))
         return out
+
+
+def _memo_result(g, cost_q, left_q, counters, algorithm: str, wall_s: float,
+                 degraded, timings, what: str) -> OptimizeResult:
+    """One query's result from its fetched memo region (``cost_q``,
+    ``left_q``, indexed by subset bitmap): the extracted plan when the full
+    set is memoized, else after a deadline the stitched plan of the
+    committed levels (later levels hold ``INF`` costs, which the stitch
+    skips)."""
+    cost = float(cost_q[g.full_set])
+    if np.isfinite(cost):
+        r = OptimizeResult(plan=extract_plan(g.full_set, left_q, g),
+                           cost=cost, counters=counters, algorithm=algorithm,
+                           wall_s=wall_s, levels=g.n)
+    elif degraded is not None:
+        from ..heuristics.idp import stitch_partial_memo
+        p, c, dinfo = stitch_partial_memo(g, cost_q, left_q)
+        r = OptimizeResult(plan=p, cost=c, counters=counters,
+                           algorithm=algorithm, wall_s=wall_s,
+                           levels=degraded["levels_done"])
+        r.info["degraded"] = {**degraded, **dinfo}
+    else:
+        raise RuntimeError(f"no plan found for {what}")
+    r.timings = dict(timings)
+    return r
 
 
 # ============================================================ public entry ==
@@ -894,6 +954,36 @@ def bucket_pending(graphs, pending: list[int], algorithm: str):
     return buckets, solo
 
 
+def lattice_pending(graphs, solo: list[int], algorithm: str):
+    """Split the solo list into lattice flights and true solos (mesh runs
+    only): a query with a batched lane space, too big for the stacked
+    batch memo (``nmax_bucket(n) > NMAX_BATCH``) and within the lattice
+    cap runs on ``lattice.LatticeShardedEngine``.  Returns ``(lattice,
+    rest)``, ``lattice`` a list of ``(stream index, lane space)``."""
+    from .lattice import NMAX_LATTICE
+    lattice: list[tuple[int, str]] = []
+    rest: list[int] = []
+    for qi in solo:
+        g = graphs[qi]
+        space = _lane_space(g, algorithm)
+        if (space is not None and g.n >= 2
+                and bs.nmax_bucket(g.n) > NMAX_BATCH and g.n <= NMAX_LATTICE):
+            lattice.append((qi, space))
+        else:
+            rest.append(qi)
+    return lattice, rest
+
+
+def stream_mesh(cfg: OptimizerConfig, device: torch.device):
+    """The ``shard.DeviceMesh`` of ``cfg.mesh`` or ``cfg.devices`` (on
+    ``device``'s type), or None when the config names neither."""
+    if cfg.mesh is None and cfg.devices is None:
+        return None
+    from .shard import batch_mesh
+    return batch_mesh(cfg.mesh if cfg.mesh is not None else cfg.devices,
+                      backend=device.type)
+
+
 def resolve_deferred(graphs, results, cache, deferred, dup_rep) -> None:
     """Resolve deduped duplicates as cache hits (re-inserting the
     representative when a small LRU evicted it mid-stream)."""
@@ -921,14 +1011,6 @@ def policy_dispatch(policy, nmax: int, space: str, chunk: int):
         if dec.pend_window is not None:
             kw["pend_window"] = dec.pend_window
     return run_space, run_chunk, kw
-
-
-def refuse_unported(cfg: OptimizerConfig, where: str) -> None:
-    """Raise ``NotImplementedError`` for the sharded paths, which the port
-    does not serve yet, naming the ROADMAP item that ports them."""
-    if cfg.devices is not None or cfg.mesh is not None:
-        raise _not_ported(f"{where}(devices=/mesh=)",
-                          "batch and lattice sharding")
 
 
 def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
@@ -961,8 +1043,17 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
       engine and solo run gets the time still left, and a query whose
       levels it cuts comes back degraded (``info["degraded"]``), never
       cached.
-    * ``devices``/``mesh`` raise ``NotImplementedError`` naming their
-      ROADMAP item.
+    * ``devices``/``mesh``: shard each bucket's batch dimension over a
+      ``shard.DeviceMesh`` (``shard.ShardedBatchEngine``): ``devices=N``
+      takes the first N devices of ``device``'s type (raising, never
+      truncating, when fewer exist; on the CPU, logical devices from
+      ``hostdev.ensure_host_devices``), ``mesh=`` supplies one.  Flights
+      hold up to ``max_flight`` queries a shard.  Results equal the
+      single-device run's; a flight whose sharded run raises is run
+      again on the single-device ``BatchEngine`` and its results carry
+      ``info["redispatched"]``.  With a mesh, queries past the batched
+      memo (``nmax_bucket(n) > 16``, ``n <= lattice.NMAX_LATTICE``) run
+      on ``lattice.LatticeShardedEngine`` instead of the solo engine.
 
     Results come back in input order.
     """
@@ -970,16 +1061,19 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
     cfg = resolve_config(config, algorithm=algorithm, chunk=chunk,
                          cache=cache, max_flight=max_flight, devices=devices,
                          mesh=mesh, pipeline=pipeline, policy=policy)
-    refuse_unported(cfg, "optimize_many")
     algorithm, chunk, cache = cfg.algorithm, cfg.chunk, cfg.cache
     # learned policies only steer the auto dispatcher: an explicit lane
     # space is a user decision the policy must not override
     adaptive = cfg.policy if algorithm in ("auto", "mpdp") else None
     dev = resolve_device(device)
+    shard_mesh = stream_mesh(cfg, dev)
     results: list[OptimizeResult | None] = [None] * len(graphs)
     pending = probe_stream(graphs, results, cache, algorithm)
     pending, deferred, dup_rep = dedup_pending(graphs, pending, cache)
     buckets, solo = bucket_pending(graphs, pending, algorithm)
+    lattice: list[tuple[int, str]] = []
+    if shard_mesh is not None:
+        lattice, solo = lattice_pending(graphs, solo, algorithm)
 
     # one absolute deadline for the whole stream: each engine gets the time
     # still remaining, so sequential buckets share the budget
@@ -991,26 +1085,59 @@ def optimize_many(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,
             return None
         return max(deadline_at - faults.now(), 1e-9)
 
+    # per-shard flights stay capped at max_flight
+    step = cfg.max_flight * (1 if shard_mesh is None else shard_mesh.size)
     for (b, space, _typed), idxs in sorted(buckets.items()):
-        for s0 in range(0, len(idxs), cfg.max_flight):
-            group = idxs[s0: s0 + cfg.max_flight]
+        for s0 in range(0, len(idxs), step):
+            group = idxs[s0: s0 + step]
+            members = [graphs[qi] for qi in group]
             run_space, run_chunk, run_kw = policy_dispatch(adaptive, b, space,
                                                            chunk)
             t_fl = time.perf_counter()
-            eng = BatchEngine([graphs[qi] for qi in group], chunk=run_chunk,
-                              algorithm=run_space, pipeline=cfg.pipeline,
-                              deadline_s=_left(), device=dev, **run_kw)
-            rs = eng.run()
+            redispatched = False
+            if shard_mesh is None:
+                eng = BatchEngine(members, chunk=run_chunk,
+                                  algorithm=run_space, pipeline=cfg.pipeline,
+                                  deadline_s=_left(), device=dev, **run_kw)
+                rs = eng.run()
+            else:
+                from .shard import ShardedBatchEngine
+                eng = ShardedBatchEngine(
+                    members, shard_mesh, chunk=run_chunk, algorithm=run_space,
+                    pipeline=cfg.pipeline, deadline_s=_left(), **run_kw)
+                try:
+                    rs = eng.run()
+                except Exception:
+                    # a failure on the mesh: run the flight again on the
+                    # single-device engine (same members and space, same
+                    # results) and mark its results
+                    eng = BatchEngine(members, chunk=run_chunk,
+                                      algorithm=run_space,
+                                      pipeline=cfg.pipeline,
+                                      deadline_s=_left(), device=dev,
+                                      **run_kw)
+                    rs = eng.run()
+                    redispatched = True
             if adaptive is not None:
                 adaptive.observe(b, space, run_space, _telemetry.capture(
                     eng, rs, nmax=b, queries=len(group),
                     wall_s=time.perf_counter() - t_fl))
             for qi, r in zip(group, rs):
+                if redispatched:
+                    r.info["redispatched"] = True
                 results[qi] = r
                 # degraded plans are best-effort, never cached: a later
                 # undegraded run must not hit a deadline-truncated plan
                 if cache is not None and "degraded" not in r.info:
                     cache.put(graphs[qi], r)
+    for qi, space in lattice:
+        from . import lattice as _lattice
+        r = _lattice.LatticeShardedEngine(
+            graphs[qi], shard_mesh, chunk=chunk, algorithm=space,
+            pipeline=cfg.pipeline, deadline_s=_left()).run()[0]
+        results[qi] = r
+        if cache is not None and "degraded" not in r.info:
+            cache.put(graphs[qi], r)
     for qi in solo:
         if cfg.deadline_s is None:
             r = _eng.optimize(graphs[qi], algorithm, chunk=chunk, device=dev)

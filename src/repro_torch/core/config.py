@@ -5,9 +5,7 @@ The port's own copy of ``repro.core.config``: the same constants, the same
 (``resolve_config``/``alias_kwarg``) and the same wire form
 (``to_wire``/``from_wire``, the daemon's request config), so a config built
 for the reference means the same thing here and a wire dict from either
-package builds an equal config in the other.  ``devices``/``mesh`` and the
-lattice are accepted here and refused by the entry point that would
-consume them (ROADMAP queue 1, item 6).
+package builds an equal config in the other.
 """
 from __future__ import annotations
 
@@ -55,12 +53,14 @@ class OptimizerConfig:
     * ``cyc_cap`` — max cyclomatic number for the MPDP-general block pass.
     * ``cache`` — optional ``plancache.PlanCache`` probed before any device
       work; process-local, never wired.
-    * ``devices`` / ``mesh`` — the sharded paths (not ported; the entry
-      points refuse them); ``mesh`` is process-local, never wired.
+    * ``devices`` / ``mesh`` — shard the batched paths over a
+      ``shard.DeviceMesh`` (``devices=N``: the first N devices of the
+      entry point's device type); ``mesh`` is process-local, never wired.
     * ``pipeline`` — pipelined level loops (``None`` defers to the
       ``REPRO_PIPELINE`` environment flag).
     * ``enum`` — level enumeration: "unrank" (paper Alg.5) | "expand".
-    * ``lattice`` — the intra-query lattice (not ported; refused).
+    * ``lattice`` — ``engine.optimize`` shards the query's own lane space
+      over ``devices``/``mesh`` (``core.lattice``).
     * ``policy`` — optional ``policy.PolicyTable`` consulted by the batched
       and streaming dispatchers under ``auto``/``mpdp`` and fed each
       flight's telemetry; ``None`` (the default) is the static dispatch.

@@ -41,10 +41,10 @@ does: ``faults.now`` is read once when a run starts and once at the top of
 every level; past the deadline ``result`` stitches a best-effort plan from
 the committed memo levels (``heuristics.idp.stitch_partial_memo``).
 
-``optimize`` is the solo entry point; ``optimize_many`` forwards to
+``optimize`` is the solo entry point (``lattice=True`` sends it to
+``lattice.optimize_lattice``); ``optimize_many`` forwards to
 ``batch.optimize_many``.  Both run on ``cuda`` unless the caller passes
-``device``; the sharded paths and the lattice raise
-``NotImplementedError`` naming their ROADMAP item.
+``device``.
 """
 from __future__ import annotations
 
@@ -99,11 +99,6 @@ def _use_pipeline() -> bool:
     rows-costs and block-decomposes level i+1.  Results are bit-identical
     to the synchronous default."""
     return os.environ.get("REPRO_PIPELINE", "0") == "1"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
 
 
 def _take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -707,9 +702,12 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
     algorithm but ``dpsize``, which raises ``ValueError`` as the
     reference's does.  ``config.deadline_s`` bounds the run
     cooperatively: past it the result is a stitched best-effort plan with
-    ``info["degraded"]`` (``dpccp``, on the host, has no deadline).  The
-    lattice (``config.lattice``, ``lattice_devices=``, ``lattice_mesh=``)
-    raises ``NotImplementedError`` naming its ROADMAP item.
+    ``info["degraded"]`` (``dpccp``, on the host, has no deadline).  With
+    ``config.lattice=True`` the query's lane space is sharded over the
+    config's ``devices``/``mesh`` (``core.lattice``), for the dpsub,
+    mpdp_tree and mpdp_general lane spaces; ``lattice_devices=`` and
+    ``lattice_mesh=`` are the deprecated spelling of ``devices``/``mesh``
+    plus ``lattice=True``.
     """
     devices = mesh = lattice = UNSET
     if lattice_devices is not UNSET or lattice_mesh is not UNSET:
@@ -724,7 +722,9 @@ def optimize(g: JoinGraph, algorithm=UNSET, chunk=UNSET, cyc_cap=UNSET,
                          cyc_cap=cyc_cap, enum=enum, devices=devices,
                          mesh=mesh, lattice=lattice)
     if cfg.lattice:
-        raise _not_ported("optimize(lattice=True)", "batch and lattice sharding")
+        from . import lattice as _lattice
+        return _lattice.optimize_lattice(g, config=cfg.replace(lattice=False),
+                                         device=device)
     dev = resolve_device(device)
     algorithm = cfg.algorithm
     if algorithm == "dpccp":

@@ -37,10 +37,13 @@ and solo run gets the time still left (``_left``), a result whose levels
 it cuts comes back degraded (``info["degraded"]``) and is never cached.
 A ``policy.PolicyTable`` (under ``auto``/``mpdp``) chooses each flight's
 lane space, chunk and drain window in ``_spawn`` and learns from its
-telemetry in ``_finalize``; costs and plans do not move.  The mesh, the
-intra-query lattice flights and the redispatch of a failed sharded flight
-raise ``NotImplementedError`` (ROADMAP queue 1, batch and lattice
-sharding).
+telemetry in ``_finalize``; costs and plans do not move.  With
+``devices=`` or ``mesh=`` each flight holds up to ``max_flight`` queries a
+shard and runs on ``shard.ShardedBatchEngine`` (a flight whose sharded run
+raises runs again on ``BatchEngine``, its results marked
+``info["redispatched"]``), and the queries too big for a batched flight
+become single-query lattice flights (``lattice.LatticeShardedEngine``,
+``FlightReport.lattice``) instead of solo runs.
 """
 from __future__ import annotations
 
@@ -53,8 +56,8 @@ from . import engine as _eng
 from . import faults
 from . import telemetry as _telemetry
 from .batch import (BatchEngine, bucket_pending, dedup_pending,
-                    policy_dispatch, probe_stream, refuse_unported,
-                    resolve_deferred)
+                    lattice_pending, policy_dispatch, probe_stream,
+                    resolve_deferred, stream_mesh)
 from .config import UNSET, OptimizerConfig, resolve_config
 from .engine import resolve_device
 from .joingraph import JoinGraph
@@ -67,7 +70,7 @@ class FlightReport:
     nmax: int
     space: str
     queries: list[int]             # stream indices, admission order
-    lattice: bool = False          # always False: the lattice is not ported
+    lattice: bool = False          # a single-query lattice flight
     wall_s: float = 0.0            # run_levels dispatch -> finalize done
     finalize_s: float = 0.0        # host-only finalize share
     # execution profile captured at finalize (telemetry.FlightTelemetry);
@@ -88,7 +91,7 @@ class StreamReport:
     wall_s: float = 0.0
     cache_hits: int = 0
     solo: int = 0                  # queries that ran per query
-    lattice: int = 0               # always 0: the lattice is not ported
+    lattice: int = 0               # lattice flights
 
     def latency_percentiles(self, ps=(50, 95, 99)) -> dict[int, float]:
         if not self.latency_s:
@@ -106,7 +109,8 @@ class StreamOptimizer:
 
     Parameters mirror ``optimize_many``, plus ``device`` (``cuda`` unless
     the caller names another; raises without a card); ``max_flight`` is
-    the flight size cap.  All knobs can be passed as one
+    the flight size cap a shard (multiplied by the mesh size when
+    sharding).  All knobs can be passed as one
     ``config=OptimizerConfig(...)`` instead of the legacy kwargs (never
     both); the resolved config is kept on ``self.config``.
     """
@@ -119,7 +123,6 @@ class StreamOptimizer:
                              cache=cache, devices=devices, mesh=mesh,
                              pipeline=pipeline, max_flight=max_flight,
                              policy=policy)
-        refuse_unported(cfg, "StreamOptimizer")
         self.config = cfg
         self.algorithm = cfg.algorithm
         self.chunk = cfg.chunk
@@ -131,6 +134,7 @@ class StreamOptimizer:
         self.policy = (cfg.policy
                        if cfg.algorithm in ("auto", "mpdp") else None)
         self.device = resolve_device(device)
+        self.mesh = stream_mesh(cfg, self.device)
         # armed per stream: one expiry shared by every flight and solo run
         self._deadline_at: float | None = None
 
@@ -145,25 +149,60 @@ class StreamOptimizer:
               ) -> tuple[list[FlightReport], list[int]]:
         """Group ``idxs`` into (NMAX bucket, lane space) flights (the shared
         ``batch.bucket_pending`` grouping, split at the flight cap);
-        ungroupable queries come back as the solo list."""
+        ungroupable queries come back as the solo list.  With a mesh, the
+        queries too big for a batched flight become single-query lattice
+        flights instead (``batch.lattice_pending``)."""
         buckets, solo = bucket_pending(graphs, idxs, self.algorithm)
         step = self.max_flight
+        latt: list[tuple[int, str]] = []
+        if self.mesh is not None:
+            step *= self.mesh.size
+            latt, solo = lattice_pending(graphs, solo, self.algorithm)
         flights = [FlightReport(b, space, idxs_b[s0: s0 + step])
                    for (b, space, _typed), idxs_b in sorted(buckets.items())
                    for s0 in range(0, len(idxs_b), step)]
+        if latt:
+            from .lattice import lattice_bucket
+            flights += [FlightReport(lattice_bucket(graphs[qi].n), space,
+                                     [qi], lattice=True)
+                        for qi, space in latt]
         return flights, solo
 
-    def _spawn(self, graphs: list[JoinGraph], fl: FlightReport) -> BatchEngine:
+    def _spawn(self, graphs: list[JoinGraph], fl: FlightReport):
         """Build the flight's engine and run its level loop, within the
-        stream's remaining budget.  With a policy table the flight runs
-        under its learned lane-space / chunk / drain-window decision
-        (``fl.space`` stays the admission space)."""
+        stream's remaining budget.  With a policy table a batched flight
+        runs under its learned lane-space / chunk / drain-window decision
+        (``fl.space`` stays the admission space).  A sharded flight that
+        raises runs again on ``BatchEngine`` and is marked
+        ``redispatched``."""
+        members = [graphs[qi] for qi in fl.queries]
+        if fl.lattice:
+            from . import lattice as _lattice
+            eng = _lattice.LatticeShardedEngine(
+                members[0], self.mesh, chunk=self.chunk, algorithm=fl.space,
+                pipeline=self.pipeline, deadline_s=self._left())
+            eng.run_levels()
+            return eng
         space, chunk, kw = policy_dispatch(self.policy, fl.nmax, fl.space,
                                            self.chunk)
-        eng = BatchEngine([graphs[qi] for qi in fl.queries], chunk=chunk,
-                          algorithm=space, pipeline=self.pipeline,
-                          deadline_s=self._left(), device=self.device, **kw)
+        if self.mesh is not None:
+            from .shard import ShardedBatchEngine
+            eng = ShardedBatchEngine(members, self.mesh, chunk=chunk,
+                                     algorithm=space, pipeline=self.pipeline,
+                                     deadline_s=self._left(), **kw)
+            try:
+                eng.run_levels()
+                return eng
+            except Exception:
+                # a failure on the mesh: run the flight again on the
+                # single-device engine (same members and space, same
+                # results) and mark it at finalize
+                pass
+        eng = BatchEngine(members, chunk=chunk, algorithm=space,
+                          pipeline=self.pipeline, deadline_s=self._left(),
+                          device=self.device, **kw)
         eng.run_levels()
+        eng.redispatched = self.mesh is not None
         return eng
 
     def _finalize(self, graphs, fl: FlightReport, eng, t_flight, t_stream,
@@ -173,6 +212,8 @@ class StreamOptimizer:
         t0 = time.perf_counter()
         collected = eng.collect()
         for qi, r in zip(fl.queries, collected):
+            if getattr(eng, "redispatched", False):
+                r.info["redispatched"] = True
             results[qi] = r
             # degraded (deadline-stitched) plans are best-effort, never
             # cached, so a later unhurried run recomputes the exact plan
@@ -183,12 +224,14 @@ class StreamOptimizer:
         fl.wall_s = done - t_flight
         fl.telemetry = _telemetry.capture(
             eng, collected, nmax=fl.nmax, queries=len(fl.queries),
-            wall_s=fl.wall_s, finalize_s=fl.finalize_s)
-        if self.policy is not None:
+            lattice=fl.lattice, wall_s=fl.wall_s, finalize_s=fl.finalize_s)
+        if self.policy is not None and not fl.lattice:
             self.policy.observe(fl.nmax, fl.space, eng.algorithm,
                                 fl.telemetry)
         for qi in fl.queries:
             report.latency_s[qi] = done - t_stream
+        if fl.lattice:
+            report.lattice += 1
         report.flights.append(fl)
 
     # ------------------------------------------------------------ stream ---

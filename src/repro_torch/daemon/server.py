@@ -42,8 +42,13 @@ and leaves the worker, the device and the cache usable.
 **Shutdown.**  ``drain()`` (SIGTERM, SIGINT, or a ``drain`` request):
 stop admitting, let the queue empty and in-flight replies flush, final
 checkpoint, close the socket.  ``serve_forever`` then returns so the
-process exits 0.  The sharded paths (``devices`` > 1) are not ported and
-are refused before the socket opens.
+process exits 0.
+
+**Meshes.**  ``devices=N`` (``--devices N``) is the daemon's default mesh
+size and ``mesh=`` its default mesh: a request that names no ``devices``
+runs on them, one that pins ``devices`` keeps its pin.  A request pinning
+more devices than ``device``'s type has gets the mesh's error as its
+structured reply.
 """
 from __future__ import annotations
 
@@ -58,10 +63,11 @@ from collections import deque
 from . import protocol as proto
 from ..core import faults
 from ..core.config import OptimizerConfig
-from ..core.engine import _not_ported, resolve_device
+from ..core.engine import resolve_device
 from ..core.plancache import PlanCache
 from ..core.policy import PolicyTable
 from ..core.service import StreamOptimizer
+from ..hostdev import ensure_host_devices
 from ..kernels import build
 
 
@@ -84,8 +90,8 @@ class OptimizerDaemon:
     ``(host, port)`` (``port=0`` binds an ephemeral port; read the actual
     one from ``.address`` after ``start()``).  ``device`` is where every
     request runs (``cuda`` unless the caller names another; raises without
-    a card).  ``devices`` is the reference's default mesh size: only
-    ``None`` or 1 (no mesh) is served.
+    a card).  ``devices``/``mesh`` are the default mesh of a request that
+    pins no ``devices`` (see the module docstring).
 
     ``worker_gate`` is a test-only hook: when set to a ``threading.Event``,
     the worker waits on it before picking up each job — letting the
@@ -97,16 +103,14 @@ class OptimizerDaemon:
                  cache=None, cache_file: str | None = None,
                  checkpoint_every: int = 32, queue_depth: int = 8,
                  tenant_inflight: int = 2, history: int = 4096,
-                 devices: int | None = None,
+                 devices: int | None = None, mesh=None,
                  policy=None, policy_file: str | None = None,
                  worker_gate: threading.Event | None = None,
                  drain_timeout: float | None = None, device=None):
         if socket_path is None and host is None:
             raise ValueError("pass socket_path= (unix) or host=/port= (tcp)")
-        if devices is not None and devices > 1:
-            raise _not_ported(f"OptimizerDaemon(devices={devices})",
-                              "batch and lattice sharding")
         self.device = resolve_device(device)
+        self._devices, self._mesh = devices, mesh
         self._socket_path = socket_path
         self._host, self._port = host, port
         self._cache_file = cache_file
@@ -402,8 +406,12 @@ class OptimizerDaemon:
         cfg = OptimizerConfig.from_wire(job.msg.get("config") or {})
         graphs = [proto.graph_from_wire(d) for d in job.msg.get("graphs", [])]
         # substitute the daemon-owned shared state; a request that pins
-        # devices= keeps its pin, which the port's StreamOptimizer refuses
-        cfg = cfg.replace(cache=self.cache, lattice=False, policy=self.policy)
+        # devices= keeps its pin, otherwise the daemon's default mesh rules
+        cfg = cfg.replace(
+            cache=self.cache, lattice=False, policy=self.policy,
+            mesh=self._mesh if cfg.devices is None else None,
+            devices=cfg.devices if cfg.devices is not None
+            else (self._devices if self._mesh is None else None))
         hits0 = self.cache.stats.hits
         results, report = StreamOptimizer(
             config=cfg, device=self.device).optimize_stream(graphs)
@@ -514,8 +522,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tenant-inflight", type=int, default=2,
                     help="max admitted requests per tenant at once")
     ap.add_argument("--devices", type=int, default=None,
-                    help="default mesh size for sharded passes (not "
-                         "ported: a value above 1 is refused)")
+                    help="default mesh size for sharded passes (on cpu, "
+                         "that many logical devices)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device every request runs on (cuda, or "
                          "cpu for the plain PyTorch versions)")
@@ -532,6 +540,7 @@ def main(argv=None) -> int:
     if (args.socket is None) == (args.tcp is None):
         ap.error("exactly one of --socket / --tcp is required")
 
+    ensure_host_devices(args.devices)   # logical CPU devices for --device cpu
     faults.install_from_env()          # REPRO_FAULTS= chaos harness, if any
 
     host = port = None

@@ -206,8 +206,9 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
     goes to ``optimize_many`` to learn per-bucket dispatch.  ``pipeline``
     goes to ``optimize_many``: with ``True`` every round's flights run the
     pipelined level loop, with results equal to the synchronous ones.
-    ``devices`` and ``mesh`` go there too, and are refused with the
-    ROADMAP item that ports them."""
+    ``devices`` and ``mesh`` go there too: every round's flights are
+    dealt over the mesh, and its 17-20-relation subproblems run on the
+    lattice (``core.lattice``) instead of the solo engine."""
     t0 = time.perf_counter()
     counters = Counters()
     if g.typed:

@@ -22,9 +22,10 @@ refused launch).  There is no fallback from one to the other.
 it launches its kernel and nowhere else, so a run can show that the main
 path went through the kernels.
 
-Kernels run on PyTorch's current stream, the stream the caching allocator
-orders frees on, so an input tensor the caller drops right after the call
-is not reused before the kernel has read it.
+Kernels run on PyTorch's current stream of their tensors' device, the
+stream the caching allocator orders frees on, so an input tensor the
+caller drops right after the call is not reused before the kernel has
+read it; that device is made current around the launch (``_run``).
 """
 from __future__ import annotations
 
@@ -82,10 +83,15 @@ def _launch(name: str, lanes, adj, nmax: int, n_out: int):
 
 
 def _run(name: str, device, *args) -> None:
-    """Call ``rt_<name>`` on the current stream; raise if it was refused."""
+    """Call ``rt_<name>`` on ``device``'s current stream, with ``device``
+    the current device for the launch (a shard on another card than the
+    current one launches on its own card); raise if it was refused.  The
+    outputs were allocated with ``device=`` named, which needs no current
+    device."""
     lib = build.library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, f"rt_{name}")(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"rt_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed: "
                            f"{lib.rt_error_string(rc).decode()}")

@@ -12,9 +12,10 @@
   ``mpdp_tree`` on a cyclic graph, n > 16) go to the solo engine and give
   the reference's results, or its error; a typed query (non-inner edges)
   runs batched and gives the reference's results;
-* ``cache=``, ``pipeline=True``, ``policy=`` and ``config.deadline_s``
-  give the reference's results; the sharded options raise
-  ``NotImplementedError``, and no card without ``device="cpu"`` raises.
+* ``cache=``, ``pipeline=True``, ``policy=``, ``config.deadline_s`` and
+  the sharded options (``devices=``, ``mesh=``, on logical CPU shards)
+  give the reference's results, and no card without ``device="cpu"``
+  raises.
 """
 import math
 import re
@@ -237,7 +238,7 @@ G6_REF = rgen.cycle(6, 1)
 G6 = port(G6_REF)
 EXCLUDED = {
     "devices": dict(devices=2),
-    "mesh": dict(mesh=object()),
+    "mesh": dict(mesh=2),
     "dpsize": dict(algorithm="dpsize"),
     "dpccp": dict(algorithm="dpccp"),
     "tree_on_cycle": dict(algorithm="mpdp_tree"),
@@ -247,6 +248,29 @@ SOLO_ROUTED = ("dpsize", "dpccp", "tree_on_cycle")
 # outside the first slices: cache and pipeline served since the service
 # slice, policy and deadline since the deadlines-and-faults slice
 SERVED = ("cache", "pipeline", "policy", "deadline")
+# served since the sharding slice: a 2-shard mesh (the reference's of its
+# emulated devices, the port's of logical CPU shards)
+SHARDED = ("devices", "mesh")
+
+
+def assert_sharded_matches_reference(graphs, case):
+    """``devices=2`` or a 2-shard ``mesh=``: the port's results equal its
+    single-device run bit for bit and the reference's sharded run."""
+    from repro.core.shard import batch_mesh as rmesh
+    from repro_torch.core.shard import batch_mesh as tmesh
+    from repro_torch.hostdev import ensure_host_devices
+    ensure_host_devices(4)
+    kw = EXCLUDED[case]
+    ref = rbatch.optimize_many(graphs, **(
+        {"mesh": rmesh(kw["mesh"])} if case == "mesh" else kw))
+    ported = [port(g) for g in graphs]
+    got = tbatch.optimize_many(ported, device="cpu", **(
+        {"mesh": tmesh(["cpu"] * kw["mesh"])} if case == "mesh" else kw))
+    plain = tbatch.optimize_many(ported, device="cpu")
+    for a, b in zip(got, plain):
+        assert (a.cost, _shape(a.plan), a.counters.evaluated, a.algorithm) \
+            == (b.cost, _shape(b.plan), b.counters.evaluated, b.algorithm)
+    assert_same_results(graphs, ref, got)
 
 
 def assert_solo_route_matches_reference(graphs, **kw):
@@ -294,17 +318,16 @@ def assert_served_matches_reference(case):
 def test_outside_slice_raises(case):
     """Options outside the batched slice: the ones the solo engine serves
     (``dpsize``, ``dpccp``, ``mpdp_tree`` on a cycle), the plan cache, the
-    pipelined driver, the policy and the deadline equal the reference, the
-    sharded ones raise ``NotImplementedError`` naming their ROADMAP
-    item."""
+    pipelined driver, the policy, the deadline and the sharded ones equal
+    the reference."""
     if case in SERVED:
         assert_served_matches_reference(case)
         return
-    if case in SOLO_ROUTED:
-        assert_solo_route_matches_reference([G6_REF], **EXCLUDED[case])
+    if case in SHARDED:
+        assert_sharded_matches_reference(STREAM[:4] + [G6_REF], case)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatch.optimize_many([G6], device="cpu", **EXCLUDED[case])
+    assert case in SOLO_ROUTED
+    assert_solo_route_matches_reference([G6_REF], **EXCLUDED[case])
 
 
 @pytest.mark.parametrize("g", [rgen.typed_query(7, seed=2), rgen.chain(17, 1)],

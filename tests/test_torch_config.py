@@ -198,16 +198,24 @@ class TestEntryPointParity:
         assert fingerprint(a) == fingerprint(b)
 
     def test_optimize_lattice_routing_flag_refused(self):
-        """The lattice is ROADMAP item 6: ``lattice=True`` and its legacy
-        spelling ``lattice_devices=`` both refuse, the alias warning
-        first."""
-        g = gen.musicbrainz_query(9, 4)
-        with pytest.raises(NotImplementedError, match="lattice sharding"):
-            engine.optimize(g, config=OptimizerConfig(devices=2,
+        """``lattice=True`` and its legacy spelling ``lattice_devices=``
+        (the alias warning first) both run the lattice on 2 logical CPU
+        shards and give the reference's lattice result."""
+        from repro.core import engine as rengine
+        from repro.workloads import generators as rgen
+        from repro_torch.hostdev import ensure_host_devices
+        from tests.test_torch_batch import assert_same_results, port
+        ensure_host_devices(4)
+        g_ref = rgen.musicbrainz_query(9, 4)
+        g = port(g_ref)
+        ref = rengine.optimize(g_ref, config=RConfig(devices=2, lattice=True))
+        a = engine.optimize(g, config=OptimizerConfig(devices=2,
                                                       lattice=True), **CPU)
         with pytest.warns(DeprecationWarning, match="lattice_devices"):
-            with pytest.raises(NotImplementedError, match="lattice sharding"):
-                engine.optimize(g, lattice_devices=2, **CPU)
+            b = engine.optimize(g, lattice_devices=2, **CPU)
+        assert a.algorithm == b.algorithm == "lattice_mpdp_tree"
+        assert (a.cost, a.counters.evaluated) == (b.cost, b.counters.evaluated)
+        assert_same_results([g_ref], [ref], [a])
 
     def test_conflict_raises_at_entry(self):
         g = gen.chain(5, 0)

@@ -220,11 +220,20 @@ class TestDaemonEndToEnd:
             assert res[0].algorithm.startswith("batch_dpsub")
 
     def test_sharded_request_is_a_request_error(self, daemon):
+        """A request pinning more devices than exist gets the mesh's error
+        as a structured reply; one pinning 2 logical CPU shards is served,
+        equal to the unsharded run."""
+        from repro_torch.hostdev import ensure_host_devices, host_device_count
+        ensure_host_devices(4)
+        ndev = host_device_count()
         with client(daemon) as c:
-            with pytest.raises(DaemonError, match="lattice sharding"):
+            with pytest.raises(DaemonError, match=rf"only {ndev} cpu device"):
                 c.optimize([SMALL[0]], timeout=WAIT,
-                           config=OptimizerConfig(devices=2))
+                           config=OptimizerConfig(devices=ndev + 1))
             assert c.ping()
+            res = c.optimize(SMALL, timeout=WAIT,
+                             config=OptimizerConfig(devices=2))
+            assert fingerprint(res) == fingerprint(many(SMALL))
 
     def test_stats_shape(self, daemon):
         with client(daemon, tenant="s") as c:
@@ -259,14 +268,33 @@ class TestDaemonEndToEnd:
             OptimizerDaemon(socket_path=str(tmp_path / "nc.sock"))
         assert not (tmp_path / "nc.sock").exists()
 
-    def test_devices_refused_before_the_socket(self, tmp_path):
-        path = tmp_path / "dv.sock"
-        with pytest.raises(NotImplementedError, match="lattice sharding"):
-            OptimizerDaemon(socket_path=str(path), devices=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="lattice sharding"):
-            server.main(["--socket", str(path), "--devices", "2",
-                         "--device", "cpu"])
-        assert not path.exists()
+    def test_devices_refused_before_the_socket(self, tmp_path, monkeypatch):
+        """``devices=2`` is the daemon's default mesh: a request naming no
+        devices runs on 2 logical CPU shards, equal to the unsharded run;
+        ``--devices 2`` asks for the logical devices and passes the
+        default on."""
+        from repro_torch.hostdev import host_device_count
+        d = start(tmp_path, devices=2, checkpoint_every=10_000)
+        try:
+            with client(d) as c:
+                res = c.optimize(SMALL, timeout=WAIT)
+            assert fingerprint(res) == fingerprint(many(SMALL))
+        finally:
+            stop(d)
+        seen = {}
+
+        class Fake:
+            def __init__(self, **kw):
+                seen.update(kw)
+
+            def serve_forever(self):
+                pass
+
+        monkeypatch.setattr(server, "OptimizerDaemon", Fake)
+        assert server.main(["--socket", str(tmp_path / "dv.sock"),
+                            "--devices", "2", "--device", "cpu"]) == 0
+        assert (seen["devices"], seen["device"]) == (2, "cpu")
+        assert host_device_count() >= 2
 
 
 # ============================================================= backpressure

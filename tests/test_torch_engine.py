@@ -12,9 +12,8 @@ reference, on the CPU.
   (clique: the same for MPDP-general) hold;
 * ``optimize_many`` routes the queries no batched lane space serves to the
   solo engine, as the reference does;
-* what the port does not serve yet raises ``NotImplementedError`` naming
-  its ROADMAP item (a typed graph and a deadline, once refused, now equal
-  the reference), and no card without ``device="cpu"`` raises.
+* the options once refused (a typed graph, a deadline, the lattice) now
+  equal the reference, and no card without ``device="cpu"`` raises.
 """
 import pytest
 import torch
@@ -145,14 +144,27 @@ def test_outside_slice_raises(case, monkeypatch):
         assert got.info["degraded"]["levels_done"] == 1
         assert_same_results([G6_REF], [ref], [got])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.optimize(g, device="cpu", **kw)
+    # the lattice, on 2 logical CPU shards: equals the reference's
+    from repro.core.config import OptimizerConfig as RConfig
+    from repro_torch.hostdev import ensure_host_devices
+    ensure_host_devices(4)
+    ref = reng.optimize(G6_REF, config=RConfig(lattice=True, devices=2))
+    got = teng.optimize(g, device="cpu", **kw)
+    assert got.algorithm == "lattice_mpdp_general"
+    assert_same_results([G6_REF], [ref], [got])
 
 
 def test_lattice_devices_kwarg_raises():
+    """The legacy spelling warns and runs the lattice, as the config
+    does."""
+    from repro_torch.hostdev import ensure_host_devices
+    ensure_host_devices(4)
     with pytest.warns(DeprecationWarning):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.optimize(G6, lattice_devices=2, device="cpu")
+        got = teng.optimize(G6, lattice_devices=2, device="cpu")
+    want = teng.optimize(G6, config=OptimizerConfig(lattice=True, devices=2),
+                         device="cpu")
+    assert (got.algorithm, got.cost, got.counters.evaluated) == \
+        (want.algorithm, want.cost, want.counters.evaluated)
 
 
 def test_no_card_raises_without_cpu(monkeypatch):

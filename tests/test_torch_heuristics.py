@@ -18,10 +18,10 @@ JAX reference's (``repro.heuristics``), on the CPU.
 * typed graphs go through ``solve_typed`` the same way;
 * ``pipeline=True`` runs equal the synchronous runs round by round, and
   so do runs under a learning ``policy=`` table (equal subproblems and
-  costs, join trees up to mirrored equal-cost operands);
-  ``devices=`` and ``mesh=`` raise ``NotImplementedError`` naming their
-  ROADMAP item, and without a card a call that names no ``device``
-  raises.
+  costs, join trees up to mirrored equal-cost operands), and so do runs
+  sharded by ``devices=`` or ``mesh=`` (cost also equal to the
+  reference's sharded run); without a card a call that names no
+  ``device`` raises.
 """
 import math
 
@@ -331,10 +331,12 @@ def test_typed_through_solve_typed(name, g, monkeypatch):
 
 # ---------------------------------------------------- outside the slice ----
 
-G = port(rgen.snowflake(20, 1))
+G_REF = rgen.snowflake(20, 1)
+G = port(G_REF)
+# refused until the sharding slice: a 2-shard mesh, by count or given
 REFUSED = {
-    "devices": (dict(devices=2), "batch and lattice sharding"),
-    "mesh": (dict(mesh=object()), "batch and lattice sharding"),
+    "devices": lambda mesh: dict(devices=2),
+    "mesh": lambda mesh: dict(mesh=mesh(2)),
 }
 # refused until the service slice (pipeline) and the deadlines-and-faults
 # slice (policy)
@@ -368,8 +370,9 @@ def test_unported_options_raise(solver, option, monkeypatch):
     and so does a run under a policy table that learns chunks, drain
     windows and the re-optimization budget (a learned lane space may break
     an equal-cost tie another way, which sends later rounds apart;
-    ``tests/test_torch_policy.py`` holds those single-shot); the options
-    still outside the port raise, naming their item."""
+    ``tests/test_torch_policy.py`` holds those single-shot); so does a
+    run sharded over 2 logical CPU shards (``devices=2`` or a 2-shard
+    ``mesh=``), whose cost also equals the reference's sharded run's."""
     solve = {"idp": idp.solve, "uniondp": uniondp.solve}[solver]
     if option == "policy":
         from repro_torch.core.policy import PolicyTable
@@ -391,9 +394,21 @@ def test_unported_options_raise(solver, option, monkeypatch):
         assert (pipe.counters.evaluated, pipe.counters.ccp) == \
             (sync.counters.evaluated, sync.counters.ccp)
         return
-    kw, item = REFUSED[option]
-    with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
-        solve(G, k=6, device="cpu", **kw)
+    from repro.core.shard import batch_mesh as rmesh
+    from repro_torch.core.shard import batch_mesh as tmesh
+    from repro_torch.hostdev import ensure_host_devices
+    ensure_host_devices(4)
+    plain_calls, plain = sub_solver_calls(monkeypatch, solve)
+    kw = REFUSED[option](lambda n: tmesh(["cpu"] * n))
+    shard_calls, sharded = sub_solver_calls(monkeypatch, solve, **kw)
+    assert shard_calls == plain_calls
+    assert (shape(sharded.plan), sharded.cost, sharded.algorithm,
+            sharded.info) == (shape(plain.plan), plain.cost, plain.algorithm,
+                              plain.info)
+    rsolve = {"idp": ridp.solve, "uniondp": runiondp.solve}[solver]
+    ref = rsolve(G_REF, k=6, **REFUSED[option](rmesh))
+    assert math.isclose(sharded.cost, ref.cost, rel_tol=1e-5), \
+        (sharded.cost, ref.cost)
 
 
 def test_no_card_without_device_cpu_raises():

@@ -30,7 +30,12 @@ def test_module_list_covers_the_port():
                                        ("protocol", "client", "server",
                                         "__main__")}
     assert daemon <= set(MODULES), daemon - set(MODULES)
-    assert len(MODULES) >= 36
+    sharding = {"repro_torch.hostdev", "repro_torch.distributed",
+                "repro_torch.distributed.sharding",
+                "repro_torch.distributed.collectives",
+                "repro_torch.core.shard", "repro_torch.core.lattice"}
+    assert sharding <= set(MODULES), sharding - set(MODULES)
+    assert len(MODULES) >= 42
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -47,9 +52,32 @@ def test_import_leaves_jax_and_reference_unloaded():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_sharding_modules_load_alone():
+    """The sharding slice's modules, imported on their own in a fresh
+    interpreter, load neither JAX nor the reference, and
+    ``repro_torch.hostdev`` needs only the standard library."""
+    code = ("import sys\n"
+            "import repro_torch.hostdev\n"
+            "assert 'torch' not in sys.modules and 'numpy' not in sys.modules\n"
+            "import repro_torch.core.shard, repro_torch.core.lattice\n"
+            "import repro_torch.distributed.collectives\n"
+            "import repro_torch.distributed.sharding\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_and_import_no_reference():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
         [ROOT / "chip_smoke.py"]
+    names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
+    assert {"hostdev.py", "distributed/sharding.py",
+            "distributed/collectives.py", "core/shard.py",
+            "core/lattice.py"} <= names
     for f in files:
         text = f.read_text()
         assert not re.search(r"\bjax\b", text), f"{f} names jax"

@@ -172,18 +172,27 @@ def test_service_cache_hits_skip_flights():
 
 
 def test_unported_service_options_raise():
-    """The sharded options raise, naming their item; ``policy=`` and
-    ``deadline_s`` (refused until the deadlines-and-faults slice) serve a
-    stream equal to the plain one (a generous deadline degrades
-    nothing)."""
-    cases = [(dict(devices=2), "batch and lattice sharding"),
-             (dict(mesh=object()), "batch and lattice sharding")]
-    for kw, item in cases:
-        with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
-            tservice.StreamOptimizer(device="cpu", **kw)
+    """The options once refused serve a stream equal to the plain one:
+    ``devices=2`` and a 2-shard ``mesh=`` (refused until the sharding
+    slice; the sharded stream's report also equals the reference's),
+    ``policy=`` and ``deadline_s`` (refused until the deadlines-and-faults
+    slice; a generous deadline degrades nothing)."""
+    from repro.core.shard import batch_mesh as rmesh
     from repro_torch.core.policy import PolicyTable
+    from repro_torch.core.shard import batch_mesh as tmesh
+    from repro_torch.hostdev import ensure_host_devices
+    ensure_host_devices(4)
     graphs = [port(g) for g in mixed_stream()[:4]]
     plain, _ = tservice.optimize_stream(graphs, device="cpu")
+    ref, rrep = rservice.optimize_stream(mixed_stream()[:4], mesh=rmesh(2))
+    for kw in (dict(devices=2), dict(mesh=tmesh(["cpu"] * 2))):
+        got, rep = tservice.StreamOptimizer(device="cpu", **kw) \
+            .optimize_stream(graphs)
+        assert_bit_identical(graphs, got, plain)
+        assert_same_results(mixed_stream()[:4], ref, got)
+        assert [(f.nmax, f.space, f.queries, f.lattice) for f in rep.flights] \
+            == [(f.nmax, f.space, f.queries, f.lattice)
+                for f in rrep.flights]
     for kw in (dict(policy=PolicyTable()),
                dict(config=tbatch.OptimizerConfig(deadline_s=3600.0))):
         got, _ = tservice.StreamOptimizer(device="cpu", **kw) \
