@@ -145,6 +145,30 @@ Phases, in order, none of them caught:
      devices=1)`` serving s1 equal to phase 8's, and a request pinning
      ``devices=2`` answered with the structured error naming 1 card.  No
      result may carry ``redispatched`` and no sharded flight may fail.
+ 11. execute path — the optimize-and-execute path (``execution.executor``
+     on the card): e1, the reference's Fig. 10 setting,
+     ``musicbrainz_query(n, seed=n)`` for n in {8, 10, 12} on
+     ``generate_data(max_rows=3000, seed=1)``, and e2, n = 12 at
+     ``max_rows=30000``: the plans of solo ``mpdp``, ``dpccp``, ``dpsub``,
+     GOO, IDP2 and UnionDP (k 5) executed on the card, the mpdp and dpccp
+     plans' raw rows == the port's cpu executor's, every plan's
+     ``canonical()`` == mpdp's, one Fig. 10 line per plan (``opt_ms``,
+     ``exec_ms``, ``exec_over_opt``, the largest intermediate) and the
+     peak memory; e3, ``hypergraph_query(n, seed=s)`` for n in {12, 14,
+     16}, s in 0-3 through ``optimize_many(auto)`` (MPDP-general flights)
+     and ``hypergraph_query(20, seed=0)`` through solo ``optimize``, each
+     plan valid, within 1e-4 of DPccp, ``Counters`` and costs as the cpu
+     run (a worker process), executed at ``max_rows=300`` with its rows ==
+     GOO's plan's (where a join packs four or more predicates, the packed
+     key wraps and may collide as in the reference: then equal after the
+     rows that fail a predicate are dropped, and shown), and a K4 whose
+     packed keys wrap, raw rows == the cpu executor's; launch counters read
+     around exactly e1-e3; a ``torch.profiler`` window over e1's n = 10
+     execution.  Then q1-q3, the port's examples as processes
+     on the card: ``quickstart_torch.py``, ``query_service_torch.py
+     --queries 6`` and that with ``--pipeline --cache-file`` twice, each
+     exit 0, its lines (``algo``, ``rows``, cost within 1e-5) == its
+     ``--device cpu`` run's, the second q3 run all hits.
 On every path the evaluates make one launch a chunk: ``ChunkCalls``
 counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
@@ -180,13 +204,15 @@ from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.config import MAX_FLIGHT, OptimizerConfig  # noqa: E402
 from repro_torch.core.joingraph import JoinGraph, graph_to_wire  # noqa: E402
-from repro_torch.core.plan import Plan, cost_plan, validate_plan  # noqa: E402
+from repro_torch.core.plan import (Plan, cost_plan, join_plans,  # noqa: E402
+                                   leaf_plan, validate_plan)
 from repro_torch.core.plancache import PlanCache, canonical_signature  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.distributed.sharding import partition_lanes  # noqa: E402
 from repro_torch.core.policy import PolicyTable  # noqa: E402
 from repro_torch.daemon import (DaemonClient, DaemonError,  # noqa: E402
                                 OptimizerDaemon)
+from repro_torch.execution import executor as ex  # noqa: E402
 from repro_torch.heuristics import goo, idp, uniondp  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
@@ -2708,6 +2734,361 @@ def phase_sharded(res4, solo_res, t20, heur_out, svc_out):
     return shd
 
 
+# --------------------------------------------------------------- phase 11 --
+
+# the execute path's optimizers: solo mpdp and dpsub (e1, e2, e3's n = 20)
+# and the batched flights of optimize_many, IDP2 and UnionDP (no DPSUB one)
+EXEC_PATH = SPAN_FORMS + ("bconnectivity_span", "btree_eval_decode",
+                          "bgeneral_eval_decode")
+FIG10 = (8, 10, 12)           # musicbrainz_query(n, seed=n): the reference's
+FIG10_ROWS = 3000             # Fig. 10 setting (benchmarks/paper_figs.py)
+E2_ROWS = 30000
+HYPER = [(n, s) for n in (12, 14, 16) for s in range(4)]
+EXAMPLE_TIMEOUT_S = 300
+QUERY_LINE = re.compile(r"^Q(\d+): n=\s*(\d+) algo=(\S+)\s+cost=\s*(\S+) "
+                        r"exec=\s*\S+ms rows=(\d+) cost_exact=(\S+)$")
+
+
+class Intermediates:
+    """The largest join result (rows, columns) that ``executor._join``
+    returns while it is entered."""
+
+    def __init__(self):
+        self.largest = (0, 0)
+        self.real = ex._join
+
+    def __enter__(self):
+        def spy(*args):
+            out = self.real(*args)
+            if out.count * len(out.rels) > self.largest[0] * self.largest[1]:
+                self.largest = (out.count, len(out.rels))
+            return out
+        ex._join = spy
+        return self
+
+    def __exit__(self, *exc):
+        ex._join = self.real
+
+
+def fig10_plans(g):
+    """(label, result, optimize seconds) of the six optimizers on the card
+    (DPccp and GOO run on its host)."""
+    runs = [("mpdp", lambda: engine.optimize(g, "mpdp")),
+            ("dpccp", lambda: engine.optimize(g, "dpccp")),
+            ("dpsub", lambda: engine.optimize(g, "dpsub")),
+            ("goo", lambda: goo.solve(g)),
+            ("idp2", lambda: idp.solve(g, k=5)),
+            ("uniondp", lambda: uniondp.solve(g, k=5))]
+    return [(label, *timed(fn)) for label, fn in runs]
+
+
+def same_rows(label, got, want) -> None:
+    """Raise unless two ``ExecResult``s hold the same columns and rows."""
+    if got.rels != want.rels or not torch.equal(got.rows.cpu(),
+                                                want.rows.cpu()):
+        raise AssertionError(f"{label}: {got.count} rows over {got.rels} vs "
+                             f"{want.count} over {want.rels}")
+
+
+def packed_preds(p, g) -> int:
+    """The most predicates one join of plan p packs into one key."""
+    if p.is_leaf:
+        return 0
+    a, b = p.left.rel_set, p.right.rel_set
+    here = sum(1 for u, v in g.edges if ((a >> u) & (b >> v) & 1)
+               or ((a >> v) & (b >> u) & 1))
+    return max(here, packed_preds(p.left, g), packed_preds(p.right, g))
+
+
+def true_rows(out, g, data) -> torch.Tensor:
+    """The canonical rows of ``out`` that satisfy every predicate among its
+    relations: a row that only a wrapped key matched fails one."""
+    col = {v: i for i, v in enumerate(out.rels)}
+    keep = torch.ones(out.count, dtype=torch.bool, device=out.rows.device)
+    for e, (u, v) in enumerate(g.edges):
+        if u in col and v in col:
+            keep &= (data[u]["cols"][e][out.rows[:, col[u]]]
+                     == data[v]["cols"][e][out.rows[:, col[v]]])
+    return ex.ExecResult(out.rels, out.rows[keep]).canonical()
+
+
+def same_result(label, g, data, a, b) -> str:
+    """Raise unless two plans' results (``(plan, ExecResult)`` pairs) hold
+    the same rows.  The executor packs a join's predicate keys into one
+    int64 as the reference does, ``k * 2^20 + c``, which wraps and can
+    collide where a join packs four or more: only there may the results
+    differ, and then only in rows that fail a predicate (the reference's
+    executor finds the same extra rows).  Returns a note on such rows."""
+    (pa, ra), (pb, rb) = a, b
+    if torch.equal(ra.canonical(), rb.canonical()):
+        return ""
+    packs = max(packed_preds(pa, g), packed_preds(pb, g))
+    ta, tb = true_rows(ra, g, data), true_rows(rb, g, data)
+    if packs < 4 or not torch.equal(ta, tb):
+        raise AssertionError(f"{label}: {ra.count} rows ({ta.shape[0]} true) "
+                             f"vs {rb.count} ({tb.shape[0]} true); a join "
+                             f"packs at most {packs} predicates")
+    return (f"{label}: rows equal after dropping {ra.count - ta.shape[0]} and "
+            f"{rb.count - tb.shape[0]} rows that only a wrapped "
+            f"{packs}-predicate key matched (the reference's packing)")
+
+
+def run_fig10(label, g, max_rows):
+    """One Fig. 10 part: the six optimizers' plans of ``g`` executed on the
+    card on ``generate_data(max_rows, seed=1)``; the mpdp and dpccp plans'
+    raw rows == the port's cpu executor's, every plan's ``canonical()``
+    == the others'; one Fig. 10 line per plan."""
+    plans = fig10_plans(g)
+    oracle = next(r for a, r, _ in plans if a == "dpccp")
+    data = ex.generate_data(g, max_rows=max_rows, seed=1)
+    cpu_data = ex.generate_data(g, max_rows=max_rows, seed=1, device="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    want, notes = None, []
+    for algo, r, opt_s in plans:
+        validate_plan(r.plan, g)
+        if algo in ("mpdp", "dpsub") and rel(r.cost, oracle.cost) > 1e-4:
+            raise AssertionError(f"{label} {algo}: cost {r.cost} vs DPccp "
+                                 f"{oracle.cost}")
+        with Intermediates() as spy:
+            out = ex.execute(r.plan, g, data)
+        if algo in ("mpdp", "dpccp"):
+            same_rows(f"{label} {algo} cuda vs cpu", out,
+                      ex.execute(r.plan, g, cpu_data))
+        if want is None:
+            want = (r.plan, out)
+        else:
+            notes.append(same_result(f"{label} n={g.n} {algo} vs mpdp", g,
+                                     data, (r.plan, out), want))
+        del out
+        res, exec_s = ex.execute_timed(r.plan, g, data)
+        log(f"fig10 {label} n={g.n} {algo}: {r.algorithm} cost {r.cost:.6g}; "
+            f"opt_ms {1e3 * opt_s:.3f} exec_ms {1e3 * exec_s:.3f} "
+            f"exec_over_opt {exec_s / opt_s:.4f}; rows {res.count}; largest "
+            f"intermediate {spy.largest[0]} x {spy.largest[1]} = "
+            f"{spy.largest[0] * spy.largest[1]} int64")
+        del res
+    del want
+    for note in filter(None, notes):
+        log(f"fig10 {note}")
+    log(f"fig10 {label} n={g.n} max_rows={max_rows}: {len(plans)} plans valid "
+        f"(mpdp, dpsub within 1e-4 of DPccp), canonical rows equal across "
+        f"{', '.join(a for a, _, _ in plans)}; mpdp and dpccp raw rows == the "
+        f"cpu executor's; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
+
+def k4_wrap():
+    """K4 whose bushy plan's last join packs four predicates with key
+    domains of 16, so its int64 keys wrap (``tests/test_torch_execution``
+    holds the case against the reference)."""
+    g = JoinGraph.make(4, [(0, 1), (2, 3), (0, 2), (0, 3), (1, 2), (1, 3)],
+                       [1e4] * 4, [0.5, 0.5] + [1 / 16] * 4)
+    leaves = [leaf_plan(v, g) for v in range(4)]
+    return g, join_plans(join_plans(leaves[0], leaves[1], g),
+                         join_plans(leaves[2], leaves[3], g), g)
+
+
+def hyper_cpu_run():
+    """e3 on ``device="cpu"`` and the host DPccp costs (a worker process)."""
+    torch.set_num_threads(1)
+    graphs = [gen.hypergraph_query(n, seed=s) for n, s in HYPER]
+    g20 = gen.hypergraph_query(20, seed=0)
+    many = batch.optimize_many(graphs, "auto", device="cpu")
+    solo = engine.optimize(g20, "mpdp", device="cpu")
+    return many, solo, [dpccp.solve(g).cost for g in graphs + [g20]]
+
+
+def run_hyper(cpu_fut):
+    """e3: hypergraph queries (chains plus lowered cliques, so cyclic)
+    through ``optimize_many(auto)`` and solo ``optimize`` on the card, held
+    against DPccp and the cpu run; each executed against GOO's plan."""
+    graphs = [gen.hypergraph_query(n, seed=s) for n, s in HYPER]
+    g20 = gen.hypergraph_query(20, seed=0)
+    before = dict(ops.LAUNCHES)
+    many, wall = timed(lambda: batch.optimize_many(graphs, "auto"))
+    log(f"execute e3 hypergraph: {len(graphs)} queries (n 12-16, m "
+        f"{min(g.m for g in graphs)}-{max(g.m for g in graphs)}) "
+        f"{sorted({r.algorithm for r in many})} in {wall:.3f} s on cuda; "
+        f"launches " + json.dumps({k: v - before[k] for k, v in
+                                   ops.LAUNCHES.items() if v != before[k]}))
+    check_bspan("execute e3 hypergraph", graphs, "auto", before)
+    if {r.algorithm for r in many} != {"batch_mpdp_general"}:
+        raise AssertionError("e3: not every hypergraph query ran in an "
+                             "MPDP-general flight")
+    before = dict(ops.LAUNCHES)
+    solo, wall = timed(lambda: engine.optimize(g20, "mpdp"))
+    log(f"execute e3 hypergraph n=20: m={g20.m} {solo.algorithm} in "
+        f"{wall:.3f} s on cuda; counters {solo.counters}; launches "
+        + json.dumps({k: v - before[k] for k, v in ops.LAUNCHES.items()
+                      if v != before[k]}))
+    got = ops.LAUNCHES["connectivity_span"] - before["connectivity_span"]
+    if got != span_launches(g20):
+        raise AssertionError(f"e3 n=20: {got} connectivity_span launches for "
+                             f"{span_launches(g20)} level spans")
+    cpu_many, cpu_solo, oracle = cpu_fut.result()
+    worst = max(hold(f"execute e3 query {i}", g, r, c, o)
+                for i, (g, r, c, o) in enumerate(zip(
+                    graphs + [g20], many + [solo], cpu_many + [cpu_solo],
+                    oracle)))
+    rows = []
+    for i, (g, r) in enumerate(zip(graphs + [g20], many + [solo])):
+        data = ex.generate_data(g, max_rows=300, seed=i)
+        out = ex.execute(r.plan, g, data)
+        gp = goo.solve(g).plan
+        note = same_result(f"e3 query {i} (n={g.n}) vs GOO's plan", g, data,
+                           (r.plan, out), (gp, ex.execute(gp, g, data)))
+        if note:
+            log(f"execute {note}")
+        rows.append(out.count)
+    log(f"execute e3: {len(graphs) + 1} plans valid, costs within 1e-4 of "
+        f"DPccp, match the cpu run (counters exact, max {worst} ulp); "
+        f"executed at max_rows=300 ({rows} rows), canonical == GOO's plan's "
+        f"(up to the collisions shown)")
+    g, plan = k4_wrap()
+    data = ex.generate_data(g, max_rows=250, seed=1)
+    out = ex.execute(plan, g, data)
+    same_rows("e3 k4 wrap cuda vs cpu", out, ex.execute(
+        plan, g, ex.generate_data(g, max_rows=250, seed=1, device="cpu")))
+    log(f"execute e3 k4 wrap: {out.count} rows over four packed predicates "
+        f"(int64 keys wrap) == the cpu executor's")
+
+
+def start_example(started, script, *args):
+    """``examples/<script>`` as its own process (``PYTHONPATH=src``), added
+    to ``started``, whose processes ``phase_execute`` stops at its end."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    started.append(subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", script), *args],
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE))
+    return started[-1]
+
+
+def example_output(label, proc) -> str:
+    """Wait for an example; raise unless it exits 0."""
+    out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{out}\n{err}")
+    return out
+
+
+def example_queries(label, out) -> list:
+    """(index, n, algo, cost, rows, exact cost) of each query line."""
+    qs = [m.groups() for m in map(QUERY_LINE.match, out.splitlines()) if m]
+    if not qs:
+        raise AssertionError(f"{label}: no query line in\n{out}")
+    return qs
+
+
+def same_queries(label, got, want, exact=False) -> int:
+    """Raise unless the query lines agree: algo and rows equal, the exact
+    cost equal (``exact``) or within 1e-5.  Returns the largest ulp."""
+    worst = 0
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} vs {len(want)} queries")
+    for a, b in zip(got, want):
+        ca, cb = float(a[5]), float(b[5])
+        if a[:3] + a[4:5] != b[:3] + b[4:5] or \
+                (ca != cb if exact else rel(ca, cb) > 1e-5):
+            raise AssertionError(f"{label}: {a} vs {b}")
+        worst = max(worst, ulps(ca, cb))
+    return worst
+
+
+def run_examples(started, cpu_procs):
+    """q1-q3: the port's examples as processes on the card, against their
+    ``--device cpu`` runs (``cpu_procs``, started earlier)."""
+    t0 = time.perf_counter()
+    cache = build.BUILD_DIR / "q3.plancache"                  # gitignored
+    cache.unlink(missing_ok=True)
+    q3 = ("--queries", "6", "--pipeline", "--cache-file", str(cache))
+    procs = {"q1": start_example(started, "quickstart_torch.py"),
+             "q2": start_example(started, "query_service_torch.py",
+                                 "--queries", "6"),
+             "q3 first": start_example(started, "query_service_torch.py",
+                                       *q3)}
+    out = {k: example_output(f"example {k}", p) for k, p in procs.items()}
+    out["q3 second"] = example_output("example q3 second", start_example(
+        started, "query_service_torch.py", *q3))
+    cpu = {k: example_output(f"example {k} --device cpu", p)
+           for k, p in cpu_procs.items()}
+    wall = time.perf_counter() - t0
+    mask = (lambda s: re.sub(r"wall=\S+", "wall=", s).splitlines())
+    if mask(out["q1"]) != mask(cpu["q1"]):
+        raise AssertionError(f"q1: cuda output\n{out['q1']}\nvs cpu\n"
+                             f"{cpu['q1']}")
+    algo = re.search(r"algorithm\s*: (\S+)", out["q1"]).group(1)
+    log(f"example q1 quickstart_torch.py: exit 0 on cuda, every line == the "
+        f"--device cpu run's (host walls aside; {algo}, 14-relation "
+        + re.search(r"MusicBrainz 14-rel: (cost=\S+ algo=\S+)",
+                    out["q1"]).group(1) + ")")
+    q2 = example_queries("q2", out["q2"])
+    u = same_queries("q2 cuda vs cpu", q2, example_queries("q2 cpu",
+                                                           cpu["q2"]))
+    log(f"example q2 query_service_torch.py --queries 6: exit 0 on cuda; "
+        f"algo, rows == the --device cpu run's, costs within 1e-5 (max {u} "
+        f"ulp): " + "; ".join(f"Q{i} n={n} {a} cost {c} rows {r}"
+                              for i, n, a, _, r, c in q2))
+    first = example_queries("q3 first", out["q3 first"])
+    same_queries("q3 first vs q2", first, q2, exact=True)
+    second = example_queries("q3 second", out["q3 second"])
+    hits = [(i, n, f"cache[{a}]" if int(n) <= 14 else a, c4, r, c)
+            for i, n, a, c4, r, c in q2]
+    n_exact = sum(int(q[1]) <= 14 for q in q2)
+    if f"plan cache {n_exact} hits / 0 misses" not in out["q3 second"]:
+        raise AssertionError(f"q3 second run:\n{out['q3 second']}")
+    u = same_queries("q3 second vs q2", second, hits)
+    log(f"example q3 --pipeline --cache-file: first run == q2 (cost ==, "
+        f"algo, rows), second run {n_exact} hits / 0 misses, every "
+        f"exact-tier query served from the cache with q2's rows and its "
+        f"cost within 1e-5 (a hit is re-costed on the host; max {u} ulp); "
+        f"examples {wall:.1f} s (processes in parallel)")
+
+
+def phase_execute():
+    """The optimize-and-execute path on the card: e1 (Fig. 10), e2 (larger
+    data), e3 (hypergraph queries), launch counters read around exactly
+    them, and a profile of e1's n = 10 execution; then q1-q3, the port's
+    examples in their own processes.  The cpu runs of e3 and of the
+    examples go on meanwhile, after e1 and e2 are timed.  Returns the
+    launches."""
+    t_start = time.perf_counter()
+    started = []
+    try:
+        ops.reset_launches()
+        with ChunkCalls() as chunks:
+            for n in FIG10:
+                run_fig10("e1", gen.musicbrainz_query(n, seed=n), FIG10_ROWS)
+            run_fig10("e2", gen.musicbrainz_query(12, seed=12), E2_ROWS)
+            log(f"execute e1, e2: {time.perf_counter() - t_start:.1f} s")
+            spawn = multiprocessing.get_context("spawn")
+            with ProcessPoolExecutor(max_workers=1, mp_context=spawn) as pool:
+                cpu_fut = pool.submit(hyper_cpu_run)
+                cpu_procs = {
+                    "q1": start_example(started, "quickstart_torch.py",
+                                        "--device", "cpu"),
+                    "q2": start_example(started, "query_service_torch.py",
+                                        "--queries", "6", "--device", "cpu")}
+                run_hyper(cpu_fut)
+        exe = dict(ops.LAUNCHES)
+        log("launches on the execute path: " + json.dumps(exe))
+        check_path("execute", exe, EXEC_PATH, chunks.count)
+        g = gen.musicbrainz_query(10, seed=10)
+        plan = engine.optimize(g, "mpdp").plan
+        data = ex.generate_data(g, max_rows=FIG10_ROWS, seed=1)
+        ex.execute(plan, g, data)
+        profile("execute e1 n=10 mpdp", lambda: ex.execute(plan, g, data), ())
+        del data
+        run_examples(started, cpu_procs)
+    finally:
+        for proc in started:
+            proc.kill()
+            proc.wait()
+    log(f"execute path (phase 11): {time.perf_counter() - t_start:.1f} s")
+    return exe
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2790,13 +3171,16 @@ def main() -> int:
 
     shd = phase_sharded(stream_res, solo_res, t20, heur_out, svc_out)
     log(f"phase sharded path done at {time.perf_counter() - t_start:.1f} s")
+
+    exe = phase_execute()
+    log(f"phase execute path done at {time.perf_counter() - t_start:.1f} s")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
             "launches": (batched[k] + solo[k] + typed[k] + heur[k] + svc[k]
-                         + dmn[k] + shd[k]),
+                         + dmn[k] + shd[k] + exe[k]),
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

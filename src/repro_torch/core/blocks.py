@@ -2,7 +2,8 @@
 
 Phase A of MPDP-general, as in ``repro.core.blocks``:
 
-* ``np_find_blocks`` — host Hopcroft-Tarjan (DFS lowpoint) oracle;
+* ``np_find_blocks`` — host Hopcroft-Tarjan (DFS lowpoint) oracle, and
+  ``np_cut_vertices``, the cut-vertex oracle by component counting;
 * ``blocks_chunk`` — branch-free torch version over a batch of sets, run
   on the engine's device:
       1. BFS spanning tree (parent/depth) of G[S];
@@ -76,6 +77,18 @@ def np_find_blocks(s: int, edges, n: int) -> list[int]:
                     if blk:
                         blocks.append(blk)
     return blocks
+
+
+def np_cut_vertices(s: int, adj_np: np.ndarray) -> int:
+    """Bitmap of cut vertices of G[s] (oracle, via component counting)."""
+    out = 0
+    for v in bs.iter_bits(s):
+        rest = s & ~(1 << v)
+        if rest == 0:
+            continue
+        if bs.np_grow(rest & (-rest), rest, adj_np) != rest:
+            out |= 1 << v
+    return out
 
 
 # ----------------------------------------------------------- torch batched --

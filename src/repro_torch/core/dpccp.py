@@ -33,6 +33,24 @@ def _subsets(x: int):
         yield cur
 
 
+def enumerate_csg(n: int, adj) -> list[int]:
+    """All connected subgraphs, each exactly once (EnumerateCsg)."""
+    out = []
+
+    def rec(s: int, x: int):
+        nb = _nbrs(s, adj) & ~x
+        for s1 in _subsets(nb):
+            out.append(s | s1)
+        for s1 in _subsets(nb):
+            rec(s | s1, x | nb)
+
+    for i in range(n - 1, -1, -1):
+        v = 1 << i
+        out.append(v)
+        rec(v, (v - 1) | v)
+    return out
+
+
 def enumerate_ccp_pairs(n: int, adj) -> list[tuple[int, int]]:
     """All csg-cmp pairs (unordered, each once) — EnumerateCsg x EnumerateCmp."""
     pairs = []
@@ -66,6 +84,11 @@ def enumerate_ccp_pairs(n: int, adj) -> list[tuple[int, int]]:
         cmp_for(v)
         rec_csg(v, (v - 1) | v)
     return pairs
+
+
+def ccp_count(g) -> int:
+    """CCP-Counter for a query (symmetric pairs counted, as in the paper)."""
+    return 2 * len(enumerate_ccp_pairs(g.n, g.adjacency()))
 
 
 def solve(g) -> OptimizeResult:

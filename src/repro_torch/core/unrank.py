@@ -37,3 +37,20 @@ def unrank_ksubset(rank: torch.Tensor, k: int, binom: torch.Tensor,
         r = torch.where(take, r - c, r)
         kk = torch.where(take, kk - 1, kk)
     return out
+
+
+def np_unrank_ksubset(rank: int, k: int, n: int) -> int:
+    """Host mirror of ``unrank_ksubset`` on Python ints: the ``rank``-th
+    ``k``-subset of {0..n-1} in colex order."""
+    out = 0
+    r = rank
+    kk = k
+    for v in range(n - 1, -1, -1):
+        if kk == 0:
+            break
+        c = comb(v, kk)
+        if r >= c:
+            out |= 1 << v
+            r -= c
+            kk -= 1
+    return out

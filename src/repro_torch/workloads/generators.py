@@ -6,7 +6,8 @@ seed for seed.
 
 Topologies: star, snowflake (depth <= 4), chain, cycle, clique, JOB-like
 (mixed tree + small cycles), and a MusicBrainz-like 56-table PK-FK schema
-with random-walk query sampling (§7.2.2); ``typed_query`` and
+with random-walk query sampling (§7.2.2); ``hypergraph_query`` lowers
+multi-way predicates over a chain to cliques; ``typed_query`` and
 ``mixed_joins_stream`` retype a base topology's bridges to LEFT, FULL,
 SEMI and ANTI joins and give some inner edges many-to-many fan-outs.  Cardinalities and selectivities
 follow PK-FK conventions: joining fact->dimension keeps fact cardinality
@@ -352,6 +353,35 @@ def typed_query(n: int, seed: int = 0, base: str = "job",
             fanouts[i] = max(cards[u], cards[v]) * r.uniform(1.5, 50.0)
     return JoinGraph.make(n, edges, cards, sels, names=g0.names,
                           kinds=kinds, ldirs=ldirs, fanouts=fanouts)
+
+
+def hypergraph_query(n: int, seed: int = 0, n_hyper: int = 2,
+                     arity: int = 3) -> JoinGraph:
+    """Chain base + ``n_hyper`` multi-way predicates, lowered to cliques.
+
+    A hyperedge over k relations (e.g. a multi-attribute equality) has one
+    total selectivity; lowering distributes it evenly over the C(k, 2)
+    binary edges of the induced clique in log2 space, so the joint
+    selectivity of assembling all k relations is exactly the hyperedge's.
+    Lowered edges that collide with an existing inner predicate keep the
+    more selective one (the ``JoinGraph.make`` dedup rule).
+    """
+    r = random.Random(seed ^ 0x42)
+    g0 = chain(n, seed)
+    edges = [list(e) for e in g0.edges]
+    sels = [float(2.0 ** s) for s in g0.log2_sel]
+    for _ in range(n_hyper):
+        k = min(arity, n)
+        verts = r.sample(range(n), k)
+        total_l2 = r.uniform(-20.0, -3.0)          # joint log2 selectivity
+        pairs = [(a, b) for ai, a in enumerate(verts) for b in verts[ai + 1:]]
+        per = total_l2 / len(pairs)
+        for (a, b) in pairs:
+            edges.append([a, b])
+            sels.append(float(2.0 ** per))
+    return JoinGraph.make(n, [tuple(e) for e in edges],
+                          [float(2.0 ** c) for c in g0.log2_card], sels,
+                          names=g0.names)
 
 
 TOPOLOGIES = {

@@ -1,7 +1,8 @@
 """The port stands alone: importing it loads neither JAX nor the reference.
 
 Checked in a fresh interpreter (``sys.modules``) and in the text of every
-source file of ``src/repro_torch`` and of ``chip_smoke.py``.
+source file of ``src/repro_torch``, of the port's examples
+(``examples/*_torch.py``) and of ``chip_smoke.py``.
 """
 import os
 import re
@@ -35,7 +36,9 @@ def test_module_list_covers_the_port():
                 "repro_torch.distributed.collectives",
                 "repro_torch.core.shard", "repro_torch.core.lattice"}
     assert sharding <= set(MODULES), sharding - set(MODULES)
-    assert len(MODULES) >= 42
+    execution = {"repro_torch.execution", "repro_torch.execution.executor"}
+    assert execution <= set(MODULES), execution - set(MODULES)
+    assert len(MODULES) >= 44
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -71,13 +74,30 @@ def test_sharding_modules_load_alone():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_executor_loads_alone():
+    """``repro_torch.execution.executor``, imported on its own in a fresh
+    interpreter, loads neither JAX nor the reference."""
+    code = ("import sys\n"
+            "import repro_torch.execution.executor\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_and_import_no_reference():
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {f.name for f in examples} >= {"quickstart_torch.py",
+                                          "query_service_torch.py"}
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
-        [ROOT / "chip_smoke.py"]
+        examples + [ROOT / "chip_smoke.py"]
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
     assert {"hostdev.py", "distributed/sharding.py",
             "distributed/collectives.py", "core/shard.py",
-            "core/lattice.py"} <= names
+            "core/lattice.py", "execution/executor.py"} <= names
     for f in files:
         text = f.read_text()
         assert not re.search(r"\bjax\b", text), f"{f} names jax"
