@@ -38,7 +38,12 @@ def test_module_list_covers_the_port():
     assert sharding <= set(MODULES), sharding - set(MODULES)
     execution = {"repro_torch.execution", "repro_torch.execution.executor"}
     assert execution <= set(MODULES), execution - set(MODULES)
-    assert len(MODULES) >= 44
+    lm = {f"repro_torch.models.{m}" for m in
+          ("api", "layers", "transformer", "ssm", "griffin", "encdec")} | \
+        {f"repro_torch.configs.{m}" for m in ("base", "gemma3_12b")} | \
+        {"repro_torch.launch.serve"}
+    assert lm <= set(MODULES), lm - set(MODULES)
+    assert len(MODULES) >= 65
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -88,16 +93,39 @@ def test_executor_loads_alone():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_serving_modules_load_alone():
+    """The LM serving path (``repro_torch.models.api``, every family, every
+    config and ``repro_torch.launch.serve``), imported on its own in a
+    fresh interpreter, loads neither JAX nor the reference."""
+    code = ("import sys\n"
+            "import repro_torch.models.api as api, repro_torch.launch.serve\n"
+            "import repro_torch.models.transformer, repro_torch.models.ssm\n"
+            "import repro_torch.models.griffin, repro_torch.models.encdec\n"
+            "for a in api.ARCH_IDS:\n"
+            "    api.build_model(api.get_config(a))\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_and_import_no_reference():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert {f.name for f in examples} >= {"quickstart_torch.py",
-                                          "query_service_torch.py"}
+                                          "query_service_torch.py",
+                                          "serve_lm_torch.py"}
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
         examples + [ROOT / "chip_smoke.py"]
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
     assert {"hostdev.py", "distributed/sharding.py",
             "distributed/collectives.py", "core/shard.py",
-            "core/lattice.py", "execution/executor.py"} <= names
+            "core/lattice.py", "execution/executor.py", "models/api.py",
+            "models/layers.py", "models/transformer.py", "models/ssm.py",
+            "models/griffin.py", "models/encdec.py", "configs/base.py",
+            "launch/serve.py"} <= names
     for f in files:
         text = f.read_text()
         assert not re.search(r"\bjax\b", text), f"{f} names jax"
