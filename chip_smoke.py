@@ -189,6 +189,22 @@ Phases, in order, none of them caught:
      check on its four archs (held at one seed, printed for four).  m3,
      ``examples/serve_lm_torch.py`` as a process on the card, exit 0.
      Launch counters read around m1-m3: all zero.
+ 13. train path — the training path (``make_train_step`` with remat,
+     AdamW, checkpoints, ``launch.train``; torch ops, none of the
+     kernels): r1, mamba2_370m at full width, seq 4,096, global batch 16
+     as 2 microbatches of 8, 6 steps (finite losses and grad norms, step
+     ms by CUDA events against 6 N tokens over the bf16 peak, tokens/s,
+     memory) and a profiled step; then, in a process of its own started
+     with cuBLAS's workspace variable (so no other phase runs under it),
+     4 of those steps with the trainer's deterministic kernels, their
+     step time against r1's.  r2, the full-width model in f32, loss and
+     gradients on cuda against cpu (rel < 1e-4, corr >= 0.9999).  r3, r1's
+     state saved and restored bit for bit.  r4, every arch at
+     ``reduced()``: 8 steps lower the loss, step 0 within 1 % of the cpu
+     run.  r5, ``launch.train`` crashed and resumed to the uninterrupted
+     run's final loss, and ``examples/train_tiny_lm_torch.py``, as
+     processes.  Launch counters read around r1-r5, the deterministic
+     process's included: all zero.
 On every path the evaluates make one launch a chunk: ``ChunkCalls``
 counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
@@ -236,7 +252,13 @@ from repro_torch.execution import executor as ex  # noqa: E402
 from repro_torch.heuristics import goo, idp, uniondp  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.train.data import SyntheticLM  # noqa: E402
+from repro_torch.train.optimizer import init_train_state  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves, leaves_with_path  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
 
 HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1194,20 +1216,18 @@ def check_path(label: str, launches: dict, path, chunks: dict) -> None:
 
 def profile(label: str, fn, names) -> float:
     """Kernel time by name and the card's busy share over one call of fn
-    (returned)."""
-    from torch.autograd import DeviceType
+    (returned), from the device events alone (``device_events``)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}                      # device-side events only: no double count
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    by_name = {}
+    for name, _, a, b in device_events(prof):
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + b - a)
     busy_us = sum(us for _, us in by_name.values())
     log(f"profile {label}: wall {wall:.3f} s (profiler on), device busy "
         f"{busy_us / 1e6:.3f} s = {busy_us / 1e6 / wall:.4f} of the window, "
@@ -3387,7 +3407,370 @@ def phase_serve():
     return srv
 
 
+# --------------------------------------------------------------- phase 13 --
+
+R1_ARCH = "mamba2_370m"
+R1_SEQ = SHAPES["train_4k"].seq_len              # 4,096
+R1_BATCH = SHAPES["train_4k"].global_batch // 16  # one of 16 data ranks: 16
+R1_MICRO = 2                                      # microbatches of 8
+R1_STEPS = 6
+R1_DET_STEPS = 4                                  # deterministic, as launch.train
+R1_DET_FLAG = "--train-r1-deterministic"          # the subprocess that runs them
+BF16_PEAK = 989.4e12                              # H100 SXM dense bf16 FLOP/s
+R2_SEQ = 256
+R5_ARGS = ["--arch", "mamba2_370m", "--reduced", "--steps", "12", "--batch",
+           "2", "--seq", "32", "--ckpt-every", "4", "--log-every", "50"]
+
+
+def leaf_corr(a: dict, b: dict):
+    """(whole-tree corr, worst leaf, its corr) of two gradient trees, from
+    float64 moment sums on the card (368 M elements a tree at full
+    width)."""
+    def moments(x, y):
+        x = x.detach().to(DEV, torch.float64).ravel()
+        y = y.detach().to(DEV, torch.float64).ravel()
+        return torch.stack([torch.tensor(float(x.numel()), dtype=torch.float64,
+                                         device=DEV), x.sum(), y.sum(),
+                            (x * x).sum(), (y * y).sum(), (x * y).sum()])
+
+    def corr(m):
+        n, sx, sy, sxx, syy, sxy = (float(v) for v in m)
+        vx, vy = n * sxx - sx * sx, n * syy - sy * sy
+        if vx <= 0 or vy <= 0:
+            return 1.0 if vx == vy == 0 else 0.0
+        return (n * sxy - sx * sy) / np.sqrt(vx * vy)
+    per = {p: moments(x, y) for (p, x), (_, y) in zip(leaves_with_path(a),
+                                                      leaves_with_path(b))}
+    worst = min(per, key=lambda p: corr(per[p]))
+    return corr(sum(per.values())), worst, corr(per[worst])
+
+
+def profile_step(label: str, fn) -> None:
+    """One call of fn under the profiler (device activity): the card's busy
+    share of the window and the top device operations by time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = device_events(prof)
+    spans, by_name = [], {}
+    for name, _, a, b in events:
+        spans.append((a, b))
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + b - a)
+    busy, cur = 0.0, None
+    for a, b in sorted(spans):                    # the union of the spans
+        if cur is not None and a <= cur[1]:
+            cur[1] = max(cur[1], b)
+            continue
+        if cur is not None:
+            busy += cur[1] - cur[0]
+        cur = [a, b]
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    log(f"profile {label}: wall {wall:.3f} s (profiler on, device activity "
+        f"only), {len(events)} device events, device busy {busy / 1e6:.3f} s "
+        f"= {busy / 1e6 / wall:.4f} of the window, idle "
+        f"{1 - busy / 1e6 / wall:.4f}")
+    for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"profile  {us / 1e3:10.2f} ms {n:7d} x  {key[:100]}")
+
+
+def step_times(label, step, state, data, first: int, n: int):
+    """Run ``n`` steps from batch ``first``: (state, losses, grad norms,
+    each step's ms by CUDA events)."""
+    losses, norms, ms = [], [], []
+    for i in range(first, first + n):
+        batch = {k: v.to(DEV) for k, v in data.batch_at(i).items()}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"{label}: losses {losses}, grad norms {norms}")
+    return state, losses, norms, ms
+
+
+def r1_setup():
+    """r1's config, state (weights from torch.Generator(cuda).manual_seed(0)),
+    step (2 microbatches) and data."""
+    cfg = api.get_config(R1_ARCH)
+    if not cfg.remat:
+        raise AssertionError("train r1: the full config must rematerialize")
+    model = api.build_model(cfg)
+    state = init_train_state(model.init_params(
+        torch.Generator(device=DEV).manual_seed(0)))
+    step = api.make_train_step(cfg, microbatches=R1_MICRO)
+    return cfg, state, step, SyntheticLM(cfg.vocab, R1_SEQ, R1_BATCH, seed=0)
+
+
+def train_r1():
+    """r1: mamba2_370m at full width (48 layers, d 1,024, vocab 50,280,
+    remat on, f32 masters, bf16 compute), seq 4,096, global batch 16 as 2
+    microbatches of 8 from SyntheticLM(seed=0): 6 steps as
+    ``make_train_step`` runs them, then a profiled step.  Returns the
+    state."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, state, step, data = r1_setup()
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    state, losses, norms, ms = step_times("train r1", step, state, data, 0,
+                                          R1_STEPS)
+    peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    tokens = R1_BATCH * R1_SEQ
+    n_active = cfg.active_param_count()
+    bound_s = 6 * n_active * tokens / BF16_PEAK
+    warm = np.asarray(ms[1:])
+    med = float(np.median(warm))
+    log(f"train r1 {R1_ARCH} full width ({n_params} params, {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, vocab {cfg.vocab}, remat on, f32 masters, "
+        f"bf16 compute) on cuda: seq {R1_SEQ}, global batch {R1_BATCH} as "
+        f"{R1_MICRO} microbatches of {R1_BATCH // R1_MICRO}; {R1_STEPS} "
+        f"steps, losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}; step ms by CUDA events: first "
+        f"{ms[0]:.1f}, median {med:.1f}, p90 {np.percentile(warm, 90):.1f} "
+        f"(steps 2-{R1_STEPS}); {tokens / (med / 1e3):.1f} tokens/s; bound 6 x "
+        f"{n_active} x {tokens} / 989.4 TFLOP/s = {bound_s * 1e3:.1f} ms "
+        f"(remat's recompute not counted), median / bound "
+        f"{med / 1e3 / bound_s:.2f}; max_memory_allocated {peak} B, held "
+        f"{held} B (state {api.tree_bytes(state)} B); setup "
+        f"{time.perf_counter() - t0 - sum(ms) / 1e3:.1f} s")
+    batch = {k: v.to(DEV) for k, v in data.batch_at(0).items()}
+    holder = [state]
+
+    def one():
+        holder[0], _ = step(holder[0], batch)
+    profile_step("train r1 one step", one)
+    return holder[0], losses, med
+
+
+def r1_deterministic_worker() -> int:
+    """The body of ``chip_smoke.py --train-r1-deterministic``: r1's first
+    steps with the trainer's deterministic kernels
+    (``launch.train.deterministic``; the parent sets cuBLAS's workspace
+    variable before this process starts, so the other phases run without
+    it).  Prints one JSON line: losses, grad norms, step ms, launches."""
+    trainer.deterministic(DEV)
+    ops.reset_launches()
+    _, state, step, data = r1_setup()
+    _, losses, norms, ms = step_times("train r1 deterministic", step, state,
+                                      data, 0, R1_DET_STEPS)
+    print(json.dumps({"losses": losses, "norms": norms, "ms": ms,
+                      "launches": dict(ops.LAUNCHES)}))
+    return 0
+
+
+def train_r1_deterministic(started, losses, med: float) -> dict:
+    """r1's first steps again, deterministic, in a process of their own
+    (``r1_deterministic_worker``): its step time against r1's median and
+    its losses beside r1's.  Returns the process's launches."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    started.append(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), R1_DET_FLAG], cwd=ROOT,
+        env=env, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    out, err = started[-1].communicate(timeout=EXAMPLE_TIMEOUT_S)
+    if started[-1].returncode != 0:
+        raise AssertionError(f"train r1 deterministic: exit "
+                             f"{started[-1].returncode}\n{out}\n{err}")
+    got = json.loads(out.strip().splitlines()[-1])
+    ms = got["ms"]
+    det = float(np.median(ms[1:]))
+    log(f"train r1 deterministic (torch.use_deterministic_algorithms, "
+        f"CUBLAS_WORKSPACE_CONFIG=:4096:8, own process): {R1_DET_STEPS} "
+        f"steps, losses {[round(x, 4) for x in got['losses']]} (r1's "
+        f"{[round(x, 4) for x in losses[:R1_DET_STEPS]]}), step ms "
+        f"{[round(x, 1) for x in ms]}, median {det:.1f} (steps 2-"
+        f"{R1_DET_STEPS}) against r1's {med:.1f}: {det / med - 1:+.2%}; "
+        f"{time.perf_counter() - t0:.1f} s with the process's start")
+    return got["launches"]
+
+
+def train_r2():
+    """r2: the full-width model computing in f32, weights drawn once on the
+    host and copied to the card: one loss and its gradients (B 1, S 256)
+    on cuda and on cpu; loss within a relative 1e-4, whole-tree grad corr
+    >= 0.9999."""
+    t0 = time.perf_counter()
+    cfg = api.get_config(R1_ARCH)
+    model = api.build_model(cfg, torch.float32)
+    params = model.init_params(torch.Generator().manual_seed(1))
+    batch = SyntheticLM(cfg.vocab, R2_SEQ, 1, seed=1).batch_at(0)
+    t1 = time.perf_counter()
+    l_cpu, g_cpu = api.loss_and_grads(model, params, batch)
+    t2 = time.perf_counter()
+    l_gpu, g_gpu = api.loss_and_grads(model, to_device(params, DEV),
+                                      to_device(batch, DEV))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rel_ = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    whole, worst, wc = leaf_corr(g_cpu, g_gpu)
+    log(f"train r2 {R1_ARCH} full width in f32 (B 1, S {R2_SEQ}): loss cuda "
+        f"{float(l_gpu)!r} cpu {float(l_cpu)!r} (rel {rel_:.3e}, bound 1e-4); "
+        f"grads whole-tree corr {whole:.7f} (bound 0.9999), worst leaf {worst} "
+        f"corr {wc:.7f}; {time.perf_counter() - t0:.1f} s (draw {t1 - t0:.1f}, "
+        f"cpu loss and grads {t2 - t1:.1f} on {torch.get_num_threads()} "
+        f"threads, cuda {t3 - t2:.1f}, compare {time.perf_counter() - t3:.1f})")
+    if not (rel_ < 1e-4 and whole >= 0.9999):
+        raise AssertionError(f"train r2: rel {rel_}, corr {whole}")
+
+
+def train_r3(state):
+    """r3: r1's state saved (the trainer's async writer) and restored bit
+    for bit; seconds and bytes on disk; then deleted."""
+    d = tempfile.mkdtemp(prefix="train_r3_")
+    try:
+        ck = CheckpointManager(d, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(int(state["step"]), state)
+        t_host = time.perf_counter() - t0
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(d) for f in fs)
+        t0 = time.perf_counter()
+        back, step = ck.restore(state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(a, b) and a.dtype == b.dtype and a.device == b.device
+                   for (_, a), (_, b) in zip(leaves_with_path(state),
+                                             leaves_with_path(back)))
+        log(f"train r3 checkpoint of r1's state ({api.tree_bytes(state)} B, "
+            f"{len(tree_leaves(state))} leaves, step {step}): save {t_save:.2f} "
+            f"s ({t_host:.2f} s to the host, the rest on the writer thread), "
+            f"{on_disk} B on disk; restore to cuda {t_restore:.2f} s; bit for "
+            f"bit: {same}")
+        if not same:
+            raise AssertionError("train r3: restored state differs")
+        del back
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def train_r4():
+    """r4: every arch at reduced(), weights drawn once on the host and
+    copied: 8 steps on a fixed batch on cuda lower the loss, and step 0's
+    loss is within 1 % of the cpu run's."""
+    t0 = time.perf_counter()
+    for arch in api.ARCH_IDS:
+        cfg = api.get_config(arch).reduced()
+        model = api.build_model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(2))
+        batch = SyntheticLM(cfg.vocab, 32, 2, seed=2).batch_at(0)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((2, 32, cfg.frame_dim), dtype=torch.bfloat16)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.from_numpy(
+                np.random.default_rng(2).standard_normal(
+                    (2, cfg.n_patches, cfg.patch_dim)).astype(np.float32)).bfloat16()
+        step = api.make_train_step(cfg)
+        _, m = step(init_train_state(params), batch)
+        cpu = float(m["loss"])
+        state = init_train_state(to_device(params, DEV))
+        gb = to_device(batch, DEV)
+        losses = []
+        for _ in range(8):
+            state, m = step(state, gb)
+            losses.append(float(m["loss"]))
+        rel_ = abs(losses[0] - cpu) / abs(cpu)
+        log(f"train r4 {arch}: cuda losses {[round(x, 4) for x in losses]}; "
+            f"step 0 vs the cpu run's {cpu:.6f}: rel {rel_:.3e}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and rel_ <= 0.01):
+            raise AssertionError(f"train r4 {arch}: {losses}, cpu {cpu}")
+    log(f"train r4: {time.perf_counter() - t0:.1f} s")
+
+
+def train_r5(started):
+    """r5: ``python -m repro_torch.launch.train`` on the card: crashed at
+    step 6 and resumed from step 4, its final loss text equal to the
+    uninterrupted run's; then ``examples/train_tiny_lm_torch.py``."""
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="train_r5_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
+
+    def start(args):
+        started.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *R5_ARGS, *args],
+            cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE))
+        return started[-1]
+
+    def finish(label, proc, rc=0):
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        if proc.returncode != rc:
+            raise AssertionError(f"{label}: exit {proc.returncode}\n{out}\n{err}")
+        return out
+
+    try:
+        example = start_example(started, "train_tiny_lm_torch.py", "--ckpt-dir",
+                                os.path.join(d, "ex"))
+        gold_p = start(["--ckpt-dir", os.path.join(d, "a")])
+        crash = finish("train r5 crash", start(["--ckpt-dir",
+                                                os.path.join(d, "b"),
+                                                "--crash-at", "6"]), 17)
+        resumed = finish("train r5 resume", start(["--ckpt-dir",
+                                                   os.path.join(d, "b"),
+                                                   "--resume"]))
+        gold = finish("train r5 uninterrupted", gold_p).strip().splitlines()[-1]
+        got = resumed.strip().splitlines()[-1]
+        if "resumed from step 4" not in resumed or \
+                gold.split("->")[-1] != got.split("->")[-1]:
+            raise AssertionError(f"train r5: {gold!r} vs {got!r}\n{crash}\n{resumed}")
+        log(f"train r5 launch.train on cuda: crashed after step 6 (exit 17), "
+            f"resumed from step 4: {got!r} == the uninterrupted run's "
+            f"{gold!r}")
+        out = example_output("train r5 example", example)
+        lines = [ln for ln in out.splitlines() if ln.startswith("[train]")]
+        log(f"train r5 examples/train_tiny_lm_torch.py: exit 0 on cuda: "
+            + " | ".join(lines[-2:]) + f"; r5 {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_train():
+    """The training path on the card: r1-r5.  Launch counters read around
+    exactly r1-r5: the path runs none of the kernels.  Returns the
+    launches."""
+    t_start = time.perf_counter()
+    started = []
+    try:
+        ops.reset_launches()
+        state, losses, med = train_r1()
+        train_r3(state)
+        del state
+        torch.cuda.empty_cache()
+        det = train_r1_deterministic(started, losses, med)
+        train_r2()
+        train_r4()
+        train_r5(started)
+        trn = {k: n + det.get(k, 0) for k, n in ops.LAUNCHES.items()}
+    finally:
+        for proc in started:
+            proc.kill()
+            proc.wait()
+    log("launches on the train path: " + json.dumps(trn))
+    if any(trn.values()):
+        raise AssertionError(f"train path: launches {trn}; the training path "
+                             f"runs none of the kernels")
+    log(f"train path (phase 13): {time.perf_counter() - t_start:.1f} s")
+    return trn
+
+
 def main() -> int:
+    if sys.argv[1:] == [R1_DET_FLAG]:
+        return r1_deterministic_worker()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -3475,13 +3858,16 @@ def main() -> int:
 
     srv = phase_serve()
     log(f"phase serve path done at {time.perf_counter() - t_start:.1f} s")
+
+    trn = phase_train()
+    log(f"phase train path done at {time.perf_counter() - t_start:.1f} s")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
             "launches": (batched[k] + solo[k] + typed[k] + heur[k] + svc[k]
-                         + dmn[k] + shd[k] + exe[k] + srv[k]),
+                         + dmn[k] + shd[k] + exe[k] + srv[k] + trn[k]),
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

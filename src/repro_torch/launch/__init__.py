@@ -1,1 +1,2 @@
-"""Entry points: ``serve`` (batched prefill-by-decode serving)."""
+"""Entry points: ``serve`` (batched prefill-by-decode serving), ``train``
+(the trainer with checkpoint/restart) and ``mesh`` (its meshes)."""

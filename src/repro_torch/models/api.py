@@ -1,12 +1,15 @@
 """Model registry + uniform step/spec builders for every assigned arch.  The
 port of ``repro.models.api``.
 
-``build_model(cfg)`` returns a module with init_params, loss (its value),
-forward, cache_spec/init_cache and decode_step.  ``input_specs``,
-``cache_specs`` and ``param_specs`` give ``device="meta"`` tensors: the
-shapes and dtypes of a full-width model with nothing allocated.
-``load_reference_params`` carries a reference ``init_params`` tree (numpy
-arrays) across, and ``serving_params`` makes the copy a server holds.
+``build_model(cfg)`` returns a module with init_params, loss, forward,
+cache_spec/init_cache and decode_step.  ``input_specs``, ``cache_specs``
+and ``param_specs`` give ``device="meta"`` tensors: the shapes and dtypes
+of a full-width model with nothing allocated.  ``load_reference_params``
+carries a reference ``init_params`` tree (numpy arrays) across,
+``load_reference_state`` a reference TrainState, and ``serving_params``
+makes the copy a server holds.  ``make_train_step`` is the training step:
+autograd through the model (rematerialized under ``cfg.remat``), then
+AdamW.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec, SHAPES  # noqa: F401
+from ..tree import leaves, tree_map, unflatten_like
 
 ARCH_IDS = [
     "gemma3_12b", "starcoder2_3b", "granite_3_8b", "codeqwen15_7b",
@@ -94,14 +98,9 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     return out
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
 def cache_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     spec = build_model(cfg).cache_spec(shape.global_batch, shape.seq_len)
-    return _tree_map(lambda s: _meta(*s), spec)
+    return tree_map(lambda s: _meta(*s), spec)
 
 
 def param_specs(cfg: ArchConfig) -> dict:
@@ -141,6 +140,17 @@ def load_reference_params(model, tree, device="cuda") -> dict:
     return carry(spec, tree, "")
 
 
+def load_reference_state(model, state, device="cuda") -> dict:
+    """The port's TrainState from a reference one given as nested dicts of
+    numpy arrays (``params``, ``m``, ``v``, ``step``): each tree carried by
+    ``load_reference_params``, the step a 0-d int32 tensor."""
+    out = {k: load_reference_params(model, state[k], device)
+           for k in ("params", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out
+
+
 def serving_params(params: dict) -> dict:
     """The copy a server holds: bf16 for every leaf the reference reads only
     through ``.astype(bf16)``, f32 for ``F32_LEAVES``.  A bf16 leaf has the
@@ -161,7 +171,7 @@ def serving_params(params: dict) -> dict:
 
 def copy_tree(params: dict) -> dict:
     """A copy of the dicts of a params tree, sharing its tensors."""
-    return _tree_map(lambda v: v, params)
+    return tree_map(lambda v: v, params)
 
 
 def tree_bytes(tree: dict) -> int:
@@ -170,6 +180,79 @@ def tree_bytes(tree: dict) -> int:
 
 
 # ----------------------------------------------------------------- steps ----
+
+def make_loss_fn(cfg: ArchConfig):
+    model = build_model(cfg)
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch)
+
+    return loss_fn
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, grads): ``model.loss`` and its gradient with respect to every
+    leaf of ``params`` (the reference's value_and_grad), by
+    ``torch.autograd.grad``; ``params`` is left as it is."""
+    live = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss = model.loss(unflatten_like(params, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    # a leaf the loss does not read gets a zero gradient, as in JAX
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(live, grads)]
+    return loss.detach(), unflatten_like(params, grads)
+
+
+def make_train_step(cfg: ArchConfig, microbatches: int = 1,
+                    mb_scan: bool = True):
+    """(state, batch) -> (state, metrics); state = TrainState (``params``
+    f32 masters, ``m``, ``v``, ``step``), batch on the params' device;
+    metrics: ``loss`` and, beyond the reference's, ``grad_norm`` (the
+    global norm before the clip).
+
+    The loss's gradient by ``torch.autograd.grad`` with respect to every
+    params leaf, then ``adamw_update(lr=3e-4, wd=0.01)``.  microbatches >
+    1: gradient accumulation over the batch reshaped to ``(microbatches,
+    -1, ...)``, bounding the remat checkpoint stack to batch/microbatches:
+    the losses and the f32 grads summed from zero in microbatch order,
+    then multiplied by ``1 / microbatches``, as the reference's scan does.
+    ``mb_scan`` is accepted for the reference's signature: both of its
+    forms are this one Python loop (the reference unrolls it only for
+    XLA's cost analysis).  The state passed in is left as it is.
+    """
+    del mb_scan
+    from ..train.optimizer import adamw_update, global_norm
+
+    model = build_model(cfg)
+
+    def value_and_grad(params, batch):
+        return loss_and_grads(model, params, batch)
+
+    def train_step(state, batch):
+        params, m, v, step = state["params"], state["m"], state["v"], state["step"]
+        if microbatches == 1:
+            loss, grads = value_and_grad(params, batch)
+        else:
+            mbs = {k: x.reshape((microbatches, -1) + tuple(x.shape[1:]))
+                   for k, x in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=step.device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            for i in range(microbatches):
+                li, gi = value_and_grad(params, {k: x[i] for k, x in mbs.items()})
+                loss = loss + li
+                grads = tree_map(torch.add, grads, gi)
+            inv = 1.0 / microbatches
+            loss = loss * inv
+            grads = tree_map(lambda g: g * inv, grads)
+        gnorm = global_norm(grads)
+        params, m, v = adamw_update(params, grads, m, v, step, lr=3e-4, wd=0.01,
+                                    gnorm=gnorm)
+        new_state = {"params": params, "m": m, "v": v, "step": step + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
 
 def make_prefill_step(cfg: ArchConfig):
     model = build_model(cfg)

@@ -82,10 +82,16 @@ class EncDecLM(torch.nn.Module):
         x = frames.to(self.dtype) @ params["frame_proj"].to(self.dtype)
         B, S, _ = x.shape
         pos = positions(B, S, x.device)
-        for li in range(cfg.enc_layers):
+
+        def layer(x, li):
             x, _ = _self_attn(params["enc_attn"], x, li, cfg, causal=False,
                               positions=pos)
             x, _ = _ffn_apply(params["enc_ffn"], x, li, cfg, moe=False)
+            return x
+
+        step = L.remat(layer, cfg.remat)                 # each layer
+        for li in range(cfg.enc_layers):
+            x = step(x, li)
         return L.rms_norm(x, params["enc_ln"])
 
     def enc_kv(self, params, enc_out):
@@ -107,18 +113,24 @@ class EncDecLM(torch.nn.Module):
         B, S, _ = x.shape
         pos = positions(B, S, x.device, pos0)
         ek, ev = self.enc_kv(params, enc_out)
-        for li in range(cfg.dec_layers):
+
+        def layer(x, li):
             x, _ = _self_attn(params["dec_attn"], x, li, cfg, causal=True,
                               positions=pos)
             x = _cross_attn(params["dec_xattn"], x, li, cfg, (ek[li], ev[li]))
             x, _ = _ffn_apply(params["dec_ffn"], x, li, cfg, moe=False)
+            return x
+
+        step = L.remat(layer, cfg.remat)                 # each layer
+        for li in range(cfg.dec_layers):
+            x = step(x, li)
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
         return tied_logits(params, x)
 
     def loss(self, params, batch):
-        """The training loss's value (no backward in this package yet)."""
+        """The training loss: mean next-token NLL in f32."""
         enc = self.encode(params, batch["frames"])
         logits = self.decode_stack(params, batch["tokens"], enc)
         return nll(logits, batch["targets"]).mean()

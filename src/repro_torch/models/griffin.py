@@ -115,7 +115,8 @@ class GriffinLM(torch.nn.Module):
         x = embed_tokens(params, tokens, cfg.d_model, self.dtype)
         B, S, _ = x.shape
         pos = positions(B, S, x.device)
-        for li in range(self.n_groups):
+
+        def group_step(x, li):
             for gi, kind in enumerate(self.pat):
                 if kind == "attn":
                     x, _ = _attn_apply(params[f"mix{gi}"], x, li, cfg, pos,
@@ -123,13 +124,18 @@ class GriffinLM(torch.nn.Module):
                 else:
                     x, _ = _rec_apply(params[f"mix{gi}"], x, li, cfg)
                 x, _ = _ffn_apply(params[f"ffn{gi}"], x, li, cfg, moe=False)
+            return x
+
+        step = L.remat(group_step, cfg.remat)            # each group
+        for li in range(self.n_groups):
+            x = step(x, li)
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
         return tied_logits(params, x)
 
     def loss(self, params, batch):
-        """The training loss's value (no backward in this package yet)."""
+        """The training loss: mean next-token NLL in f32."""
         return nll(self.forward(params, batch["tokens"]), batch["targets"]).mean()
 
     def cache_spec(self, B: int, max_len: int):

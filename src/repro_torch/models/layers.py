@@ -18,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 NEG_INF = -1e30
 
@@ -270,6 +271,22 @@ def moe_ffn(x, params, n_experts: int, top_k: int, act="silu",
         aux = aux + ai
     y = torch.cat(ys, dim=0)
     return y[:T].reshape(B, S, D), aux / nchunk
+
+
+# ------------------------------------------------------------------- remat --
+
+def remat(fn, on: bool):
+    """``fn`` under activation checkpointing when ``on`` (``cfg.remat``) and
+    autograd is recording, else ``fn`` itself: the reference's
+    checkpoint around a scan step, which saves the step's inputs
+    and recomputes the rest in the backward.  Serving, with grad disabled
+    or nothing requiring it, computes exactly what ``fn`` computes."""
+    def step(*args):
+        if on and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return fn(*args)
+    return step
 
 
 # -------------------------------------------------------------------- init --

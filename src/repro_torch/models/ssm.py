@@ -1,10 +1,11 @@
 """Mamba-2 (SSD — state-space duality, arXiv:2405.21060) backbone.  The port
 of ``repro.models.ssm``.
 
-Prefill uses the chunked SSD algorithm (within-chunk quadratic form + the
-cross-chunk recurrent state carry, a loop over chunks); decode is the O(1)
-recurrent update, with the depthwise conv's last ``d_conv - 1`` inputs
-kept in the cache.
+Prefill and training use the chunked SSD algorithm (within-chunk quadratic
+form + the cross-chunk recurrent state carry, a loop over chunks), each
+layer rematerialized in the backward under ``cfg.remat``; decode is the
+O(1) recurrent update, with the depthwise conv's last ``d_conv - 1``
+inputs kept in the cache.
 """
 from __future__ import annotations
 
@@ -166,15 +167,16 @@ class Mamba2LM(torch.nn.Module):
     def forward(self, params, tokens, last_only=False):
         cfg = self.cfg
         x = embed_tokens(params, tokens, cfg.d_model, self.dtype)
+        step = L.remat(self._block_train, cfg.remat)     # each layer
         for li in range(cfg.n_layers):
-            x = self._block_train(params["blocks"], li, x)
+            x = step(params["blocks"], li, x)
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
         return tied_logits(params, x)
 
     def loss(self, params, batch):
-        """The training loss's value (no backward in this package yet)."""
+        """The training loss: mean next-token NLL in f32."""
         return nll(self.forward(params, batch["tokens"]), batch["targets"]).mean()
 
     # ------------------------------------------------------------ decode --

@@ -261,20 +261,29 @@ class TransformerLM(torch.nn.Module):
         for li in range(self.head_layers):
             x, _ = _attn_apply(params["head_attn"], x, li, cfg, pos, None)
             x, _ = _ffn_apply(params["head_ffn"], x, li, cfg, moe=False)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for li in range(self.n_groups):
+
+        def group_step(x, aux, li):
             for gi in range(self.group):
                 w = cfg.window_pattern[gi]
                 x, _ = _attn_apply(params[f"attn{gi}"], x, li, cfg, pos, w)
                 x, a = _ffn_apply(params[f"ffn{gi}"], x, li, cfg, moe=cfg.moe)
-                aux_total = aux_total + a
+                aux = aux + a
+            return x, aux
+
+        # each layer group recomputed in the backward, nothing saved inside
+        # it (the reference's nothing_saveable policy)
+        step = L.remat(group_step, cfg.remat)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for li in range(self.n_groups):
+            x, aux_total = step(x, aux_total, li)
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
         return tied_logits(params, x), aux_total
 
     def loss(self, params, batch):
-        """The training loss's value (no backward in this package yet)."""
+        """The training loss: masked mean NLL in f32 plus 0.01 x the MoE
+        load-balance loss."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch["tokens"],
                                    batch.get("patch_embeds"))

@@ -43,7 +43,12 @@ def test_module_list_covers_the_port():
         {f"repro_torch.configs.{m}" for m in ("base", "gemma3_12b")} | \
         {"repro_torch.launch.serve"}
     assert lm <= set(MODULES), lm - set(MODULES)
-    assert len(MODULES) >= 65
+    train = {f"repro_torch.train.{m}" for m in
+             ("optimizer", "data", "checkpoint")} | \
+        {"repro_torch.train", "repro_torch.tree", "repro_torch.launch.train",
+         "repro_torch.launch.mesh"}
+    assert train <= set(MODULES), train - set(MODULES)
+    assert len(MODULES) >= 72
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -112,11 +117,31 @@ def test_serving_modules_load_alone():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_training_modules_load_alone():
+    """The training path (``repro_torch.train.*``, ``repro_torch.launch.
+    train`` and ``repro_torch.launch.mesh``), imported on its own in a
+    fresh interpreter, loads neither JAX, ``ml_dtypes`` nor the
+    reference."""
+    code = ("import sys\n"
+            "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+            "import repro_torch.train.optimizer, repro_torch.train.data\n"
+            "import repro_torch.train.checkpoint\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m.startswith('ml_dtypes'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_and_import_no_reference():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert {f.name for f in examples} >= {"quickstart_torch.py",
                                           "query_service_torch.py",
-                                          "serve_lm_torch.py"}
+                                          "serve_lm_torch.py",
+                                          "train_tiny_lm_torch.py"}
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
         examples + [ROOT / "chip_smoke.py"]
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
@@ -125,7 +150,9 @@ def test_sources_name_no_jax_and_import_no_reference():
             "core/lattice.py", "execution/executor.py", "models/api.py",
             "models/layers.py", "models/transformer.py", "models/ssm.py",
             "models/griffin.py", "models/encdec.py", "configs/base.py",
-            "launch/serve.py"} <= names
+            "launch/serve.py", "launch/train.py", "launch/mesh.py",
+            "train/optimizer.py", "train/data.py", "train/checkpoint.py",
+            "tree.py"} <= names
     for f in files:
         text = f.read_text()
         assert not re.search(r"\bjax\b", text), f"{f} names jax"

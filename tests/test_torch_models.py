@@ -229,7 +229,7 @@ def ref_batch(cfg):
 
 @pytest.mark.parametrize("arch", rapi.ARCH_IDS)
 def test_reduced_smoke_loss_and_decode(arch):
-    """The loss's value (no backward yet) is finite and within 1 % of the
+    """The loss's value is finite and within 1 % of the
     reference's on carried params; one decode step at position 3 gives
     finite (2, vocab) logits and keeps the cache's structure."""
     rm, rp, tm, tp = pair(arch, 0)
