@@ -205,6 +205,26 @@ Phases, in order, none of them caught:
      run's final loss, and ``examples/train_tiny_lm_torch.py``, as
      processes.  Launch counters read around r1-r5, the deterministic
      process's included: all zero.
+ 14. dry-run — the dry-run tooling (``launch.dryrun``, ``roofline``,
+     ``report``, ``distributed.ctx``; torch ops on meta tensors, none of
+     the kernels): y1, r1's cell (mamba2_370m at full width, seq 4,096,
+     global batch 16 as 2 microbatches of 8, remat on) measured by
+     ``dryrun._measure`` on meta tensors over ``Mesh((1, 1))`` (in a
+     worker process, as y2's and y3's, while the card runs), and the
+     same step on the card's tensors (r1's weights and first batch) under
+     the same ``FlopCounterMode`` and byte-counting mode: FLOPs and bytes
+     accessed equal exactly, argument bytes equal the state's and the
+     batch's on the card, the predicted peak over
+     ``max_memory_allocated`` inside [0.5, 1.05], the roofline bound at
+     the H100's peaks at most the measured median of 3 steps (CUDA
+     events), the ratio printed.  y2, m1's decode step (gemma3_12b at full
+     width, f32 masters as the dry-run's decode cell reads them, batch 4,
+     cache 1,152, position 1,040), the same checks over 10 steps.  y3,
+     ``run_cell`` on the single-pod mesh for ``Y3_CELLS`` (every arch's
+     ``decode_32k``, and mamba2_370m's ``prefill_32k``: the cells that
+     take seconds on meta; the rest, minutes a cell, are left to the CLI
+     and listed), their table through ``report.render``.  Launch counters read around y1-y3:
+     all zero.
 On every path the evaluates make one launch a chunk: ``ChunkCalls``
 counts the MPDP-general, MPDP:Tree and batched DPSUB chunk bodies.
 The last three lines of standard output are a JSON object with one entry
@@ -212,6 +232,7 @@ per kernel, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import gc
 import itertools
 import json
 import multiprocessing
@@ -251,7 +272,8 @@ from repro_torch.daemon import (DaemonClient, DaemonError,  # noqa: E402
 from repro_torch.execution import executor as ex  # noqa: E402
 from repro_torch.heuristics import goo, idp, uniondp  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, report, roofline, serve  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
@@ -261,7 +283,6 @@ from repro_torch.train.optimizer import init_train_state  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves, leaves_with_path  # noqa: E402
 from repro_torch.workloads import generators as gen  # noqa: E402
 
-HBM_BYTES_S = 3.35e12                 # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_S = 132 * 64 * 1.98e9       # 132 SMs x 64 INT32 lanes x 1.98 GHz
 OPS_PER_STEP = 3                      # one set-bit step: ffs, row load, OR
 OPS_PER_LANE = 12                     # per-lane decode, loads, stores
@@ -896,7 +917,7 @@ def measure(name, args, row: dict, work) -> None:
     nbytes, ops_n = work
     ms = event_ms(lambda: call(name, args), 100)
     plain_ms = event_ms(lambda: call(name, args, plain=True), 10)
-    t_b = nbytes / HBM_BYTES_S * 1e3
+    t_b = nbytes / roofline.HBM_BW * 1e3
     t_o = ops_n / INT32_OPS_S * 1e3
     row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, int32_ops=ops_n,
                bound_ms=max(t_b, t_o),
@@ -3181,7 +3202,7 @@ def serve_m1():
     max_len = int(M1_ARGV[M1_ARGV.index("--max-len") + 1])
     w_bytes = api.tree_bytes(res.params)
     c_bytes = api.tree_bytes(res.cache)
-    bound_ms = (w_bytes + c_bytes) / HBM_BYTES_S * 1e3
+    bound_ms = (w_bytes + c_bytes) / roofline.HBM_BW * 1e3
     steps = np.asarray(res.step_ms)
     med = float(np.median(steps[1:]))
     log(f"serve m1 gemma3_12b full width ({cfg.param_count() / 1e9:.2f} B "
@@ -3416,7 +3437,6 @@ R1_MICRO = 2                                      # microbatches of 8
 R1_STEPS = 6
 R1_DET_STEPS = 4                                  # deterministic, as launch.train
 R1_DET_FLAG = "--train-r1-deterministic"          # the subprocess that runs them
-BF16_PEAK = 989.4e12                              # H100 SXM dense bf16 FLOP/s
 R2_SEQ = 256
 R5_ARGS = ["--arch", "mamba2_370m", "--reduced", "--steps", "12", "--batch",
            "2", "--seq", "32", "--ckpt-every", "4", "--log-every", "50"]
@@ -3528,7 +3548,7 @@ def train_r1():
     peak, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
     tokens = R1_BATCH * R1_SEQ
     n_active = cfg.active_param_count()
-    bound_s = 6 * n_active * tokens / BF16_PEAK
+    bound_s = 6 * n_active * tokens / roofline.PEAK_FLOPS
     warm = np.asarray(ms[1:])
     med = float(np.median(warm))
     log(f"train r1 {R1_ARCH} full width ({n_params} params, {cfg.n_layers} "
@@ -3768,6 +3788,216 @@ def phase_train():
     return trn
 
 
+# --------------------------------------------------------------- phase 14 --
+
+Y1_STEPS = 3                     # timed steps after the counting run
+Y2_ARCH = "gemma3_12b"           # m1's model, batch, cache length
+Y2_BATCH, Y2_LEN, Y2_POS = 4, 1152, 1040
+Y2_STEPS = 10
+PEAK_RATIO = (0.5, 1.05)         # predicted peak over max_memory_allocated
+# y3: run_cell on the single-pod mesh, the cells that fit the phase's
+# 180 s: all ten archs' decode_32k and mamba2_370m's prefill_32k, about a
+# second each on meta and 6.6 s; every other train_4k and prefill_32k
+# cell takes 0.5-5 minutes there (seamless_m4t_medium's prefill_32k
+# 121.5 s on the card's host, PERF.md)
+Y3_CELLS = [(a, "decode_32k") for a in api.ARCH_IDS] + [
+    ("mamba2_370m", "prefill_32k")]
+Y3_LEFT = [(a, s) for a in api.ARCH_IDS for s in ("train_4k", "prefill_32k",
+                                                  "decode_32k")
+           if (a, s) not in Y3_CELLS]
+
+
+MESH_1X1 = Mesh((1, 1), ("data", "model"))
+Y_CELLS = {   # label: (arch, shape, dry-run keywords)
+    "y1": (R1_ARCH, dataclasses.replace(SHAPES["train_4k"], name="r1",
+                                        seq_len=R1_SEQ, global_batch=R1_BATCH),
+           {"microbatches": R1_MICRO}),
+    "y2": (Y2_ARCH, dataclasses.replace(SHAPES["decode_32k"], name="m1",
+                                        seq_len=Y2_LEN, global_batch=Y2_BATCH),
+           {"pos": Y2_POS}),
+}
+
+
+def dry_meta(label: str):
+    """The dry-run's side of phase 14 (in a worker process, no card):
+    ``_measure`` of y1 or y2 on ``Mesh((1, 1))`` (its counting run's
+    outputs dropped), or ``run_cell`` of each y3 cell ("y3")."""
+    torch.set_num_threads(1)
+    if label == "y3":
+        return [dryrun.run_cell(a, s, "single") for a, s in Y3_CELLS]
+    arch, shape, kw = Y_CELLS[label]
+    m = dryrun._measure(api.get_config(arch), shape, MESH_1X1, **kw)
+    del m["counted"]
+    return m
+
+
+def same_layout(label, meta_args, card_args) -> None:
+    """Raise unless the card's arguments have the meta ones' structure,
+    shapes and dtypes."""
+    want = [(tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else t
+            for t in dryrun._flat(meta_args)]
+    got = [(tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else t
+           for t in dryrun._flat(card_args)]
+    if want != got:
+        raise AssertionError(f"{label}: the card's arguments {got} differ from "
+                             f"the meta cell's {want}")
+
+
+def dry_hold(label, cell_label, meta, card_args, pos_bytes: int,
+             steps: int) -> None:
+    """One cell's step on the card's arguments under the dry-run's counters,
+    held against its meta measurement (``meta``, a future of
+    ``dry_meta(cell_label)``): FLOPs and bytes accessed equal, argument
+    bytes equal the card's, the predicted peak over
+    ``max_memory_allocated`` inside ``PEAK_RATIO``, the roofline bound at
+    most the measured median step (CUDA events).  ``card_args`` builds
+    the arguments on the card, so the peak is read above the bytes
+    allocated before them."""
+    arch, shape, kw = Y_CELLS[cell_label]
+    cell = dryrun.lower_cell(api.get_config(arch), shape, MESH_1X1, shape.kind,
+                             **kw)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = card_args()
+    build_s = time.perf_counter() - t0
+    same_layout(label, cell.args, args)
+    arg_bytes = sum(x.numel() * x.element_size() for x in dryrun._flat(args)
+                    if isinstance(x, torch.Tensor)) + pos_bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = dryrun.count(cell.fn, args, DEV)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del card["out"]
+    ms = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = cell.fn(*args)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        del out
+    med = float(np.median(ms))
+    m = meta.result()
+    tot = m["totals"]
+    terms = roofline.roofline_terms(m["flops"], m["bytes_accessed"],
+                                    m["collectives"]["total"], 1)
+    bound_ms = terms["step_s_lower_bound"] * 1e3
+    ratio = tot["peak_bytes"] / peak
+    log(f"dry-run {label} on Mesh((1, 1)): meta {tot['flops']} FLOPs, "
+        f"{tot['bytes_accessed']} B accessed (counting run {m['compile_s']} s "
+        f"in a worker process) == cuda {card['flops']} FLOPs, "
+        f"{card['bytes_accessed']} B (counting run {card['seconds']:.1f} s); "
+        f"arguments {m['memory']['argument_size_in_bytes']} B == the card's "
+        f"{arg_bytes} B (built in {build_s:.1f} s); predicted peak "
+        f"{tot['peak_bytes']} B (temp {m['memory']['temp_size_in_bytes']} B), "
+        f"the card's max_memory_allocated {peak} B above the {base} B held "
+        f"before, ratio {ratio:.4f} (inside {PEAK_RATIO}); roofline compute "
+        f"{terms['compute_s'] * 1e3:.3f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({terms['bottleneck']}) against the measured median "
+        f"{med:.3f} ms ({steps} steps by CUDA events {[round(x, 3) for x in ms]}),"
+        f" measured / bound {med / bound_ms:.3f}")
+    bad = []
+    if (tot["flops"], tot["bytes_accessed"]) != (card["flops"],
+                                                 card["bytes_accessed"]):
+        bad.append("meta and cuda counts differ")
+    if m["memory"]["argument_size_in_bytes"] != arg_bytes:
+        bad.append("argument bytes differ from the card's")
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        bad.append(f"peak ratio {ratio:.4f} outside {PEAK_RATIO}")
+    if bound_ms > med:
+        bad.append(f"bound {bound_ms:.3f} ms above the measured {med:.3f} ms")
+    if bad:
+        raise AssertionError(f"dry-run {label}: " + "; ".join(bad))
+
+
+def dry_y1(meta) -> None:
+    """y1: r1's cell (mamba2_370m at full width, seq 4,096, global batch 16
+    as 2 microbatches, remat on, weights from the seed r1 draws them
+    with, SyntheticLM's first batch)."""
+    def build():
+        _, state, _, data = r1_setup()
+        return state, {k: v.to(DEV) for k, v in data.batch_at(0).items()}
+    dry_hold("y1 r1 mamba2_370m train", "y1", meta, build, 0, Y1_STEPS)
+
+
+def dry_y2(meta) -> None:
+    """y2: m1's decode step (gemma3_12b at full width, batch 4, cache 1,152,
+    position 1,040) on the dry-run's decode cell: the f32 masters it
+    reads (as the reference's cell), drawn on the card from a seed; the
+    cache and the token random from the same generator."""
+    cfg = api.get_config(Y2_ARCH)
+
+    def build():
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        model = api.build_model(cfg)
+        params = model.init_params(gen)
+        cache = api.tree_map(
+            lambda t: torch.randn(t.shape, generator=gen, device=DEV).to(t.dtype),
+            model.init_cache(Y2_BATCH, Y2_LEN, "meta"))
+        token = torch.randint(0, cfg.vocab, (Y2_BATCH, 1), generator=gen,
+                              device=DEV, dtype=torch.int32)
+        return params, cache, token, Y2_POS
+    dry_hold("y2 m1 gemma3_12b decode", "y2", meta, build, dryrun.POS_BYTES,
+             Y2_STEPS)
+
+
+def dry_y3(meta) -> None:
+    """y3: ``run_cell`` on the single-pod mesh for ``Y3_CELLS`` (``meta``, a
+    future of ``dry_meta("y3")``); their table through
+    ``report.render``."""
+    recs = {}
+    for rec in meta.result():
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run y3: {rec}")
+        recs[f"{rec['arch']}|{rec['shape']}|single"] = rec
+        log(f"dry-run y3 {rec['arch']} {rec['shape']} single: counting run "
+            f"{rec['compile_s']} s, {rec['flops']:.6g} FLOPs and "
+            f"{rec['bytes_accessed']:.6g} B a device, collectives "
+            f"{rec['collectives']['total']:.6g} B, bound "
+            f"{rec['roofline']['step_s_lower_bound'] * 1e3:.4f} ms "
+            f"({rec['roofline']['bottleneck']}), useful "
+            f"{rec['useful_compute_ratio']:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dryrun_torch.json")
+        with open(path, "w") as f:
+            json.dump(recs, f)
+        report.render(path, "single", fh=sys.stdout)
+    sys.stdout.flush()
+    log(f"dry-run y3: {len(Y3_CELLS)} cells, counting runs "
+        f"{sum(r['compile_s'] for r in recs.values()):.1f} s in a worker "
+        f"process; left to the CLI on a host (minutes a cell on meta): "
+        + ", ".join(f"{a} {s}" for a, s in Y3_LEFT))
+
+
+def phase_dryrun():
+    """The dry-run tooling: y1-y3, the meta measurements in worker
+    processes while the card runs y1's and y2's steps.  Launch counters
+    read around exactly y1-y3: the path runs none of the kernels.
+    Returns the launches."""
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"dry-run: {torch.cuda.memory_allocated()} B allocated at the start")
+    ops.reset_launches()
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=3, mp_context=spawn) as pool:
+        meta = {k: pool.submit(dry_meta, k) for k in ("y1", "y2", "y3")}
+        dry_y1(meta["y1"])
+        dry_y2(meta["y2"])
+        dry_y3(meta["y3"])
+    dry = dict(ops.LAUNCHES)
+    log("launches on the dry-run path: " + json.dumps(dry))
+    if any(dry.values()):
+        raise AssertionError(f"dry-run path: launches {dry}; the dry-run runs "
+                             f"none of the kernels")
+    log(f"dry-run path (phase 14): {time.perf_counter() - t_start:.1f} s")
+    return dry
+
+
 def main() -> int:
     if sys.argv[1:] == [R1_DET_FLAG]:
         return r1_deterministic_worker()
@@ -3861,13 +4091,17 @@ def main() -> int:
 
     trn = phase_train()
     log(f"phase train path done at {time.perf_counter() - t_start:.1f} s")
+
+    dry = phase_dryrun()
+    log(f"phase dry-run path done at {time.perf_counter() - t_start:.1f} s")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     out = [{"name": k, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ccp_eval.cu",
             "replaces": KERNELS[k][2],
             "launches": (batched[k] + solo[k] + typed[k] + heur[k] + svc[k]
-                         + dmn[k] + shd[k] + exe[k] + srv[k] + trn[k]),
+                         + dmn[k] + shd[k] + exe[k] + srv[k] + trn[k]
+                         + dry[k]),
             "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
             "bound_by": rows[k]["bound_by"], "library_ms": None}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
+from ..distributed.ctx import hint
 from .transformer import (_attn_params, _ffn_apply, _ffn_params, alloc_cache,
                           embed_tokens, nll, positions, tied_logits)
 
@@ -127,7 +128,7 @@ class EncDecLM(torch.nn.Module):
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
-        return tied_logits(params, x)
+        return hint(tied_logits(params, x), "logits")
 
     def loss(self, params, batch):
         """The training loss: mean next-token NLL in f32."""

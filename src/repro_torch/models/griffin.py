@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
+from ..distributed.ctx import hint
 from .transformer import (_attn_apply, _attn_params, _ffn_apply, _ffn_params,
                           alloc_cache, embed_tokens, layer_cache, nll,
                           positions, tied_logits)
@@ -58,7 +59,7 @@ def _rec_apply(p, x, li, cfg, state=None):
     B, S, D = x.shape
     W = cfg.lru_width or D
     hx = L.rms_norm(x, p["ln"][li])
-    u = hx @ p["w_x"][li].to(hx.dtype)                    # (B,S,W)
+    u = hint(hx @ p["w_x"][li].to(hx.dtype), "proj")      # (B,S,W)
     gates = L._sigmoid((hx @ p["w_gate"][li].to(hx.dtype)).float())
     r, i = gates[..., :W], gates[..., W:]
     w = p["conv_w"][li].to(u.dtype)
@@ -67,7 +68,8 @@ def _rec_apply(p, x, li, cfg, state=None):
         pad = torch.nn.functional.pad(u, (0, 0, K - 1, 0))
         conv = sum(pad[:, k: k + S, :] * w[k] for k in range(K))
         h = _rglru_scan(conv, r, i, p["lam"][li])
-        return x + (h * L.gelu(u)) @ p["w_out"][li].to(x.dtype), None
+        return hint(x + (h * L.gelu(u)) @ p["w_out"][li].to(x.dtype),
+                    "act"), None
     hist = torch.cat([state["conv"], u], dim=1)
     conv = torch.einsum("bkc,kc->bc", hist, w)[:, None, :]
     a, gated = _gates(r, i, conv, p["lam"][li])
@@ -132,7 +134,7 @@ class GriffinLM(torch.nn.Module):
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
-        return tied_logits(params, x)
+        return hint(tied_logits(params, x), "logits")
 
     def loss(self, params, batch):
         """The training loss: mean next-token NLL in f32."""

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from ..distributed.ctx import hint
+
 NEG_INF = -1e30
 
 
@@ -230,12 +232,12 @@ def _moe_ffn_tokens(xt, params, n_experts, top_k, act, capacity_factor):
                                                n_experts, top_k,
                                                capacity_factor)
     dt = xt.dtype
-    xe = torch.einsum("tec,td->ecd", dispatch.to(dt), xt)
+    xe = hint(torch.einsum("tec,td->ecd", dispatch.to(dt), xt), "expert")
     gate_up = torch.einsum("ecd,edf->ecf", xe, params["wi"].to(dt))
     f = params["wo"].shape[1]
     g, u = gate_up[..., :f], gate_up[..., f:]
     h = ACT[act](g) * u
-    ye = torch.einsum("ecf,efd->ecd", h, params["wo"].to(dt))
+    ye = hint(torch.einsum("ecf,efd->ecd", h, params["wo"].to(dt)), "expert")
     y = torch.einsum("tec,ecd->td", combine.to(dt), ye)
     return y, aux
 

@@ -14,6 +14,7 @@ import functools
 import torch
 
 from . import layers as L
+from ..distributed.ctx import hint
 from .transformer import alloc_cache, embed_tokens, nll, tied_logits
 
 
@@ -136,7 +137,7 @@ class Mamba2LM(torch.nn.Module):
         """in_proj split -> (z, xBC, dt)."""
         cfg = self.cfg
         di, n = self.d_inner, cfg.ssm_state
-        zxbcdt = x @ p["in_proj"][li].to(x.dtype)
+        zxbcdt = hint(x @ p["in_proj"][li].to(x.dtype), "proj")
         z = zxbcdt[..., :di]
         xBC = zxbcdt[..., di: 2 * di + 2 * n]
         dt = L.softplus(zxbcdt[..., 2 * di + 2 * n:].float() + p["dt_bias"][li])
@@ -173,7 +174,7 @@ class Mamba2LM(torch.nn.Module):
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
-        return tied_logits(params, x)
+        return hint(tied_logits(params, x), "logits")
 
     def loss(self, params, batch):
         """The training loss: mean next-token NLL in f32."""

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from . import layers as L
+from ..distributed.ctx import hint
 
 
 def _zeros(shape, device):
@@ -98,7 +99,7 @@ def _attn_apply(p, x, li, cfg, positions, window, cache=None, cache_len=None):
     dt = h.dtype
     if cfg.mla:
         return _mla_apply(p, h, x, li, cfg, positions, cache, cache_len)
-    q = (h @ p["wq"][li].to(dt)).reshape(B, S, H, Hd)
+    q = hint(h @ p["wq"][li].to(dt), "proj").reshape(B, S, H, Hd)
     k = (h @ p["wk"][li].to(dt)).reshape(B, S, KV, Hd)
     v = (h @ p["wv"][li].to(dt)).reshape(B, S, KV, Hd)
     q = L.rope(q, positions, cfg.rope_theta)
@@ -115,7 +116,7 @@ def _attn_apply(p, x, li, cfg, positions, window, cache=None, cache_len=None):
         o = L.decode_attention(q, cache["k"], cache["v"],
                                min(cache_len + 1, Smax))
     o = o.reshape(B, S, H * Hd) @ p["wo"][li].to(dt)
-    return x + o, cache
+    return hint(x + o, "act"), cache
 
 
 def _mla_apply(p, h, x, li, cfg, positions, cache, cache_len):
@@ -139,7 +140,7 @@ def _mla_apply(p, h, x, li, cfg, positions, cache, cache_len):
         qq = torch.cat([q_nope, q_rope], dim=-1)
         o = L.causal_attention(qq, k, v, window=None)
         o = o.reshape(B, S, H * vh) @ p["wo"][li].to(dt)
-        return x + o, None
+        return hint(x + o, "act"), None
     # decode: absorbed formulation against the latent cache, contracted in
     # f32 against the f32 masters of w_uk / w_uv
     cc, cr = cache["c_kv"], cache["k_rope"]
@@ -176,13 +177,13 @@ def _ffn_apply(p, x, li, cfg, moe: bool):
             y = y + (L.ACT[cfg.act](gu[..., :f]) * gu[..., f:]) \
                 @ p["shared_wo"][li].to(dt)
     else:
-        gu = h @ p["wi"][li].to(dt)
+        gu = hint(h @ p["wi"][li].to(dt), "proj")
         if cfg.glu:
             f = p["wo"].shape[1]
             y = (L.ACT[cfg.act](gu[..., :f]) * gu[..., f:]) @ p["wo"][li].to(dt)
         else:
             y = L.ACT[cfg.act](gu) @ p["wo"][li].to(dt)
-    return x + y, aux
+    return hint(x + y, "act"), aux
 
 
 def layer_cache(cache: dict, li: int) -> dict:
@@ -190,13 +191,17 @@ def layer_cache(cache: dict, li: int) -> dict:
     return {k: v[li] for k, v in cache.items()}
 
 
-def nll(logits, tgt):
+def nll(logits, tgt, hinted: bool = False):
     """Per-token ``logsumexp - gold`` in f32; a negative target reads the
-    last class, as numpy's (and the reference's) negative index does."""
+    last class, as numpy's (and the reference's) negative index does.
+    ``hinted``: both terms pass through ``hint(.., "vec")``, as in the
+    reference's transformer loss (its other families hint neither)."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
     idx = torch.where(tgt < 0, tgt + lg.shape[-1], tgt).long()
     gold = torch.gather(lg, -1, idx[..., None])[..., 0]
+    if hinted:
+        lse, gold = hint(lse, "vec"), hint(gold, "vec")
     return lse - gold
 
 
@@ -247,7 +252,8 @@ class TransformerLM(torch.nn.Module):
 
     # ----------------------------------------------------------- forward --
     def _embed(self, params, tokens, patch_embeds=None):
-        x = embed_tokens(params, tokens, self.cfg.d_model, self.dtype)
+        x = hint(embed_tokens(params, tokens, self.cfg.d_model, self.dtype),
+                 "act")
         if patch_embeds is not None:
             pe = patch_embeds.to(self.dtype) @ params["patch_proj"].to(self.dtype)
             x = torch.cat([pe, x], dim=1)
@@ -279,7 +285,7 @@ class TransformerLM(torch.nn.Module):
         x = L.rms_norm(x, params["final_ln"])
         if last_only:
             x = x[:, -1:]
-        return tied_logits(params, x), aux_total
+        return hint(tied_logits(params, x), "logits"), aux_total
 
     def loss(self, params, batch):
         """The training loss: masked mean NLL in f32 plus 0.01 x the MoE
@@ -291,7 +297,8 @@ class TransformerLM(torch.nn.Module):
         if cfg.n_patches:
             logits = logits[:, -tgt.shape[1]:]
         mask = (tgt >= 0).float()
-        total = (nll(logits, tgt) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        total = (nll(logits, tgt, hinted=True) * mask).sum() \
+            / torch.clamp_min(mask.sum(), 1.0)
         return total + 0.01 * aux
 
     # ------------------------------------------------------------ decode --
@@ -339,7 +346,7 @@ class TransformerLM(torch.nn.Module):
                                    cache_len=pos)
                 x, _ = _ffn_apply(params[f"ffn{gi}"], x, li, cfg, moe=cfg.moe)
         x = L.rms_norm(x, params["final_ln"])
-        return tied_logits(params, x)[:, 0], cache
+        return hint(tied_logits(params, x), "logits")[:, 0], cache
 
     def prefill(self, params, tokens):
         """Returns final logits after processing the prompt (cache omitted:

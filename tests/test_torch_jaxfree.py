@@ -16,6 +16,8 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
+DRYRUN = {"repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+          "repro_torch.launch.report", "repro_torch.distributed.ctx"}
 
 
 def test_module_list_covers_the_port():
@@ -48,7 +50,8 @@ def test_module_list_covers_the_port():
         {"repro_torch.train", "repro_torch.tree", "repro_torch.launch.train",
          "repro_torch.launch.mesh"}
     assert train <= set(MODULES), train - set(MODULES)
-    assert len(MODULES) >= 72
+    assert DRYRUN <= set(MODULES), DRYRUN - set(MODULES)
+    assert len(MODULES) >= 76
 
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -136,6 +139,24 @@ def test_training_modules_load_alone():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_dryrun_modules_load_alone():
+    """The dry-run tooling (``repro_torch.launch.dryrun``, ``roofline``,
+    ``report`` and ``repro_torch.distributed.ctx``), imported on its own
+    in a fresh interpreter, loads neither JAX, ``ml_dtypes`` nor the
+    reference."""
+    code = ("import sys\n"
+            f"for m in {sorted(DRYRUN)!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+            "or m.startswith('ml_dtypes'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_and_import_no_reference():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert {f.name for f in examples} >= {"quickstart_torch.py",
@@ -152,7 +173,8 @@ def test_sources_name_no_jax_and_import_no_reference():
             "models/griffin.py", "models/encdec.py", "configs/base.py",
             "launch/serve.py", "launch/train.py", "launch/mesh.py",
             "train/optimizer.py", "train/data.py", "train/checkpoint.py",
-            "tree.py"} <= names
+            "tree.py", "launch/dryrun.py", "launch/roofline.py",
+            "launch/report.py", "distributed/ctx.py"} <= names
     for f in files:
         text = f.read_text()
         assert not re.search(r"\bjax\b", text), f"{f} names jax"
