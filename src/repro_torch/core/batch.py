@@ -371,9 +371,6 @@ class _LevelLoop:
         finally:
             st.join()
 
-    def _time(self, key: str, t0: float) -> None:
-        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
-
     @property
     def stats(self) -> dict:
         """Kernel launches made since this engine was built, per kernel
@@ -540,14 +537,13 @@ class BatchEngine(_LevelLoop):
         ``_filter_collect``'s, so the pipelined driver can run it under the
         previous level's evaluate.  Each launch passes the ``"chunk"``
         fault site."""
-        t0 = time.perf_counter()
-        ctx = self._filter_begin(i)
-        for lane0 in range(0, ctx["total"], SPAN):
-            self._filter_step(ctx, i, lane0)
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._filter_drain(ctx, self.pend_window)
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            ctx = self._filter_begin(i)
+            for lane0 in range(0, ctx["total"], SPAN):
+                self._filter_step(ctx, i, lane0)
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                self._filter_drain(ctx, self.pend_window)
         return ctx
 
     def _filter_begin(self, i: int) -> dict:
@@ -576,39 +572,40 @@ class BatchEngine(_LevelLoop):
         while len(pend) > limit:
             S, conn, qid = pend.popleft()
             keep = conn != 0
-            got = torch.stack([S[keep], qid[keep]]).cpu().numpy()
+            with _telemetry.span("engine.fetch"):
+                got = torch.stack([S[keep], qid[keep]]).cpu().numpy()
             Sc, qc = got[0], got[1]
             for q in np.unique(qc):
                 per_q[q].append(Sc[qc == q])
 
     def _filter_collect(self, ctx: dict) -> list[np.ndarray]:
         """Drain the remaining filter chunks into per-query set lists."""
-        t0 = time.perf_counter()
-        self._filter_drain(ctx, 0)
-        sets_by_q = [np.concatenate(l) if l else np.zeros(0, np.int32)
-                     for l in ctx["per_q"]]
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            self._filter_drain(ctx, 0)
+            sets_by_q = [np.concatenate(l) if l else np.zeros(0, np.int32)
+                         for l in ctx["per_q"]]
         return sets_by_q
 
     def _register_level(self, i: int, sets_by_q: list[np.ndarray]) -> None:
         """Host rows (canonical helper) + all_sets/memo_rows registration."""
-        t0 = time.perf_counter()
-        idx_l, rows_l, pos_l, set_l = [], [], [], []
-        for q, sets_q in enumerate(sets_by_q):
-            self._level_off[q][i] = self._next_off[q]
-            if not len(sets_q):
-                continue
-            base = q << self.nmax
-            idx_l.append(base + sets_q.astype(np.int64))
-            rows_l.append(cm.np_rows_for_sets(sets_q, self.graphs[q]))
-            pos_l.append(base + self._next_off[q]
-                         + np.arange(len(sets_q), dtype=np.int64))
-            set_l.append(sets_q)
-            self._next_off[q] += len(sets_q)
-        if idx_l:
-            self._scatter(np.concatenate(idx_l), rows=np.concatenate(rows_l))
-            self._set_all_sets(np.concatenate(pos_l), np.concatenate(set_l))
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            idx_l, rows_l, pos_l, set_l = [], [], [], []
+            for q, sets_q in enumerate(sets_by_q):
+                self._level_off[q][i] = self._next_off[q]
+                if not len(sets_q):
+                    continue
+                base = q << self.nmax
+                idx_l.append(base + sets_q.astype(np.int64))
+                rows_l.append(cm.np_rows_for_sets(sets_q, self.graphs[q]))
+                pos_l.append(base + self._next_off[q]
+                             + np.arange(len(sets_q), dtype=np.int64))
+                set_l.append(sets_q)
+                self._next_off[q] += len(sets_q)
+            if idx_l:
+                self._scatter(np.concatenate(idx_l),
+                              rows=np.concatenate(rows_l))
+                self._set_all_sets(np.concatenate(pos_l),
+                                   np.concatenate(set_l))
 
     # ---------------------------------------------------------- evaluate ---
     def _commit_best(self, sets_by_q, best_cost, best_left) -> None:
@@ -632,16 +629,16 @@ class BatchEngine(_LevelLoop):
     def _eval_dispatch(self, i: int, sets_by_q: list[np.ndarray]):
         """Segmented lane spaces (DPSUB ``sets x 2^i``, tree ``sets x m``):
         lanes of query q are contiguous, ``ns_q * mult_q`` long."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         ctx = self._eval_begin(i, sets_by_q)
         if ctx is None:
             return None
-        for j in range(len(ctx["lane0s"])):
-            self._eval_step(ctx, i, j)
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._eval_drain(ctx, self.pend_window)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate", t0):
+            for j in range(len(ctx["lane0s"])):
+                self._eval_step(ctx, i, j)
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                self._eval_drain(ctx, self.pend_window)
         return ctx
 
     def _eval_begin(self, i: int, sets_by_q: list[np.ndarray]):
@@ -714,35 +711,34 @@ class BatchEngine(_LevelLoop):
         best (cost, left) per set to the memo."""
         if ctx is None:
             return
-        t0 = time.perf_counter()
-        self._eval_drain(ctx, 0)
-        for q in range(self.B):
-            self.counters[q].evaluated += int(ctx["ev"][q])
-            self.counters[q].ccp += int(ctx["ccp"][q])
-        self._commit_best(sets_by_q, ctx["best_cost"], ctx["best_left"])
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate"):
+            self._eval_drain(ctx, 0)
+            for q in range(self.B):
+                self.counters[q].evaluated += int(ctx["ev"][q])
+                self.counters[q].ccp += int(ctx["ccp"][q])
+            self._commit_best(sets_by_q, ctx["best_cost"], ctx["best_left"])
 
     # ------------------------------------------------- MPDP-general phase --
     def _pairs_level(self, sets_by_q: list[np.ndarray]):
         """Phase A per query, fused into global (set, block, qid, segment)
         pair arrays."""
-        t0 = time.perf_counter()
-        soff = 0
-        ps_l, pb_l, pq_l, pk_l = [], [], [], []
-        for q, sets_q in enumerate(sets_by_q):
-            if not len(sets_q):
-                continue
-            ps_q, pb_q = bl.np_pairs_for_sets(
-                sets_q, self.graphs[q], self.adj_b[q], self.eu_idx_b[q],
-                self.ev_idx_b[q], self.edge_live_b[q],
-                nmax=self.nmax, emax=self.emax, cyc_cap=self.cyc_cap)
-            ps_l.append(ps_q)
-            pb_l.append(pb_q)
-            pq_l.append(np.full(len(ps_q), q, np.int32))
-            # sets_q is ascending (colex rank order == ascending bitmap)
-            pk_l.append(soff + np.searchsorted(sets_q, ps_q).astype(np.int64))
-            soff += len(sets_q)
-        self._time("blocks", t0)
+        with _telemetry.stage(self.timings, "blocks"):
+            soff = 0
+            ps_l, pb_l, pq_l, pk_l = [], [], [], []
+            for q, sets_q in enumerate(sets_by_q):
+                if not len(sets_q):
+                    continue
+                ps_q, pb_q = bl.np_pairs_for_sets(
+                    sets_q, self.graphs[q], self.adj_b[q], self.eu_idx_b[q],
+                    self.ev_idx_b[q], self.edge_live_b[q],
+                    nmax=self.nmax, emax=self.emax, cyc_cap=self.cyc_cap)
+                ps_l.append(ps_q)
+                pb_l.append(pb_q)
+                pq_l.append(np.full(len(ps_q), q, np.int32))
+                # sets_q is ascending (colex rank order == ascending bitmap)
+                pk_l.append(soff
+                            + np.searchsorted(sets_q, ps_q).astype(np.int64))
+                soff += len(sets_q)
         if not ps_l:
             z = np.zeros(0, np.int32)
             return z, z, z, np.zeros(0, np.int64)
@@ -752,16 +748,16 @@ class BatchEngine(_LevelLoop):
     def _eval_general_dispatch(self, i: int, sets_by_q: list[np.ndarray], pairs):
         """Dispatch the level's block prefix-sum chunks over the fused pair
         arrays from ``_pairs_level``."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         ctx = self._eval_general_begin(sets_by_q, pairs)
         if ctx is None:
             return None
-        for lane0 in range(0, ctx["total"], self.chunk):
-            self._eval_general_step(ctx, lane0)
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._eval_general_drain(ctx, self.pend_window)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate", t0):
+            for lane0 in range(0, ctx["total"], self.chunk):
+                self._eval_general_step(ctx, lane0)
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                self._eval_general_drain(ctx, self.pend_window)
         return ctx
 
     def _eval_general_begin(self, sets_by_q: list[np.ndarray], pairs):
@@ -812,19 +808,19 @@ class BatchEngine(_LevelLoop):
                                ctx) -> None:
         if ctx is None:
             return
-        t0 = time.perf_counter()
-        self._eval_general_drain(ctx, 0)
-        best_cost = np.full(ctx["total_sets"], INF, np.float32)
-        best_left = np.zeros(ctx["total_sets"], np.int32)
-        for q in range(self.B):
-            self.counters[q].evaluated += int(ctx["ev"][q])
-            self.counters[q].ccp += int(ctx["ccp"][q])
-        if ctx["k"]:
-            _merge_scattered(best_cost, best_left, np.concatenate(ctx["k"]),
-                             np.concatenate(ctx["c"]),
-                             np.concatenate(ctx["l"]))
-        self._commit_best(sets_by_q, best_cost, best_left)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate"):
+            self._eval_general_drain(ctx, 0)
+            best_cost = np.full(ctx["total_sets"], INF, np.float32)
+            best_left = np.zeros(ctx["total_sets"], np.int32)
+            for q in range(self.B):
+                self.counters[q].evaluated += int(ctx["ev"][q])
+                self.counters[q].ccp += int(ctx["ccp"][q])
+            if ctx["k"]:
+                _merge_scattered(best_cost, best_left,
+                                 np.concatenate(ctx["k"]),
+                                 np.concatenate(ctx["c"]),
+                                 np.concatenate(ctx["l"]))
+            self._commit_best(sets_by_q, best_cost, best_left)
 
     # ------------------------------------------------------------ driver ---
     def collect(self) -> list[OptimizeResult]:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import bitset as bs
+from . import telemetry as _telemetry
 
 
 # ------------------------------------------------------------------ oracle --
@@ -242,8 +243,9 @@ def np_pairs_for_sets(sets_np, g, adj, eu_idx, ev_idx, edge_live,
                                           nmax=nmax, cyc_cap=eff_cap)
             both = torch.cat([merged, bridge], dim=1)
             nz = both != 0
-            got = torch.stack([Sd[:, None].expand_as(both)[nz],
-                               both[nz]]).cpu().numpy()
+            with _telemetry.span("engine.fetch"):
+                got = torch.stack([Sd[:, None].expand_as(both)[nz],
+                                   both[nz]]).cpu().numpy()
             pair_set.append(got[0])
             pair_block.append(got[1])
     else:
@@ -253,7 +255,9 @@ def np_pairs_for_sets(sets_np, g, adj, eu_idx, ev_idx, edge_live,
         for s0 in range(0, len(sets_np), scap):
             Sd = torch.from_numpy(np.ascontiguousarray(
                 sets_np[s0: s0 + scap], np.int32)).to(dev)
-            flags[s0: s0 + len(Sd)] = has_cut_vertex_batch(Sd, adj, nmax).cpu().numpy()
+            cut = has_cut_vertex_batch(Sd, adj, nmax)
+            with _telemetry.span("engine.fetch"):
+                flags[s0: s0 + len(Sd)] = cut.cpu().numpy()
         easy = sets_np[~flags]
         pair_set.append(easy)
         pair_block.append(easy)

@@ -61,6 +61,7 @@ from . import conflicts as cf
 from . import cost as cm
 from . import dpccp as _dpccp
 from . import faults
+from . import telemetry as _telemetry
 from . import unrank as ur
 from ..kernels import ops
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
@@ -119,7 +120,9 @@ def _scatter_into(buf: torch.Tensor, idx_np: np.ndarray, val_np) -> None:
 def _fetch(seg_cost, seg_left, ev_q, ccp_q):
     """One device->host copy of a chunk's results."""
     n = seg_cost.shape[0]
-    buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q, ccp_q]).cpu().numpy()
+    with _telemetry.span("engine.fetch"):
+        buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q,
+                         ccp_q]).cpu().numpy()
     return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + len(ev_q)],
             buf[2 * n + len(ev_q):])
 
@@ -375,9 +378,6 @@ class ExactEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _time(self, key: str, t0: float) -> None:
-        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
-
     # ------------------------------------------------------------- memo ----
     def _init_memo(self):
         kw = dict(device=self.device)
@@ -404,22 +404,22 @@ class ExactEngine:
     def _level_sets(self, i: int):
         """Connected sets of level i (unrank+filter, or frontier expansion),
         ascending."""
-        t0 = time.perf_counter()
-        if self.enum == "expand":
-            sets_np = self._level_sets_expand(i)
-        else:
-            sets_np = self._level_sets_unrank(i)
-        rows_np = cm.np_rows_for_sets(sets_np, self.g)
-        self._prev_level = sets_np
-        # scatter rows for this level; register in the packed level buffer
-        if len(sets_np):
-            self._scatter(sets_np, rows=rows_np)
-            _scatter_into(self.all_sets,
-                          self._next_off + np.arange(len(sets_np)), sets_np)
-        self.level_off[i] = self._next_off
-        self.level_cnt[i] = len(sets_np)
-        self._next_off += len(sets_np)
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            if self.enum == "expand":
+                sets_np = self._level_sets_expand(i)
+            else:
+                sets_np = self._level_sets_unrank(i)
+            rows_np = cm.np_rows_for_sets(sets_np, self.g)
+            self._prev_level = sets_np
+            # scatter rows for this level; register in the packed level buffer
+            if len(sets_np):
+                self._scatter(sets_np, rows=rows_np)
+                _scatter_into(self.all_sets,
+                              self._next_off + np.arange(len(sets_np)),
+                              sets_np)
+            self.level_off[i] = self._next_off
+            self.level_cnt[i] = len(sets_np)
+            self._next_off += len(sets_np)
         return sets_np
 
     def _level_sets_unrank(self, i: int):
@@ -432,7 +432,8 @@ class ExactEngine:
         for rank0 in range(0, total, SPAN):
             S, conn = ops.connectivity_span(i, rank0, min(SPAN, total - rank0),
                                             self.binom, self.dg.adj, self.nmax)
-            sets_l.append(S[conn != 0].cpu().numpy())
+            with _telemetry.span("engine.fetch"):
+                sets_l.append(S[conn != 0].cpu().numpy())
         return np.concatenate(sets_l)
 
     def _level_sets_expand(self, i: int):
@@ -452,7 +453,8 @@ class ExactEngine:
             pad[: len(sl)] = sl
             cand = _expand_chunk(self._dev(pad), len(sl), self.dg.adj,
                                  nmax=self.nmax, cap=cap)
-            c = cand.cpu().numpy().ravel()
+            with _telemetry.span("engine.fetch"):
+                c = cand.cpu().numpy().ravel()
             cand_l.append(c[c != 0])
         return np.unique(np.concatenate(cand_l)) if cand_l else np.zeros(0, np.int32)
 
@@ -493,24 +495,24 @@ class ExactEngine:
             sets_np = self._level_sets(i)
             if not len(sets_np):
                 continue
-            t0 = time.perf_counter()
-            ns = len(sets_np)
-            lanes = ns << i
-            best_cost = np.full(ns, INF, np.float32)
-            best_left = np.zeros(ns, np.int32)
-            off = self.level_off[i]
-            for lane0 in range(0, lanes, self.chunk):
-                cnt = min(self.chunk, lanes - lane0)
-                sc, sl, ev, cc = _eval_dpsub_chunk(
-                    self.all_sets, off, lane0 >> i, lane0 & ((1 << i) - 1), i,
-                    cnt, self.dg.adj, self.memo_cost, self.memo_rows,
-                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1,
-                    **self._tkw)
-                sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
-                self._count(ev, cc)
-                _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
-            self._commit_level(sets_np, best_cost, best_left)
-            self._time("evaluate", t0)
+            with _telemetry.stage(self.timings, "evaluate"):
+                ns = len(sets_np)
+                lanes = ns << i
+                best_cost = np.full(ns, INF, np.float32)
+                best_left = np.zeros(ns, np.int32)
+                off = self.level_off[i]
+                for lane0 in range(0, lanes, self.chunk):
+                    cnt = min(self.chunk, lanes - lane0)
+                    sc, sl, ev, cc = _eval_dpsub_chunk(
+                        self.all_sets, off, lane0 >> i,
+                        lane0 & ((1 << i) - 1), i, cnt, self.dg.adj,
+                        self.memo_cost, self.memo_rows, nmax=self.nmax,
+                        chunk=self.chunk, nseg=self.chunk + 1, **self._tkw)
+                    sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
+                                            cc.reshape(1))
+                    self._count(ev, cc)
+                    _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
+                self._commit_level(sets_np, best_cost, best_left)
 
     # ---------------------------------------------------------- MPDP tree --
     def run_mpdp_tree(self) -> None:
@@ -522,36 +524,36 @@ class ExactEngine:
             sets_np = self._level_sets(i)
             if not len(sets_np):
                 continue
-            t0 = time.perf_counter()
-            ns = len(sets_np)
-            lanes = ns * m
-            best_cost = np.full(ns, INF, np.float32)
-            best_left = np.zeros(ns, np.int32)
-            off = self.level_off[i]
-            for lane0 in range(0, lanes, self.chunk):
-                cnt = min(self.chunk, lanes - lane0)
-                offs = self._dev(_tree_offsets(off, lane0 // m, lane0 % m, cnt))
-                sc, sl, ev, cc = _eval_tree_chunk(
-                    self.all_sets, offs, self.m1, self.emu1, self.emv1,
-                    self.adj1, self.memo_cost, self.memo_rows,
-                    nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1,
-                    **self._tkw)
-                sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
-                self._count(ev, cc)
-                _merge_best(best_cost, best_left, lane0 // m, sc, sl)
-            self._commit_level(sets_np, best_cost, best_left)
-            self._time("evaluate", t0)
+            with _telemetry.stage(self.timings, "evaluate"):
+                ns = len(sets_np)
+                lanes = ns * m
+                best_cost = np.full(ns, INF, np.float32)
+                best_left = np.zeros(ns, np.int32)
+                off = self.level_off[i]
+                for lane0 in range(0, lanes, self.chunk):
+                    cnt = min(self.chunk, lanes - lane0)
+                    offs = self._dev(_tree_offsets(off, lane0 // m,
+                                                   lane0 % m, cnt))
+                    sc, sl, ev, cc = _eval_tree_chunk(
+                        self.all_sets, offs, self.m1, self.emu1, self.emv1,
+                        self.adj1, self.memo_cost, self.memo_rows,
+                        nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1,
+                        **self._tkw)
+                    sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
+                                            cc.reshape(1))
+                    self._count(ev, cc)
+                    _merge_best(best_cost, best_left, lane0 // m, sc, sl)
+                self._commit_level(sets_np, best_cost, best_left)
 
     # ------------------------------------------------------- MPDP general --
     def _find_blocks_host(self, sets_np):
         """Phase A: per-set blocks -> compacted (set, block) pair arrays
         (shared host driver in ``blocks.np_pairs_for_sets``)."""
-        t0 = time.perf_counter()
-        ps, pb = bl.np_pairs_for_sets(
-            sets_np, self.g, self.dg.adj, self.eu_idx, self.ev_idx,
-            self.edge_live, nmax=self.nmax, emax=self.emax,
-            cyc_cap=self.cyc_cap)
-        self._time("blocks", t0)
+        with _telemetry.stage(self.timings, "blocks"):
+            ps, pb = bl.np_pairs_for_sets(
+                sets_np, self.g, self.dg.adj, self.eu_idx, self.ev_idx,
+                self.edge_live, nmax=self.nmax, emax=self.emax,
+                cyc_cap=self.cyc_cap)
         return ps, pb
 
     def run_mpdp_general(self) -> None:
@@ -565,39 +567,42 @@ class ExactEngine:
             ps, pb = self._find_blocks_host(sets_np)
             if not len(ps):
                 continue
-            t0 = time.perf_counter()
-            lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
-            offs = np.zeros(len(ps) + 1, np.int64)
-            np.cumsum(lane_sz, out=offs[1:])
-            total = int(offs[-1])
-            # sets_np is ascending (colex rank order == ascending bitmap), so
-            # pair -> local set index is a vectorised searchsorted
-            pk = np.searchsorted(sets_np, ps).astype(np.int64)
-            best_cost = np.full(len(sets_np), INF, np.float32)
-            best_left = np.zeros(len(sets_np), np.int32)
-            k_all, c_all, l_all = [], [], []
-            for lane0 in range(0, total, self.chunk):
-                lane1 = min(lane0 + self.chunk, total)
-                p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
-                p1 = int(np.searchsorted(offs, lane1, side="left"))
-                npair = p1 - p0
-                pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
-                sc, sl, ev, cc = _eval_general_chunk(
-                    self._dev(pairs), npair, lane1 - lane0, self.adj1,
-                    self.memo_cost, self.memo_rows, nmax=self.nmax,
-                    chunk=self.chunk, **self._tkw)
-                sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1), cc.reshape(1))
-                self._count(ev, cc)
-                scn = sc[:npair]
-                fin = np.isfinite(scn)
-                k_all.append(pk[p0:p1][fin])
-                c_all.append(scn[fin])
-                l_all.append(sl[:npair][fin])
-            if k_all:
-                _merge_scattered(best_cost, best_left, np.concatenate(k_all),
-                                 np.concatenate(c_all), np.concatenate(l_all))
-            self._commit_level(sets_np, best_cost, best_left)
-            self._time("evaluate", t0)
+            with _telemetry.stage(self.timings, "evaluate"):
+                lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
+                offs = np.zeros(len(ps) + 1, np.int64)
+                np.cumsum(lane_sz, out=offs[1:])
+                total = int(offs[-1])
+                # sets_np is ascending (colex rank order == ascending
+                # bitmap), so pair -> local set index is a vectorised
+                # searchsorted
+                pk = np.searchsorted(sets_np, ps).astype(np.int64)
+                best_cost = np.full(len(sets_np), INF, np.float32)
+                best_left = np.zeros(len(sets_np), np.int32)
+                k_all, c_all, l_all = [], [], []
+                for lane0 in range(0, total, self.chunk):
+                    lane1 = min(lane0 + self.chunk, total)
+                    p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
+                    p1 = int(np.searchsorted(offs, lane1, side="left"))
+                    npair = p1 - p0
+                    pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
+                    sc, sl, ev, cc = _eval_general_chunk(
+                        self._dev(pairs), npair, lane1 - lane0, self.adj1,
+                        self.memo_cost, self.memo_rows, nmax=self.nmax,
+                        chunk=self.chunk, **self._tkw)
+                    sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
+                                            cc.reshape(1))
+                    self._count(ev, cc)
+                    scn = sc[:npair]
+                    fin = np.isfinite(scn)
+                    k_all.append(pk[p0:p1][fin])
+                    c_all.append(scn[fin])
+                    l_all.append(sl[:npair][fin])
+                if k_all:
+                    _merge_scattered(best_cost, best_left,
+                                     np.concatenate(k_all),
+                                     np.concatenate(c_all),
+                                     np.concatenate(l_all))
+                self._commit_level(sets_np, best_cost, best_left)
 
     # ------------------------------------------------------------- DPSIZE --
     def run_dpsize(self) -> None:
@@ -610,39 +615,43 @@ class ExactEngine:
             if self._expired(i):
                 break
             self._level_sets(i)
-            t0 = time.perf_counter()
-            s_all, c_all, l_all = [], [], []
-            for a in range(1, i):
-                b = i - a
-                ca, cb = self.level_cnt[a], self.level_cnt[b]
-                if ca == 0 or cb == 0:
-                    continue
-                lanes = ca * cb
-                for lane0 in range(0, lanes, self.chunk):
-                    cnt = min(self.chunk, lanes - lane0)
-                    S, cand, A, ev, cc = _eval_dpsize_chunk(
-                        self.all_sets, self.level_off[a], self.level_off[b],
-                        cb, lane0 // cb, lane0 % cb, cnt, self.dg,
-                        self.memo_cost, self.memo_rows,
-                        nmax=self.nmax, chunk=self.chunk)
-                    got = torch.cat([S, cand.view(_I32), A, ev.reshape(1),
-                                     cc.reshape(1)]).cpu().numpy()
-                    c = self.chunk
-                    cn = got[c: 2 * c].view(np.float32)
-                    fin = np.isfinite(cn)
-                    self._count(got[3 * c:], got[3 * c + 1:])
-                    s_all.append(got[:c][fin])
-                    c_all.append(cn[fin])
-                    l_all.append(got[2 * c: 3 * c][fin])
-            if s_all:
-                ss = np.concatenate(s_all).astype(np.int64)
-                scratch_c = np.full(1 << self.n, INF, np.float32)
-                scratch_l = np.zeros(1 << self.n, np.int32)
-                _merge_scattered(scratch_c, scratch_l, ss,
-                                 np.concatenate(c_all), np.concatenate(l_all))
-                ks = np.flatnonzero(np.isfinite(scratch_c)).astype(np.int32)
-                self._scatter(ks, cost=scratch_c[ks], left=scratch_l[ks])
-            self._time("evaluate", t0)
+            with _telemetry.stage(self.timings, "evaluate"):
+                s_all, c_all, l_all = [], [], []
+                for a in range(1, i):
+                    b = i - a
+                    ca, cb = self.level_cnt[a], self.level_cnt[b]
+                    if ca == 0 or cb == 0:
+                        continue
+                    lanes = ca * cb
+                    for lane0 in range(0, lanes, self.chunk):
+                        cnt = min(self.chunk, lanes - lane0)
+                        S, cand, A, ev, cc = _eval_dpsize_chunk(
+                            self.all_sets, self.level_off[a],
+                            self.level_off[b], cb, lane0 // cb, lane0 % cb,
+                            cnt, self.dg, self.memo_cost, self.memo_rows,
+                            nmax=self.nmax, chunk=self.chunk)
+                        with _telemetry.span("engine.fetch"):
+                            got = torch.cat([S, cand.view(_I32), A,
+                                             ev.reshape(1),
+                                             cc.reshape(1)]).cpu().numpy()
+                        c = self.chunk
+                        cn = got[c: 2 * c].view(np.float32)
+                        fin = np.isfinite(cn)
+                        self._count(got[3 * c:], got[3 * c + 1:])
+                        s_all.append(got[:c][fin])
+                        c_all.append(cn[fin])
+                        l_all.append(got[2 * c: 3 * c][fin])
+                if s_all:
+                    ss = np.concatenate(s_all).astype(np.int64)
+                    scratch_c = np.full(1 << self.n, INF, np.float32)
+                    scratch_l = np.zeros(1 << self.n, np.int32)
+                    _merge_scattered(scratch_c, scratch_l, ss,
+                                     np.concatenate(c_all),
+                                     np.concatenate(l_all))
+                    ks = np.flatnonzero(
+                        np.isfinite(scratch_c)).astype(np.int32)
+                    self._scatter(ks, cost=scratch_c[ks],
+                                  left=scratch_l[ks])
 
     # ------------------------------------------------------------ finish ---
     def _plan_lefts(self, full: int) -> dict[int, int]:

@@ -56,6 +56,7 @@ from . import bitset as bs
 from . import blocks as bl
 from . import cost as cm
 from . import faults
+from . import telemetry as _telemetry
 from . import unrank as ur
 from ..distributed import collectives as coll
 from ..distributed.sharding import partition_lanes
@@ -240,54 +241,54 @@ class LatticeShardedEngine(_LevelLoop):
         starts at global rank ``roff[d]``, so ``foff = [-(roff[d] + c),
         roff[d+1] - roff[d] - c]`` makes the kernel unrank global ranks and
         mask past the window's end."""
-        t0 = time.perf_counter()
-        roff = partition_lanes(comb(self.g.n, i), self.D)
-        sizes = np.diff(roff)
-        c0s = np.arange(0, int(sizes.max()), SPAN, dtype=np.int64)
-        ctx = {"pend": [deque() for _ in self.devs],
-               "per_dev": [[] for _ in self.devs]}
-        foff = [_put(_offset_rows(np.array([0, roff[d + 1]]), roff[d] + c0s,
-                                  1), dev) if sizes[d] else None
-                for d, dev in enumerate(self.devs)]
-        for j, c0 in enumerate(c0s.tolist()):
-            for d in range(self.D):
-                if c0 < sizes[d]:
-                    ctx["pend"][d].append(ops.bconnectivity_span(
-                        i, foff[d][j], min(SPAN, int(sizes[d]) - c0),
-                        self.binom[d], self.adj_b[d], self.nmax))
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._filter_drain(ctx, PEND_WINDOW)
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            roff = partition_lanes(comb(self.g.n, i), self.D)
+            sizes = np.diff(roff)
+            c0s = np.arange(0, int(sizes.max()), SPAN, dtype=np.int64)
+            ctx = {"pend": [deque() for _ in self.devs],
+                   "per_dev": [[] for _ in self.devs]}
+            foff = [_put(_offset_rows(np.array([0, roff[d + 1]]),
+                                      roff[d] + c0s, 1), dev)
+                    if sizes[d] else None
+                    for d, dev in enumerate(self.devs)]
+            for j, c0 in enumerate(c0s.tolist()):
+                for d in range(self.D):
+                    if c0 < sizes[d]:
+                        ctx["pend"][d].append(ops.bconnectivity_span(
+                            i, foff[d][j], min(SPAN, int(sizes[d]) - c0),
+                            self.binom[d], self.adj_b[d], self.nmax))
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                self._filter_drain(ctx, PEND_WINDOW)
         return ctx
 
     def _filter_drain(self, ctx: dict, limit: int) -> None:
         for pend, per in zip(ctx["pend"], ctx["per_dev"]):
             while len(pend) > limit:
                 S, conn, _ = pend.popleft()
-                per.append(S[conn != 0].cpu().numpy())
+                with _telemetry.span("engine.fetch"):
+                    per.append(S[conn != 0].cpu().numpy())
 
     def _filter_collect(self, ctx: dict) -> np.ndarray:
         """Drain and concatenate the survivors in shard order: the shards'
         rank windows are contiguous and ascending, so this is the global
         colex order the single-device filter produces."""
-        t0 = time.perf_counter()
-        self._filter_drain(ctx, 0)
-        parts = [a for per in ctx["per_dev"] for a in per]
-        sets = np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            self._filter_drain(ctx, 0)
+            parts = [a for per in ctx["per_dev"] for a in per]
+            sets = np.concatenate(parts) if parts else np.zeros(0, np.int32)
         return sets
 
     def _register_level(self, i: int, sets_np: np.ndarray) -> None:
-        t0 = time.perf_counter()
-        self._level_off[i] = self._next_off
-        if len(sets_np):
-            self._scatter(sets_np, rows=cm.np_rows_for_sets(sets_np, self.g))
-            self._set_all_sets(
-                self._next_off + np.arange(len(sets_np), dtype=np.int64),
-                sets_np)
-            self._next_off += len(sets_np)
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            self._level_off[i] = self._next_off
+            if len(sets_np):
+                self._scatter(sets_np,
+                              rows=cm.np_rows_for_sets(sets_np, self.g))
+                self._set_all_sets(
+                    self._next_off + np.arange(len(sets_np), dtype=np.int64),
+                    sets_np)
+                self._next_off += len(sets_np)
 
     # ----------------------------------------------------------- evaluate --
     def _eval_dispatch(self, i: int, sets_np: np.ndarray):
@@ -297,48 +298,49 @@ class LatticeShardedEngine(_LevelLoop):
         ns = len(sets_np)
         if ns == 0:
             return None
-        t0 = time.perf_counter()
-        mult = self.g.m if self.algorithm == "mpdp_tree" else (1 << i)
-        lane_off = partition_lanes(ns * mult, self.D)
-        sizes = np.diff(lane_off)
-        c0s = np.arange(0, int(sizes.max()), self.chunk, dtype=np.int64)
-        statics = dict(nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 2,
-                       bcap=1)
-        lvl = np.array([self._level_off[i]], np.int32)
-        ctx = {"pend": [deque() for _ in self.devs],
-               "best_cost": [np.full(ns, INF, np.float32) for _ in self.devs],
-               "best_left": [np.zeros(ns, np.int32) for _ in self.devs],
-               "ev": 0, "ccp": 0}
-        tabs = []
-        for d, dev in enumerate(self.devs):
-            if not sizes[d]:
-                tabs.append(None)
-                continue
-            tabs.append((_put(_offset_rows(np.array([0, lane_off[d + 1]]),
-                                           lane_off[d] + c0s, 1), dev),
-                         _put(lvl, dev), _put(np.zeros(1, np.int32), dev)))
-        for j, c0 in enumerate(c0s.tolist()):
-            for d in range(self.D):
-                if c0 >= sizes[d]:
+        with _telemetry.stage(self.timings, "evaluate"):
+            mult = self.g.m if self.algorithm == "mpdp_tree" else (1 << i)
+            lane_off = partition_lanes(ns * mult, self.D)
+            sizes = np.diff(lane_off)
+            c0s = np.arange(0, int(sizes.max()), self.chunk, dtype=np.int64)
+            statics = dict(nmax=self.nmax, chunk=self.chunk,
+                           nseg=self.chunk + 2, bcap=1)
+            lvl = np.array([self._level_off[i]], np.int32)
+            ctx = {"pend": [deque() for _ in self.devs],
+                   "best_cost": [np.full(ns, INF, np.float32)
+                                 for _ in self.devs],
+                   "best_left": [np.zeros(ns, np.int32) for _ in self.devs],
+                   "ev": 0, "ccp": 0}
+            tabs = []
+            for d, dev in enumerate(self.devs):
+                if not sizes[d]:
+                    tabs.append(None)
                     continue
-                eoff_d, loff_d, soff_d = tabs[d]
-                seg0 = int((lane_off[d] + c0) // mult)   # global set index
-                if self.algorithm == "mpdp_tree":
-                    out = _beval_tree_chunk(
-                        self.all_sets[d], eoff_d[j], loff_d, soff_d, seg0,
-                        self.m_b[d], self.adj_b[d], self.emu_b[d],
-                        self.emv_b[d], self.memo_cost[d], self.memo_rows[d],
-                        **self._tkw[d], **statics)
-                else:
-                    out = _beval_dpsub_chunk(
-                        self.all_sets[d], eoff_d[j], loff_d, soff_d, seg0, i,
-                        self.adj_b[d], self.memo_cost[d], self.memo_rows[d],
-                        **self._tkw[d], **statics)
-                ctx["pend"][d].append((seg0, out))
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._eval_drain(ctx, PEND_WINDOW)
-        self._time("evaluate", t0)
+                tabs.append((_put(_offset_rows(np.array([0, lane_off[d + 1]]),
+                                               lane_off[d] + c0s, 1), dev),
+                             _put(lvl, dev),
+                             _put(np.zeros(1, np.int32), dev)))
+            for j, c0 in enumerate(c0s.tolist()):
+                for d in range(self.D):
+                    if c0 >= sizes[d]:
+                        continue
+                    eoff_d, loff_d, soff_d = tabs[d]
+                    seg0 = int((lane_off[d] + c0) // mult)  # global set index
+                    if self.algorithm == "mpdp_tree":
+                        out = _beval_tree_chunk(
+                            self.all_sets[d], eoff_d[j], loff_d, soff_d, seg0,
+                            self.m_b[d], self.adj_b[d], self.emu_b[d],
+                            self.emv_b[d], self.memo_cost[d],
+                            self.memo_rows[d], **self._tkw[d], **statics)
+                    else:
+                        out = _beval_dpsub_chunk(
+                            self.all_sets[d], eoff_d[j], loff_d, soff_d,
+                            seg0, i, self.adj_b[d], self.memo_cost[d],
+                            self.memo_rows[d], **self._tkw[d], **statics)
+                    ctx["pend"][d].append((seg0, out))
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                self._eval_drain(ctx, PEND_WINDOW)
         return ctx
 
     def _eval_drain(self, ctx: dict, limit: int) -> None:
@@ -354,26 +356,24 @@ class LatticeShardedEngine(_LevelLoop):
     def _eval_finalize(self, i: int, sets_np: np.ndarray, ctx) -> None:
         if ctx is None:
             return
-        t0 = time.perf_counter()
-        self._eval_drain(ctx, 0)
-        self.counters[0].evaluated += ctx["ev"]
-        self.counters[0].ccp += ctx["ccp"]
-        self._commit_level(sets_np, ctx["best_cost"], ctx["best_left"])
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate"):
+            self._eval_drain(ctx, 0)
+            self.counters[0].evaluated += ctx["ev"]
+            self.counters[0].ccp += ctx["ccp"]
+            self._commit_level(sets_np, ctx["best_cost"], ctx["best_left"])
 
     # ------------------------------------------------- MPDP-general phase --
     def _pairs_level(self, sets_np: np.ndarray):
         """Phase A once on the host over the whole level (the shards differ
         only in their lane ranges)."""
-        t0 = time.perf_counter()
         if not len(sets_np):
             z = np.zeros(0, np.int32)
             return z, z, np.zeros(0, np.int64)
-        ps, pb = bl.np_pairs_for_sets(sets_np, self.g, *self._phase_a_row,
-                                      nmax=self.nmax, emax=self.emax,
-                                      cyc_cap=self.cyc_cap)
-        pk = np.searchsorted(sets_np, ps).astype(np.int64)
-        self._time("blocks", t0)
+        with _telemetry.stage(self.timings, "blocks"):
+            ps, pb = bl.np_pairs_for_sets(sets_np, self.g, *self._phase_a_row,
+                                          nmax=self.nmax, emax=self.emax,
+                                          cyc_cap=self.cyc_cap)
+            pk = np.searchsorted(sets_np, ps).astype(np.int64)
         return ps, pb, pk
 
     def _eval_general_dispatch(self, i: int, sets_np: np.ndarray, pairs):
@@ -382,32 +382,32 @@ class LatticeShardedEngine(_LevelLoop):
         ps, pb, pk = pairs
         if not len(ps):
             return None
-        t0 = time.perf_counter()
-        offs = np.zeros(len(ps) + 1, np.int64)
-        np.cumsum(np.int64(1) << bs.np_popcount(pb).astype(np.int64),
-                  out=offs[1:])
-        lane_off = partition_lanes(int(offs[-1]), self.D)
-        ctx = {"pend": [deque() for _ in self.devs], "pk": pk, "ev": 0,
-               "ccp": 0, "k": [[] for _ in self.devs],
-               "c": [[] for _ in self.devs], "l": [[] for _ in self.devs]}
-        for c0 in range(0, int(np.diff(lane_off).max()), self.chunk):
-            for d, dev in enumerate(self.devs):
-                base = int(lane_off[d]) + c0
-                lane1 = min(base + self.chunk, int(lane_off[d + 1]))
-                if lane1 <= base:
-                    continue
-                p0 = int(np.searchsorted(offs, base, side="right")) - 1
-                p1 = int(np.searchsorted(offs, lane1, side="left"))
-                table = _pair_table(ps, pb, None, offs, p0, p1, base)
-                out = _beval_general_chunk(
-                    _put(table, dev), p1 - p0, lane1 - base, self.adj_b[d],
-                    self.memo_cost[d], self.memo_rows[d], nmax=self.nmax,
-                    chunk=self.chunk, bcap=1, **self._tkw[d])
-                ctx["pend"][d].append((p0, p1 - p0, out))
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            self._eval_general_drain(ctx, PEND_WINDOW)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate"):
+            offs = np.zeros(len(ps) + 1, np.int64)
+            np.cumsum(np.int64(1) << bs.np_popcount(pb).astype(np.int64),
+                      out=offs[1:])
+            lane_off = partition_lanes(int(offs[-1]), self.D)
+            ctx = {"pend": [deque() for _ in self.devs], "pk": pk, "ev": 0,
+                   "ccp": 0, "k": [[] for _ in self.devs],
+                   "c": [[] for _ in self.devs], "l": [[] for _ in self.devs]}
+            for c0 in range(0, int(np.diff(lane_off).max()), self.chunk):
+                for d, dev in enumerate(self.devs):
+                    base = int(lane_off[d]) + c0
+                    lane1 = min(base + self.chunk, int(lane_off[d + 1]))
+                    if lane1 <= base:
+                        continue
+                    p0 = int(np.searchsorted(offs, base, side="right")) - 1
+                    p1 = int(np.searchsorted(offs, lane1, side="left"))
+                    table = _pair_table(ps, pb, None, offs, p0, p1, base)
+                    out = _beval_general_chunk(
+                        _put(table, dev), p1 - p0, lane1 - base,
+                        self.adj_b[d], self.memo_cost[d], self.memo_rows[d],
+                        nmax=self.nmax, chunk=self.chunk, bcap=1,
+                        **self._tkw[d])
+                    ctx["pend"][d].append((p0, p1 - p0, out))
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                self._eval_general_drain(ctx, PEND_WINDOW)
         return ctx
 
     def _eval_general_drain(self, ctx: dict, limit: int) -> None:
@@ -427,21 +427,20 @@ class LatticeShardedEngine(_LevelLoop):
     def _eval_general_finalize(self, i: int, sets_np: np.ndarray, ctx) -> None:
         if ctx is None:
             return
-        t0 = time.perf_counter()
-        self._eval_general_drain(ctx, 0)
-        ns = len(sets_np)
-        best_cost = [np.full(ns, INF, np.float32) for _ in self.devs]
-        best_left = [np.zeros(ns, np.int32) for _ in self.devs]
-        for d in range(self.D):
-            if ctx["k"][d]:
-                _merge_scattered(best_cost[d], best_left[d],
-                                 np.concatenate(ctx["k"][d]),
-                                 np.concatenate(ctx["c"][d]),
-                                 np.concatenate(ctx["l"][d]))
-        self.counters[0].evaluated += ctx["ev"]
-        self.counters[0].ccp += ctx["ccp"]
-        self._commit_level(sets_np, best_cost, best_left)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate"):
+            self._eval_general_drain(ctx, 0)
+            ns = len(sets_np)
+            best_cost = [np.full(ns, INF, np.float32) for _ in self.devs]
+            best_left = [np.zeros(ns, np.int32) for _ in self.devs]
+            for d in range(self.D):
+                if ctx["k"][d]:
+                    _merge_scattered(best_cost[d], best_left[d],
+                                     np.concatenate(ctx["k"][d]),
+                                     np.concatenate(ctx["c"][d]),
+                                     np.concatenate(ctx["l"][d]))
+            self.counters[0].evaluated += ctx["ev"]
+            self.counters[0].ccp += ctx["ccp"]
+            self._commit_level(sets_np, best_cost, best_left)
 
     # ------------------------------------------------------------- driver --
     # (run / run_levels / the pipelined rotation come from _LevelLoop)

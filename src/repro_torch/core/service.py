@@ -175,64 +175,69 @@ class StreamOptimizer:
         (``fl.space`` stays the admission space).  A sharded flight that
         raises runs again on ``BatchEngine`` and is marked
         ``redispatched``."""
-        members = [graphs[qi] for qi in fl.queries]
-        if fl.lattice:
-            from . import lattice as _lattice
-            eng = _lattice.LatticeShardedEngine(
-                members[0], self.mesh, chunk=self.chunk, algorithm=fl.space,
-                pipeline=self.pipeline, deadline_s=self._left())
-            eng.run_levels()
-            return eng
-        space, chunk, kw = policy_dispatch(self.policy, fl.nmax, fl.space,
-                                           self.chunk)
-        if self.mesh is not None:
-            from .shard import ShardedBatchEngine
-            eng = ShardedBatchEngine(members, self.mesh, chunk=chunk,
-                                     algorithm=space, pipeline=self.pipeline,
-                                     deadline_s=self._left(), **kw)
-            try:
+        with _telemetry.span("service.flight"):
+            members = [graphs[qi] for qi in fl.queries]
+            if fl.lattice:
+                from . import lattice as _lattice
+                eng = _lattice.LatticeShardedEngine(
+                    members[0], self.mesh, chunk=self.chunk,
+                    algorithm=fl.space, pipeline=self.pipeline,
+                    deadline_s=self._left())
                 eng.run_levels()
                 return eng
-            except Exception:
-                # a failure on the mesh: run the flight again on the
-                # single-device engine (same members and space, same
-                # results) and mark it at finalize
-                pass
-        eng = BatchEngine(members, chunk=chunk, algorithm=space,
-                          pipeline=self.pipeline, deadline_s=self._left(),
-                          device=self.device, **kw)
-        eng.run_levels()
-        eng.redispatched = self.mesh is not None
-        return eng
+            space, chunk, kw = policy_dispatch(self.policy, fl.nmax, fl.space,
+                                               self.chunk)
+            if self.mesh is not None:
+                from .shard import ShardedBatchEngine
+                eng = ShardedBatchEngine(members, self.mesh, chunk=chunk,
+                                         algorithm=space,
+                                         pipeline=self.pipeline,
+                                         deadline_s=self._left(), **kw)
+                try:
+                    eng.run_levels()
+                    return eng
+                except Exception:
+                    # a failure on the mesh: run the flight again on the
+                    # single-device engine (same members and space, same
+                    # results) and mark it at finalize
+                    pass
+            eng = BatchEngine(members, chunk=chunk, algorithm=space,
+                              pipeline=self.pipeline, deadline_s=self._left(),
+                              device=self.device, **kw)
+            eng.run_levels()
+            eng.redispatched = self.mesh is not None
+            return eng
 
     def _finalize(self, graphs, fl: FlightReport, eng, t_flight, t_stream,
                   results, report) -> None:
         """Host-only flight finalize: fetch, extract, cache insert, then
         the flight's telemetry and its members' latencies."""
-        t0 = time.perf_counter()
-        collected = eng.collect()
-        for qi, r in zip(fl.queries, collected):
-            if getattr(eng, "redispatched", False):
-                r.info["redispatched"] = True
-            results[qi] = r
-            # degraded (deadline-stitched) plans are best-effort, never
-            # cached, so a later unhurried run recomputes the exact plan
-            if self.cache is not None and "degraded" not in r.info:
-                self.cache.put(graphs[qi], r)
-        done = time.perf_counter()
-        fl.finalize_s = done - t0
-        fl.wall_s = done - t_flight
-        fl.telemetry = _telemetry.capture(
-            eng, collected, nmax=fl.nmax, queries=len(fl.queries),
-            lattice=fl.lattice, wall_s=fl.wall_s, finalize_s=fl.finalize_s)
-        if self.policy is not None and not fl.lattice:
-            self.policy.observe(fl.nmax, fl.space, eng.algorithm,
-                                fl.telemetry)
-        for qi in fl.queries:
-            report.latency_s[qi] = done - t_stream
-        if fl.lattice:
-            report.lattice += 1
-        report.flights.append(fl)
+        with _telemetry.span("service.finalize"):
+            t0 = time.perf_counter()
+            collected = eng.collect()
+            for qi, r in zip(fl.queries, collected):
+                if getattr(eng, "redispatched", False):
+                    r.info["redispatched"] = True
+                results[qi] = r
+                # degraded (deadline-stitched) plans are best-effort, never
+                # cached, so a later unhurried run recomputes the exact plan
+                if self.cache is not None and "degraded" not in r.info:
+                    self.cache.put(graphs[qi], r)
+            done = time.perf_counter()
+            fl.finalize_s = done - t0
+            fl.wall_s = done - t_flight
+            fl.telemetry = _telemetry.capture(
+                eng, collected, nmax=fl.nmax, queries=len(fl.queries),
+                lattice=fl.lattice, wall_s=fl.wall_s,
+                finalize_s=fl.finalize_s)
+            if self.policy is not None and not fl.lattice:
+                self.policy.observe(fl.nmax, fl.space, eng.algorithm,
+                                    fl.telemetry)
+            for qi in fl.queries:
+                report.latency_s[qi] = done - t_stream
+            if fl.lattice:
+                report.lattice += 1
+            report.flights.append(fl)
 
     # ------------------------------------------------------------ stream ---
     def optimize_stream(self, graphs: list[JoinGraph]
@@ -240,52 +245,56 @@ class StreamOptimizer:
         """Optimize the stream; returns results in stream order plus the
         flight and latency report.  Results are bit-identical to
         ``optimize_many`` over the same list."""
-        t_stream = time.perf_counter()
-        self._deadline_at = (None if self.config.deadline_s is None
-                             else faults.now() + self.config.deadline_s)
-        report = StreamReport(latency_s=[0.0] * len(graphs))
-        results: list[OptimizeResult | None] = [None] * len(graphs)
-        pending = probe_stream(graphs, results, self.cache, self.algorithm)
-        for qi, r in enumerate(results):
-            if r is not None:
-                report.latency_s[qi] = time.perf_counter() - t_stream
-                if r.algorithm.startswith("cache["):
-                    report.cache_hits += 1
-        pending, deferred, dup_rep = dedup_pending(graphs, pending,
-                                                   self.cache)
-        flights, solo = self.admit(graphs, pending)
-        report.solo = len(solo)
+        with _telemetry.span("service.stream"):
+            t_stream = time.perf_counter()
+            self._deadline_at = (None if self.config.deadline_s is None
+                                 else faults.now() + self.config.deadline_s)
+            report = StreamReport(latency_s=[0.0] * len(graphs))
+            results: list[OptimizeResult | None] = [None] * len(graphs)
+            pending = probe_stream(graphs, results, self.cache,
+                                   self.algorithm)
+            for qi, r in enumerate(results):
+                if r is not None:
+                    report.latency_s[qi] = time.perf_counter() - t_stream
+                    if r.algorithm.startswith("cache["):
+                        report.cache_hits += 1
+            pending, deferred, dup_rep = dedup_pending(graphs, pending,
+                                                       self.cache)
+            flights, solo = self.admit(graphs, pending)
+            report.solo = len(solo)
 
-        # double-buffered flight loop: flight i is finalized after flight
-        # i+1's levels have run
-        prev = None                        # (flight, engine, t_flight)
-        for fl in flights:
-            t_flight = time.perf_counter()
-            eng = self._spawn(graphs, fl)
+            # double-buffered flight loop: flight i is finalized after flight
+            # i+1's levels have run
+            prev = None                        # (flight, engine, t_flight)
+            for fl in flights:
+                t_flight = time.perf_counter()
+                eng = self._spawn(graphs, fl)
+                if prev is not None:
+                    self._finalize(graphs, *prev, t_stream, results, report)
+                prev = (fl, eng, t_flight)
             if prev is not None:
                 self._finalize(graphs, *prev, t_stream, results, report)
-            prev = (fl, eng, t_flight)
-        if prev is not None:
-            self._finalize(graphs, *prev, t_stream, results, report)
 
-        for qi in solo:
-            if self.config.deadline_s is None:
-                r = _eng.optimize(graphs[qi], self.algorithm,
-                                  chunk=self.chunk, device=self.device)
-            else:
-                r = _eng.optimize(graphs[qi], config=OptimizerConfig(
-                    algorithm=self.algorithm, chunk=self.chunk,
-                    deadline_s=self._left()), device=self.device)
-            results[qi] = r
-            report.latency_s[qi] = time.perf_counter() - t_stream
-            if self.cache is not None and "degraded" not in r.info:
-                self.cache.put(graphs[qi], r)
-        resolve_deferred(graphs, results, self.cache, deferred, dup_rep)
-        for qi in deferred:
-            report.latency_s[qi] = time.perf_counter() - t_stream
-            report.cache_hits += 1
-        report.wall_s = time.perf_counter() - t_stream
-        return results, report
+            for qi in solo:
+                with _telemetry.span("service.solo"):
+                    if self.config.deadline_s is None:
+                        r = _eng.optimize(graphs[qi], self.algorithm,
+                                          chunk=self.chunk,
+                                          device=self.device)
+                    else:
+                        r = _eng.optimize(graphs[qi], config=OptimizerConfig(
+                            algorithm=self.algorithm, chunk=self.chunk,
+                            deadline_s=self._left()), device=self.device)
+                results[qi] = r
+                report.latency_s[qi] = time.perf_counter() - t_stream
+                if self.cache is not None and "degraded" not in r.info:
+                    self.cache.put(graphs[qi], r)
+            resolve_deferred(graphs, results, self.cache, deferred, dup_rep)
+            for qi in deferred:
+                report.latency_s[qi] = time.perf_counter() - t_stream
+                report.cache_hits += 1
+            report.wall_s = time.perf_counter() - t_stream
+            return results, report
 
 
 def optimize_stream(graphs: list[JoinGraph], algorithm=UNSET, chunk=UNSET,

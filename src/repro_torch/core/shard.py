@@ -53,6 +53,7 @@ import torch
 
 from . import bitset as bs
 from . import faults
+from . import telemetry as _telemetry
 from ..hostdev import host_device_count
 from ..kernels import ops
 from .batch import (NMAX_BATCH, SPAN, BatchEngine, _bcap, _LevelLoop,
@@ -216,17 +217,16 @@ class ShardedBatchEngine(_LevelLoop):
     def _filter_dispatch(self, i: int) -> list:
         """Level i's filter spans, one step per ``SPAN`` ranks of the
         longest shard; a shard launches while it has ranks left."""
-        t0 = time.perf_counter()
-        ctxs = [sh._filter_begin(i) for sh in self.shards]
-        for lane0 in range(0, max(c["total"] for c in ctxs), SPAN):
-            for sh, c in zip(self.shards, ctxs):
-                if lane0 < c["total"]:
-                    sh._filter_step(c, i, lane0)
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            for sh, c in zip(self.shards, ctxs):
-                sh._filter_drain(c, self.pend_window)
-        self._time("filter", t0)
+        with _telemetry.stage(self.timings, "filter"):
+            ctxs = [sh._filter_begin(i) for sh in self.shards]
+            for lane0 in range(0, max(c["total"] for c in ctxs), SPAN):
+                for sh, c in zip(self.shards, ctxs):
+                    if lane0 < c["total"]:
+                        sh._filter_step(c, i, lane0)
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                for sh, c in zip(self.shards, ctxs):
+                    sh._filter_drain(c, self.pend_window)
         return ctxs
 
     def _filter_collect(self, ctxs: list) -> list[list[np.ndarray]]:
@@ -241,21 +241,21 @@ class ShardedBatchEngine(_LevelLoop):
         """Segmented lane spaces: each shard's chunk grid is the one its
         ``BatchEngine`` would use; step j launches chunk j of every shard
         that has one."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         ctxs = [sh._eval_begin(i, sets_d)
                 for sh, sets_d in zip(self.shards, sets)]
         live = [(sh, c) for sh, c in zip(self.shards, ctxs) if c is not None]
         if not live:
             return None
-        for j in range(max(len(c["lane0s"]) for _, c in live)):
-            for sh, c in live:
-                if j < len(c["lane0s"]):
-                    sh._eval_step(c, i, j)
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            for sh, c in live:
-                sh._eval_drain(c, self.pend_window)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate", t0):
+            for j in range(max(len(c["lane0s"]) for _, c in live)):
+                for sh, c in live:
+                    if j < len(c["lane0s"]):
+                        sh._eval_step(c, i, j)
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                for sh, c in live:
+                    sh._eval_drain(c, self.pend_window)
         return ctxs
 
     def _eval_finalize(self, i: int, sets, ctxs) -> None:
@@ -271,21 +271,22 @@ class ShardedBatchEngine(_LevelLoop):
     def _eval_general_dispatch(self, i: int, sets, pairs):
         """The block prefix-sum chunks of every shard's pair arrays, one
         step per chunk of the longest shard."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         ctxs = [sh._eval_general_begin(sets_d, p)
                 for sh, sets_d, p in zip(self.shards, sets, pairs)]
         live = [(sh, c) for sh, c in zip(self.shards, ctxs) if c is not None]
         if not live:
             return None
-        for lane0 in range(0, max(c["total"] for _, c in live), self.chunk):
-            for sh, c in live:
-                if lane0 < c["total"]:
-                    sh._eval_general_step(c, lane0)
-            faults.fire("chunk")
-            self.chunks_dispatched += 1
-            for sh, c in live:
-                sh._eval_general_drain(c, self.pend_window)
-        self._time("evaluate", t0)
+        with _telemetry.stage(self.timings, "evaluate", t0):
+            for lane0 in range(0, max(c["total"] for _, c in live),
+                               self.chunk):
+                for sh, c in live:
+                    if lane0 < c["total"]:
+                        sh._eval_general_step(c, lane0)
+                faults.fire("chunk")
+                self.chunks_dispatched += 1
+                for sh, c in live:
+                    sh._eval_general_drain(c, self.pend_window)
         return ctxs
 
     def _eval_general_finalize(self, i: int, sets, ctxs) -> None:

@@ -13,10 +13,44 @@ costs, plans or lane counters; ``core.service`` attaches one to every
 
 The port builds its CUDA library once per process (``kernels.build``) and
 never traces, so ``retraces`` records 0.
+
+**Spans.**  The module also holds the program's span recorder, off by
+default: ``enable()`` / ``disable()`` switch it, and while it is off a span
+costs one test of a module global and records nothing.  A span is
+``(name, t0, t1, id, parent, request, thread)``: start and end on
+``time.perf_counter_ns`` (the clock of ``time.perf_counter``), its own id,
+the id of the innermost span open on its thread when it opened (``None``
+for a root), a request id that every span of one request shares, and the
+thread.  A root span opens a new request id, unless its thread runs under
+``request(rid)``: the daemon stamps a request's id at admission and its
+worker thread runs the request under it.  Spans are kept in memory, in one
+buffer of ``CAPACITY`` spans (a full buffer drops its oldest span and
+counts it in ``dropped()``); ``spans()`` returns a copy, ``clear()``
+empties it.  ``stage(timings, key)`` is the engines' stage clock: it adds
+the stage's seconds to an ``OptimizeResult.timings`` dict, always, and
+records the stage's span (``STAGES``) from the same two clock reads.
+
+The names are fixed; the benchmark's per-layer readers and ``PERF.md``
+read them:
+
+  ``daemon.queue``       admission to the worker's pickup (``record``)
+  ``daemon.decode`` / ``daemon.run`` / ``daemon.encode``   the worker's job
+  ``service.stream`` / ``service.flight`` / ``service.finalize`` /
+  ``service.solo``       ``core.service.StreamOptimizer``
+  ``engine.filter`` / ``engine.evaluate`` / ``engine.phase_a``   the level
+                         loops' stages (``stage``)
+  ``engine.fetch``       a blocking device-to-host read in a level loop
+  ``uniondp.solve`` / ``uniondp.partition`` / ``uniondp.subsolve`` /
+  ``uniondp.merge`` / ``uniondp.reopt``   ``heuristics.uniondp.solve``
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import itertools
+import threading
+import time
 
 
 @dataclasses.dataclass
@@ -97,3 +131,159 @@ def aggregate(records) -> dict:
     slots = sum(r.chunks * r.chunk for r in recs)
     out["occupancy"] = (out["evaluated_lanes"] / slots) if slots else 0.0
     return out
+
+
+# ------------------------------------------------------------------ spans --
+
+CAPACITY = 1 << 20        # spans kept; a full buffer drops its oldest
+STAGES = {"filter": "engine.filter", "evaluate": "engine.evaluate",
+          "blocks": "engine.phase_a"}
+
+Span = collections.namedtuple("Span", "name t0 t1 id parent request thread")
+
+_ON = False
+_buf: collections.deque = collections.deque(maxlen=CAPACITY)
+_dropped = 0
+_lock = threading.Lock()
+_ids = itertools.count(1)             # span and request ids
+_local = threading.local()            # .stack: open spans; .request
+_NULL = contextlib.nullcontext()
+
+
+def enable() -> None:
+    """Start recording spans; what the buffer holds is kept."""
+    global _ON
+    _ON = True
+
+
+def disable() -> None:
+    """Stop recording spans; what was recorded stays until ``clear()``."""
+    global _ON
+    _ON = False
+
+
+def spans() -> list[Span]:
+    """A copy of the recorded spans, in the order they closed."""
+    with _lock:
+        return [Span(*s) for s in _buf]
+
+
+def dropped() -> int:
+    """Spans dropped from a full buffer since the last ``clear()``."""
+    return _dropped
+
+
+def clear() -> None:
+    global _dropped
+    with _lock:
+        _buf.clear()
+        _dropped = 0
+
+
+def new_request() -> int:
+    """A fresh request id (0 while the recorder is off)."""
+    return next(_ids) if _ON else 0
+
+
+def _stack() -> list:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+def _append(rec: tuple) -> None:
+    global _dropped
+    with _lock:
+        if len(_buf) == _buf.maxlen:
+            _dropped += 1
+        _buf.append(rec)
+
+
+def _open(sp) -> None:
+    """Give ``sp`` its id, parent and request, and push it."""
+    st = _stack()
+    if st:
+        sp.parent, sp.request = st[-1].id, st[-1].request
+    else:
+        sp.parent = None
+        sp.request = getattr(_local, "request", 0) or next(_ids)
+    sp.id = next(_ids)
+    st.append(sp)
+
+
+class _Span:
+    """One open span; with ``timings`` also a stage of the level loop."""
+
+    __slots__ = ("name", "timings", "key", "on", "t0", "id", "parent",
+                 "request")
+
+    def __init__(self, name: str, timings: dict | None = None,
+                 key: str | None = None, t0: int | None = None):
+        self.name, self.timings, self.key, self.t0 = name, timings, key, t0
+
+    def __enter__(self):
+        self.on = _ON
+        if self.on:
+            _open(self)
+        if self.t0 is None:
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        if self.timings is not None:
+            self.timings[self.key] = (self.timings.get(self.key, 0.0)
+                                      + (t1 - self.t0) * 1e-9)
+        if self.on:
+            _stack().pop()
+            _append((self.name, self.t0, t1, self.id, self.parent,
+                     self.request, threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` records the block as a span (nothing while the
+    recorder is off)."""
+    return _Span(name) if _ON else _NULL
+
+
+def stage(timings: dict, key: str, t0: int | None = None) -> _Span:
+    """``with stage(eng.timings, "filter"):`` adds the block's seconds to
+    ``timings[key]`` and records it as the span ``STAGES[key]``.  ``t0``, a
+    ``perf_counter_ns`` read taken before the block, starts the stage there
+    instead: a dispatch reads it before it learns whether its level has any
+    lane, and skips the stage when it has none."""
+    return _Span(STAGES[key], timings, key, t0)
+
+
+def record(name: str, t0: int, t1: int, request: int = 0) -> None:
+    """Record a span timed elsewhere (``perf_counter_ns`` reads), under
+    ``request`` when given; its parent is the innermost span open on this
+    thread."""
+    if not _ON:
+        return
+    st = _stack()
+    parent = st[-1].id if st else None
+    if not request:
+        request = (st[-1].request if st
+                   else getattr(_local, "request", 0) or next(_ids))
+    _append((name, t0, t1, next(_ids), parent, request,
+             threading.get_ident()))
+
+
+@contextlib.contextmanager
+def _as_request(rid: int):
+    prev = getattr(_local, "request", 0)
+    _local.request = rid
+    try:
+        yield
+    finally:
+        _local.request = prev
+
+
+def request(rid: int):
+    """``with request(rid):`` makes the root spans this thread opens join
+    request ``rid`` (one that crosses threads)."""
+    return _as_request(rid) if _ON and rid else _NULL

@@ -34,6 +34,18 @@ encodes the reply; the handler wakes and writes it back.  Results are
 bit for bit the in-process ``StreamOptimizer``'s over the same request
 sequence, because the graph and config codecs round-trip exactly.
 
+**Telemetry.**  A ``stats`` request answers with the daemon's counts
+(requests, queries, shed, errors, flights, checkpoints, per tenant, the
+plan cache, the flights' ``telemetry`` roll-up, ``exec``) and with p50,
+p95 and p99 over the last ``history`` requests of ``request_wall_s`` (the
+worker's wall for a request: decode and run, not the reply's encode),
+``flight_wall_s`` and ``queue_wait_s``: a request's wait from admission
+to the worker's pickup, behind the jobs ahead of it.  With the span
+recorder on (``core.telemetry.enable``) the worker records that wait as
+the span ``daemon.queue`` and its job as ``daemon.decode``,
+``daemon.run`` and ``daemon.encode``, all under the request id stamped
+at admission, which the spans of the engines under ``daemon.run`` share.
+
 **Faults.**  A crashed worker (an injected ``worker`` fault) is re-spawned
 in place and its job answered with a retryable error; an exception inside
 a job (an injected ``chunk`` fault) is answered with a structured error
@@ -62,6 +74,7 @@ from collections import deque
 
 from . import protocol as proto
 from ..core import faults
+from ..core import telemetry as _telemetry
 from ..core.config import OptimizerConfig
 from ..core.engine import resolve_device
 from ..core.plancache import PlanCache
@@ -74,13 +87,15 @@ from ..kernels import build
 class _Job:
     """One admitted optimize request: raw message in, encoded reply out."""
 
-    __slots__ = ("msg", "tenant", "done", "reply")
+    __slots__ = ("msg", "tenant", "done", "reply", "t_admit", "rid")
 
     def __init__(self, msg: dict, tenant: str):
         self.msg = msg
         self.tenant = tenant
         self.done = threading.Event()
         self.reply: dict | None = None
+        self.t_admit = 0          # perf_counter_ns at admission
+        self.rid = 0              # the request's span id (telemetry)
 
 
 class OptimizerDaemon:
@@ -164,6 +179,7 @@ class OptimizerDaemon:
         self._since_checkpoint = 0
         self._checkpoints = 0
         self._request_walls: deque[float] = deque(maxlen=history)
+        self._queue_waits: deque[float] = deque(maxlen=history)
         self._flight_walls: deque[float] = deque(maxlen=history)
         # flight-telemetry roll-up (telemetry.aggregate shape, summed
         # across every finalized flight of every request)
@@ -339,6 +355,8 @@ class OptimizerDaemon:
                         "tenant": tenant}
             self._tenant_inflight[tenant] = \
                 self._tenant_inflight.get(tenant, 0) + 1
+        job.t_admit = time.perf_counter_ns()
+        job.rid = _telemetry.new_request()
         try:
             self._queue.put_nowait(job)
         except queue.Full:
@@ -388,9 +406,11 @@ class OptimizerDaemon:
             faults.fire("worker")                  # injected crash: escapes
             if self._worker_gate is not None:      # to _worker_main
                 self._worker_gate.wait()
-            t0 = time.perf_counter()
+            t_pick = time.perf_counter_ns()
+            _telemetry.record("daemon.queue", job.t_admit, t_pick, job.rid)
             try:
-                job.reply = self._run_job(job, t0)
+                with _telemetry.request(job.rid):
+                    job.reply = self._run_job(job, t_pick * 1e-9)
             except Exception as e:
                 with self._lock:
                     self._errors += 1
@@ -400,11 +420,14 @@ class OptimizerDaemon:
                 with self._lock:
                     self._current_job = None
                     self._tenant_inflight[job.tenant] -= 1
+                    self._queue_waits.append((t_pick - job.t_admit) * 1e-9)
                 job.done.set()
 
     def _run_job(self, job: _Job, t0: float) -> dict:
-        cfg = OptimizerConfig.from_wire(job.msg.get("config") or {})
-        graphs = [proto.graph_from_wire(d) for d in job.msg.get("graphs", [])]
+        with _telemetry.span("daemon.decode"):
+            cfg = OptimizerConfig.from_wire(job.msg.get("config") or {})
+            graphs = [proto.graph_from_wire(d)
+                      for d in job.msg.get("graphs", [])]
         # substitute the daemon-owned shared state; a request that pins
         # devices= keeps its pin, otherwise the daemon's default mesh rules
         cfg = cfg.replace(
@@ -413,8 +436,9 @@ class OptimizerDaemon:
             devices=cfg.devices if cfg.devices is not None
             else (self._devices if self._mesh is None else None))
         hits0 = self.cache.stats.hits
-        results, report = StreamOptimizer(
-            config=cfg, device=self.device).optimize_stream(graphs)
+        with _telemetry.span("daemon.run"):
+            results, report = StreamOptimizer(
+                config=cfg, device=self.device).optimize_stream(graphs)
         wall = time.perf_counter() - t0
         tele = report.telemetry_summary()
         with self._lock:
@@ -431,8 +455,10 @@ class OptimizerDaemon:
             tt["queries"] += len(graphs)
             self._since_checkpoint += 1
         self._checkpoint()
+        with _telemetry.span("daemon.encode"):
+            wires = [proto.result_to_wire(r) for r in results]
         return {"ok": True,
-                "results": [proto.result_to_wire(r) for r in results],
+                "results": wires,
                 "wall_s": wall,
                 "flights": len(report.flights),
                 "lattice": report.lattice,
@@ -484,6 +510,7 @@ class OptimizerDaemon:
                             for t, v in sorted(self._tenant_totals.items())},
                 "checkpoints": self._checkpoints,
                 "request_wall_s": self._percentiles(self._request_walls),
+                "queue_wait_s": self._percentiles(self._queue_waits),
                 "flight_wall_s": self._percentiles(self._flight_walls),
                 "plancache": {
                     "entries": len(self.cache),

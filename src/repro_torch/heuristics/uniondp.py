@@ -41,6 +41,7 @@ import numpy as np
 
 from ..core import cost as cm
 from ..core import engine as _e
+from ..core import telemetry as _telemetry
 from ..core.joingraph import JoinGraph
 from ..core.plan import Counters, OptimizeResult, cost_plan
 from .common import UnitGraph, expand_unit_plan
@@ -209,95 +210,110 @@ def solve(g: JoinGraph, k: int = 15, subsolver: str = "mpdp",
     ``devices`` and ``mesh`` go there too: every round's flights are
     dealt over the mesh, and its 17-20-relation subproblems run on the
     lattice (``core.lattice``) instead of the solo engine."""
-    t0 = time.perf_counter()
-    counters = Counters()
-    if g.typed:
-        # decompose at non-inner bridges: partitioning + re-optimization run
-        # per inner component (reordering across a bridge is inadmissible
-        # anyway), the shared stitch joins components conflict-validly
-        from .common import solve_typed
+    with _telemetry.span("uniondp.solve"):
+        t0 = time.perf_counter()
+        counters = Counters()
+        if g.typed:
+            # decompose at non-inner bridges: partitioning +
+            # re-optimization run per inner component (reordering across a
+            # bridge is inadmissible anyway), the shared stitch joins
+            # components conflict-validly
+            from .common import solve_typed
 
-        def inner(jg):
-            r = solve(jg, k=k, subsolver=subsolver, goo_floor=goo_floor,
-                      partition=partition, reopt_rounds=reopt_rounds,
-                      reopt_batch=reopt_batch, devices=devices, mesh=mesh,
-                      pipeline=pipeline, policy=policy, device=device)
-            counters.evaluated += r.counters.evaluated
-            counters.ccp += r.counters.ccp
-            return r.plan
+            def inner(jg):
+                r = solve(jg, k=k, subsolver=subsolver, goo_floor=goo_floor,
+                          partition=partition, reopt_rounds=reopt_rounds,
+                          reopt_batch=reopt_batch, devices=devices, mesh=mesh,
+                          pipeline=pipeline, policy=policy, device=device)
+                counters.evaluated += r.counters.evaluated
+                counters.ccp += r.counters.ccp
+                return r.plan
 
-        p = solve_typed(g, inner)
-        return OptimizeResult(plan=p, cost=p.cost, counters=counters,
-                              algorithm=f"uniondp_{subsolver}",
-                              info={"partitions": [], "round_costs": [p.cost]},
-                              wall_s=time.perf_counter() - t0)
-    if policy is not None:
-        # learned re-optimization budget: one past the EMA of passes that
-        # improved the plan before (cold table -> the static default)
-        reopt_rounds = policy.reopt_rounds_for(reopt_rounds)
-
-    def batch_solve(jgs):
-        """Disjoint subproblems -> one batched device pass ("mpdp" lands in
-        the per-bucket tree/general lane spaces, not DPSUB; ``policy``
-        learns per-bucket dispatch across the rounds)."""
-        rs = _e.optimize_many(jgs, algorithm=subsolver, devices=devices,
-                              mesh=mesh, pipeline=pipeline, policy=policy,
-                              device=device)
-        for r in rs:
-            counters.evaluated += r.counters.evaluated
-            counters.ccp += r.counters.ccp
-        return [r.plan for r in rs]
-
-    info: dict = {"partitions": [], "round_costs": []}
-    ug = UnitGraph(g)
-    while ug.n > k:
-        groups = _partition(ug, k, rule=partition)
-        if all(len(gr) == 1 for gr in groups):
-            # cannot union anything (all merges would exceed k): force the
-            # two cheapest-connected groups together to guarantee progress
-            a, b = ug.edges[0]
-            groups = [[a, b]] + [[i] for i in range(ug.n) if i not in (a, b)]
-        info["partitions"].append(
-            [ug.rel_ids(sorted(gr)) for gr in groups])
-        # capture unit objects up-front: each merge reindexes ug.units.
-        # Partitions are disjoint, so every subgraph can be extracted from
-        # the pre-merge snapshot and the whole round batched.
-        jobs = []
-        for gr in groups:
-            if len(gr) < 2:
-                continue
-            jg, idxs = ug.as_joingraph(sorted(gr))   # pre-merge: ids == gr
-            jobs.append((jg, [ug.units[i] for i in idxs]))
-        plans = batch_solve([jg for jg, _ in jobs])
-        for (jg, ulist), plan in zip(jobs, plans):
-            ids = sorted(ug.index_of(t) for t in ulist)
-            ug.merge(ids, expand_unit_plan(plan, ulist, g))
-    jg, idxs = ug.as_joingraph()
-    p = expand_unit_plan(batch_solve([jg])[0], [ug.units[i] for i in idxs], g)
-    p = cost_plan(p, g)
-    algo = f"uniondp_{subsolver}"
-    if reopt_rounds > 0 and g.n > k:
-        p, info["round_costs"] = _reoptimize(g, p, k, batch_solve,
-                                             reopt_batch, reopt_rounds)
-        algo += "+reopt"
+            p = solve_typed(g, inner)
+            return OptimizeResult(plan=p, cost=p.cost, counters=counters,
+                                  algorithm=f"uniondp_{subsolver}",
+                                  info={"partitions": [],
+                                        "round_costs": [p.cost]},
+                                  wall_s=time.perf_counter() - t0)
         if policy is not None:
-            # accepted passes = improvements beyond the initial cost
-            policy.observe_reopt(len(info["round_costs"]) - 1)
-    else:
-        info["round_costs"] = [p.cost]
-    # opt-in serving guard, OFF by default: the cost-aware partitioner plus
-    # re-optimization beat plain GOO outright on the skewed PK-FK streams
-    if goo_floor and g.n > k:
-        from .goo import solve as _goo_solve
-        base = _goo_solve(g)
-        if base.cost < p.cost:
-            p = base.plan
-            algo += "+goo_floor"
-            # keep the explain payload consistent with the served plan:
-            # round_costs stays monotone and ends at the result's cost, and
-            # the raw (pre-floor) cost remains inspectable
-            info["goo_floor_raw_cost"] = info["round_costs"][-1]
-            info["round_costs"] = info["round_costs"] + [base.cost]
-    return OptimizeResult(plan=p, cost=p.cost, counters=counters,
-                          algorithm=algo, info=info,
-                          wall_s=time.perf_counter() - t0)
+            # learned re-optimization budget: one past the EMA of passes that
+            # improved the plan before (cold table -> the static default)
+            reopt_rounds = policy.reopt_rounds_for(reopt_rounds)
+
+        def batch_solve(jgs):
+            """Disjoint subproblems -> one batched device pass ("mpdp"
+            lands in the per-bucket tree/general lane spaces, not DPSUB;
+            ``policy`` learns per-bucket dispatch across the rounds)."""
+            with _telemetry.span("uniondp.subsolve"):
+                rs = _e.optimize_many(jgs, algorithm=subsolver,
+                                      devices=devices, mesh=mesh,
+                                      pipeline=pipeline, policy=policy,
+                                      device=device)
+            for r in rs:
+                counters.evaluated += r.counters.evaluated
+                counters.ccp += r.counters.ccp
+            return [r.plan for r in rs]
+
+        info: dict = {"partitions": [], "round_costs": []}
+        ug = UnitGraph(g)
+        while ug.n > k:
+            with _telemetry.span("uniondp.partition"):
+                groups = _partition(ug, k, rule=partition)
+            if all(len(gr) == 1 for gr in groups):
+                # cannot union anything (all merges would exceed k): force the
+                # two cheapest-connected groups together to guarantee progress
+                a, b = ug.edges[0]
+                groups = [[a, b]] + [[i] for i in range(ug.n)
+                                     if i not in (a, b)]
+            info["partitions"].append(
+                [ug.rel_ids(sorted(gr)) for gr in groups])
+            # capture unit objects up-front: each merge reindexes ug.units.
+            # Partitions are disjoint, so every subgraph can be extracted from
+            # the pre-merge snapshot and the whole round batched.
+            jobs = []
+            with _telemetry.span("uniondp.merge"):
+                for gr in groups:
+                    if len(gr) < 2:
+                        continue
+                    # pre-merge: ids == gr
+                    jg, idxs = ug.as_joingraph(sorted(gr))
+                    jobs.append((jg, [ug.units[i] for i in idxs]))
+            plans = batch_solve([jg for jg, _ in jobs])
+            with _telemetry.span("uniondp.merge"):
+                for (jg, ulist), plan in zip(jobs, plans):
+                    ids = sorted(ug.index_of(t) for t in ulist)
+                    ug.merge(ids, expand_unit_plan(plan, ulist, g))
+        with _telemetry.span("uniondp.merge"):
+            jg, idxs = ug.as_joingraph()
+        plan = batch_solve([jg])[0]
+        with _telemetry.span("uniondp.merge"):
+            p = cost_plan(expand_unit_plan(
+                plan, [ug.units[i] for i in idxs], g), g)
+        algo = f"uniondp_{subsolver}"
+        if reopt_rounds > 0 and g.n > k:
+            with _telemetry.span("uniondp.reopt"):
+                p, info["round_costs"] = _reoptimize(
+                    g, p, k, batch_solve, reopt_batch, reopt_rounds)
+            algo += "+reopt"
+            if policy is not None:
+                # accepted passes = improvements beyond the initial cost
+                policy.observe_reopt(len(info["round_costs"]) - 1)
+        else:
+            info["round_costs"] = [p.cost]
+        # opt-in serving guard, OFF by default: the cost-aware partitioner
+        # plus re-optimization beat plain GOO outright on the skewed PK-FK
+        # streams
+        if goo_floor and g.n > k:
+            from .goo import solve as _goo_solve
+            base = _goo_solve(g)
+            if base.cost < p.cost:
+                p = base.plan
+                algo += "+goo_floor"
+                # keep the explain payload consistent with the served plan:
+                # round_costs stays monotone and ends at the result's cost,
+                # and the raw (pre-floor) cost remains inspectable
+                info["goo_floor_raw_cost"] = info["round_costs"][-1]
+                info["round_costs"] = info["round_costs"] + [base.cost]
+        return OptimizeResult(plan=p, cost=p.cost, counters=counters,
+                              algorithm=algo, info=info,
+                              wall_s=time.perf_counter() - t0)

@@ -353,6 +353,42 @@ class TestBackpressure:
             stop(d)
 
 
+    def test_queue_wait_covers_a_held_worker(self, tmp_path):
+        """Two tenants' requests wait behind a worker held by the gate:
+        STATS' ``queue_wait_s`` p95 is at least the hold."""
+        gate = threading.Event()
+        d = start(tmp_path, "qw.sock", worker_gate=gate)
+        hold = 0.3
+        done = []
+
+        def send(tenant: str):
+            with client(d, tenant=tenant) as c:
+                done.append(c.optimize(SMALL[:1], timeout=WAIT))
+
+        try:
+            ts = [threading.Thread(target=send, args=(t,)) for t in "ab"]
+            for t in ts:
+                t.start()
+
+            def admitted():
+                with d._lock:
+                    return sum(d._tenant_inflight.values()) == 2
+            wait_until(admitted, "the two requests were never admitted")
+            time.sleep(hold)
+            gate.set()
+            for t in ts:
+                t.join(timeout=WAIT)
+            assert not any(t.is_alive() for t in ts) and len(done) == 2
+            with client(d) as c:
+                st = c.stats()
+            assert st["queue_wait_s"]["p95"] >= hold
+            assert st["queue_wait_s"]["p50"] <= st["queue_wait_s"]["p95"] \
+                <= st["queue_wait_s"]["p99"]
+        finally:
+            gate.set()
+            stop(d)
+
+
 # ==================================================== drain and checkpoints
 
 class TestDrainAndCheckpoint:
@@ -718,7 +754,9 @@ def test_clients_cross_packages(tmp_path, warm_reference, client_pkg):
             assert [plan_shape(r.plan) for r in da] == \
                 [plan_shape(r.plan) for r in db]
             sa, sb = co.stats(), ct.stats()
-        assert key_tree(sa) == key_tree(sb)
+        # the port's STATS are the reference's plus ``queue_wait_s``
+        assert key_tree(sa) == {**key_tree(sb), "queue_wait_s": {
+            "p50": None, "p95": None, "p99": None}}
         for k in ("requests", "queries", "flights", "shed", "errors",
                   "tenants", "plancache"):
             assert sa[k] == sb[k], k
