@@ -7,7 +7,7 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the thirteen CUDA entry points against its plain
+  3. kernels — each of the fourteen CUDA entry points against its plain
      PyTorch version on the same card tensors, bit for bit, lanes built
      with numpy from a seed over real generator graphs: the four batched
      kernels and the four batched forms that build their own lanes
@@ -38,7 +38,12 @@ Phases, in order, none of them caught:
      (printed) and at stream (a)'s busiest level span, tree chunk and
      general chunk (the JSON line), ``bccp_eval_decode`` at stream (b)'s
      busiest chunk (the JSON line), ``bgeneral_eval_decode`` also at d1's
-     busiest chunk (printed);
+     busiest chunk (printed); ``phase_a_blocks`` (phase A of MPDP-general)
+     on random sets of every graph above at nmax 8, 16, 24 and 30, two
+     widths each, and on every level of stream (a), d1 and l1 (d1 on the
+     lattice, one shard), timed at each level of musicbrainz_query(16, 1)
+     (printed: the largest level and the sum) and at the largest level of
+     musicbrainz_query(20, 0) (the JSON line);
   4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
      plan validated and every cost held against the host DPccp oracle
      (relative 1e-4), ``Counters`` and costs of stream (c) and the first
@@ -47,7 +52,8 @@ Phases, in order, none of them caught:
      level and flight, launch counters read around exactly this path;
      then a ``torch.profiler`` window over stream (a);
      on every path one ``bgeneral_eval_decode`` launch per MPDP-general
-     chunk, one ``bccp_eval_decode`` launch per batched DPSUB chunk and
+     chunk, one ``bccp_eval_decode`` launch per batched DPSUB chunk, one
+     ``phase_a_blocks`` launch per (query, level) on phase A's sparse path and
      none of the seven set-given kernels the lane-building forms replaced
      (``OFF_PATH``);
   5. solo path — ``engine.optimize`` on ``cuda`` over parts d1-d5 (MPDP-
@@ -256,7 +262,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch.core import batch, dpccp, engine, faults, service  # noqa: E402
-from repro_torch.core import lattice, shard  # noqa: E402
+from repro_torch.core import blocks, lattice, shard  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.config import MAX_FLIGHT, OptimizerConfig  # noqa: E402
@@ -325,6 +331,9 @@ KERNELS = {
     "bgeneral_eval_decode": ((), 6, "src/repro/kernels/ccp_eval.py:184 + the "
                              "general decode of src/repro/core/batch.py:259-283 "
                              "and src/repro/core/engine.py:253-268"),
+    "phase_a_blocks": ((), 1, "no Pallas kernel: the jitted blocks_chunk of "
+                       "src/repro/core/blocks.py:236 + the pair compaction "
+                       "of src/repro/core/blocks.py:274"),
 }
 SOLO = ("connectivity", "ccp_eval", "grow_pair")
 SPAN_FORMS = ("connectivity_span", "ccp_eval_dpsub")
@@ -334,8 +343,9 @@ BATCHED_FORMS = ("bconnectivity_span", "bccp_eval_decode",
 SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
 # what each path runs: the set-given kernels left it for the forms that
 # build their own lanes, and must make no launch there
-BATCHED_PATH = BATCHED_FORMS
-SOLO_PATH = SPAN_FORMS + ("btree_eval_decode", "bgeneral_eval_decode")
+BATCHED_PATH = BATCHED_FORMS + ("phase_a_blocks",)
+SOLO_PATH = SPAN_FORMS + ("btree_eval_decode", "bgeneral_eval_decode",
+                          "phase_a_blocks")
 TYPED_PATH = SPAN_FORMS + BATCHED_FORMS
 # the heuristics' subproblems: batched flights, and 17-20-relation ones
 # solo (a DPSUB subproblem goes solo only past 16 relations: not here)
@@ -644,6 +654,25 @@ def solo_general_inputs(g, nmax: int, chunk: int, seed: int, clamp: bool):
                        chunk, seed, clamp)
 
 
+def phase_a_inputs(g, nmax: int, N: int, seed: int):
+    """phase_a_blocks arguments on the card: N random subsets of g's
+    vertices (disconnected ones and 0 among them), g's tables, the
+    ``eff_cap`` of ``np_pairs_for_sets`` (``CYC_CAP_HARD`` past it) and
+    the widest row."""
+    rng = np.random.default_rng(seed)
+    S = rng.integers(0, 1 << g.n, N).astype(np.int32)
+    emax = max(8, -(-g.m // 8) * 8)
+    eu = np.full(emax, -1, np.int32)
+    ev = np.full(emax, -1, np.int32)
+    live = np.zeros(emax, bool)
+    for i, (u, v) in enumerate(g.edges):
+        eu[i], ev[i], live[i] = u, v, True
+    eff = max(1, min(ops.CYC_CAP_HARD, g.m - g.n + 1))
+    return (torch.from_numpy(S).to(DEV), adj_table(g, nmax),
+            *[torch.from_numpy(a).to(DEV) for a in (eu, ev, live)], nmax, eff,
+            eff + nmax)
+
+
 def spied_calls(names, run, where: str):
     """Call ``run()`` with the wrappers ``names`` held against their plain
     versions on every call; return the arguments of each call by name."""
@@ -678,7 +707,7 @@ def busiest_stream_calls(graphs):
     arguments of the busiest ``bconnectivity_span`` call (most ranks),
     ``btree_eval_decode`` call and ``bgeneral_eval_decode`` call (most
     live lanes)."""
-    seen = spied_calls(BATCHED_FORMS,
+    seen = spied_calls(BATCHED_FORMS + ("phase_a_blocks",),
                        lambda: batch.optimize_many(graphs, "auto"), "stream (a)")
     return (max(seen["bconnectivity_span"], key=lambda a: a[2]),
             max(seen["btree_eval_decode"],
@@ -902,13 +931,40 @@ def general_decode_work(args):
                     + SEARCH_OPS * search_steps(pairs.shape[1] - 1) * chunk)
 
 
+def phase_a_work(args):
+    """(bytes, int32 operations) of a phase_a_blocks call: the sets read
+    and the rows written once, the tables read once; per set OPS_PER_LANE
+    and OPS_PER_STEP for each vertex of S the BFS reaches (twice: its
+    neighbour OR and its parent pick), each edge the scan reads and each
+    vertex the bridge pass visits.  The cycle walks and merges (a few steps
+    a set at the queries' cyclomatic numbers of 1-4) are left out, so the
+    bound is a floor."""
+    S, adj, eu, ev, live, nmax, eff_cap, width = args
+    N, emax = S.numel(), eu.numel()
+    nbytes = 4 * N * (1 + width) + 4 * (nmax + 2 * emax) + emax
+    reach = int(bs.popcount(S & ((1 << nmax) - 1)).to(torch.int64).sum())
+    return nbytes, (OPS_PER_STEP * (2 * reach + N * (emax + nmax))
+                    + OPS_PER_LANE * N)
+
+
 def d1_general_calls():
-    """Run d1 once with its ``bgeneral_eval_decode`` calls held against
-    the plain version; return the calls' arguments."""
+    """Run d1 once with its ``bgeneral_eval_decode`` and ``phase_a_blocks``
+    calls held against the plain versions; return the calls' arguments by
+    name."""
     label, g, algorithm, opts, _ = solo_parts()[0]
-    return spied_calls(("bgeneral_eval_decode",),
-                       lambda: engine.optimize(g, algorithm, **opts),
-                       label)["bgeneral_eval_decode"]
+    return spied_calls(("bgeneral_eval_decode", "phase_a_blocks"),
+                       lambda: engine.optimize(g, algorithm, **opts), label)
+
+
+def phase_a_levels(label: str, g, run):
+    """Run ``run()`` with its ``phase_a_blocks`` calls held against the
+    plain version; check one call a level of g (levels 2..n) and return
+    the calls' arguments."""
+    calls = spied_calls(("phase_a_blocks",), run, label)["phase_a_blocks"]
+    if len(calls) != g.n - 1:
+        raise AssertionError(f"{label}: {len(calls)} phase_a_blocks calls "
+                             f"for {g.n - 1} levels")
+    return calls
 
 
 def measure(name, args, row: dict, work) -> None:
@@ -1038,7 +1094,8 @@ def phase_kernels():
             dpsub_decode_work(dpsub))
     log(f"batched kernels ok on stream (b)'s {len(b_calls)} bccp_eval_decode "
         f"calls")
-    d1_calls = d1_general_calls()
+    d1_seen = d1_general_calls()
+    d1_calls = d1_seen["bgeneral_eval_decode"]
     d1_busy = busiest_general(d1_calls)
     at_l = {}
     measure("bgeneral_eval_decode", d1_busy, at_l, general_decode_work(d1_busy))
@@ -1046,6 +1103,7 @@ def phase_kernels():
             f"L={d1_busy[5]} live={d1_busy[2]} pairs={d1_busy[1]} "
             f"pcap={d1_busy[0].shape[1]} nmax=24 one row (d1's busiest chunk)")
     log(f"solo kernels ok on d1's {len(d1_calls)} bgeneral_eval_decode calls")
+    phase_a_kernel(rows, seen["phase_a_blocks"], d1_seen["phase_a_blocks"])
     at_main = {
         "connectivity_span": "count=5200300 k=12 nmax=30 (d4's level-12 span)",
         "ccp_eval_dpsub": f"L={L_MAIN} nmax=24 i={args[4]} (d3's busiest level)",
@@ -1064,10 +1122,60 @@ def phase_kernels():
                                 f"{general[3].shape[0]} (stream a's busiest "
                                 f"general chunk)"}
     for name, row in rows.items():
-        at = at_main.get(name, "nmax=24 (one table)" if name in SOLO
-                         else "nmax=16 bcap=32")
+        at = at_main.get(name, row.get("at") or (
+            "nmax=24 (one table)" if name in SOLO else "nmax=16 bcap=32"))
         log_row(name, row, at)
     return rows
+
+
+def phase_a_kernel(rows, a_calls, d1_calls) -> None:
+    """phase_a_blocks against its plain version: N random sets (1, 129,
+    32767) on every graph of phase 3 at nmax 8, 16 (the 32 of each), 24
+    and 30 (the solo ones), at the widest row and at the width
+    ``np_pairs_for_sets`` gives; then every level of stream (a) and d1
+    (held while they ran) and of l1 (d1 on the lattice, one shard).
+    Times: each level of a 16-relation
+    musicbrainz query (q12_16's largest) and the largest level of a
+    20-relation one (solo18_20's), the latter the JSON row."""
+    row = rows["phase_a_blocks"]
+    for nmax in (8, 16, 24, 30):
+        graphs = kernel_graphs(nmax) if nmax <= 16 else solo_graphs(nmax)
+        for gi, g in enumerate(graphs):
+            for N in (1, 129, 32767):
+                args = phase_a_inputs(g, nmax, N, seed=nmax * 1000 + gi + N)
+                for width in (args[-1], args[-2] + g.n - 1):
+                    row["max_abs_err"] = max(row["max_abs_err"], check(
+                        "phase_a_blocks", (*args[:-1], width),
+                        f"nmax={nmax} n={g.n} N={N} width={width}"))
+        log(f"phase A kernel ok nmax={nmax} on {len(graphs)} graphs")
+    d1g = solo_parts()[0][1]
+    l1 = phase_a_levels("l1 d1 x1", d1g, lambda: engine.optimize(
+        d1g, config=OptimizerConfig(algorithm="mpdp", lattice=True,
+                                    devices=1)))
+    log(f"phase A kernel ok on every level of stream (a) ({len(a_calls)} "
+        f"calls), d1 ({len(d1_calls)}) and l1 ({len(l1)})")
+    q16 = gen.musicbrainz_query(16, seed=1)
+    levels = phase_a_levels("q16", q16, lambda: batch.optimize_many(
+        [q16], "auto"))
+    timed = []
+    for args in levels:
+        at_l = {}
+        measure("phase_a_blocks", args, at_l, phase_a_work(args))
+        timed.append((args, at_l))
+    busy, at_l = max(timed, key=lambda t: t[0][0].numel())
+    log_row("phase_a_blocks", at_l, f"N={busy[0].numel()} width={busy[-1]} "
+            f"eff_cap={busy[-2]} nmax=16 (musicbrainz_query(16, 1)'s "
+            f"largest level)")
+    log(f"kernel phase_a_blocks: "
+        f"{sum(t['ms'] for _, t in timed) * 1e3:.2f} us over the "
+        f"{len(levels)} levels of musicbrainz_query(16, 1), plain "
+        f"{sum(t['plain_ms'] for _, t in timed) * 1e3:.2f} us")
+    q20 = gen.musicbrainz_query(20, seed=0)
+    levels = phase_a_levels("q20", q20, lambda: engine.optimize(q20, "auto"))
+    busy = max(levels, key=lambda a: a[0].numel())
+    measure("phase_a_blocks", busy, row, phase_a_work(busy))
+    row["at"] = (f"N={busy[0].numel()} width={busy[-1]} eff_cap={busy[-2]} "
+                 f"nmax=24 (musicbrainz_query(20, 0)'s largest level)")
 
 
 def log_row(name, row, at):
@@ -1177,7 +1285,10 @@ class ChunkCalls:
     bodies that launch ``bgeneral_eval_decode`` (the MPDP-general ones),
     ``btree_eval_decode`` (the MPDP:Tree ones) and ``bccp_eval_decode``
     (the batched DPSUB one), as the batched, lattice and solo engines
-    call them; the CPU runs that the checks make are not counted."""
+    call them, and under ``phase_a_blocks`` the calls of
+    ``blocks.np_pairs_for_sets`` on card tensors that take its sparse path
+    (cyclomatic number <= cyc_cap) with sets; the CPU runs that the checks
+    make are not counted."""
     BODIES = {"bgeneral_eval_decode": ((batch, "_beval_general_chunk"),
                                        (lattice, "_beval_general_chunk"),
                                        (engine, "_eval_general_chunk")),
@@ -1189,8 +1300,10 @@ class ChunkCalls:
 
     def __init__(self):
         self.count = {k: 0 for k in self.BODIES}
+        self.count["phase_a_blocks"] = 0
         self.real = {(m, n): getattr(m, n) for bodies in self.BODIES.values()
                      for m, n in bodies}
+        self.real[(blocks, "np_pairs_for_sets")] = blocks.np_pairs_for_sets
 
     def __enter__(self):
         def counted(kernel, fn):
@@ -1201,6 +1314,13 @@ class ChunkCalls:
         for kernel, bodies in self.BODIES.items():
             for m, n in bodies:
                 setattr(m, n, counted(kernel, self.real[(m, n)]))
+        real_pairs = self.real[(blocks, "np_pairs_for_sets")]
+
+        def pairs(sets_np, g, adj, *args, cyc_cap, **kw):
+            self.count["phase_a_blocks"] += (adj.is_cuda and len(sets_np) > 0
+                                             and g.m - g.n + 1 <= cyc_cap)
+            return real_pairs(sets_np, g, adj, *args, cyc_cap=cyc_cap, **kw)
+        blocks.np_pairs_for_sets = pairs
         return self
 
     def __exit__(self, *exc):
@@ -1210,10 +1330,11 @@ class ChunkCalls:
 
 def check_path(label: str, launches: dict, path, chunks: dict) -> None:
     """Raise unless every kernel of the path launched, the set-given
-    kernels they replaced did not, and the MPDP-general, MPDP:Tree and
+    kernels they replaced did not, the MPDP-general, MPDP:Tree and
     batched DPSUB evaluates made one ``bgeneral_eval_decode``,
-    ``btree_eval_decode`` and ``bccp_eval_decode`` launch per chunk
-    (``chunks``: ``ChunkCalls`` counts)."""
+    ``btree_eval_decode`` and ``bccp_eval_decode`` launch per chunk and
+    phase A one ``phase_a_blocks`` launch per (query, level) on its sparse
+    path (``chunks``: ``ChunkCalls`` counts)."""
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {label} path: "
@@ -1231,7 +1352,9 @@ def check_path(label: str, launches: dict, path, chunks: dict) -> None:
         f"btree_eval_decode launch for each of its "
         f"{chunks['btree_eval_decode']} MPDP:Tree chunks and one "
         f"bccp_eval_decode launch for each of its "
-        f"{chunks['bccp_eval_decode']} batched DPSUB chunks, no launch of "
+        f"{chunks['bccp_eval_decode']} batched DPSUB chunks, one "
+        f"phase_a_blocks launch for each of its {chunks['phase_a_blocks']} "
+        f"sparse phase-A (query, level)s, no launch of "
         f"{', '.join(OFF_PATH)}")
 
 

@@ -4,18 +4,17 @@ Phase A of MPDP-general, as in ``repro.core.blocks``:
 
 * ``np_find_blocks`` — host Hopcroft-Tarjan (DFS lowpoint) oracle, and
   ``np_cut_vertices``, the cut-vertex oracle by component counting;
-* ``blocks_chunk`` — branch-free torch version over a batch of sets, run
-  on the engine's device:
+* ``np_pairs_for_sets`` — the host side turning a level's sets into
+  sorted (set, block) pair arrays, equal to the reference's.  Its sparse
+  path runs ``kernels.ops.phase_a_blocks`` over the whole level (the
+  kernel on a card; on the CPU its plain version, the torch
+  ``kernels.ref.blocks_chunk`` of the reference's jitted chunk function):
       1. BFS spanning tree (parent/depth) of G[S];
       2. fundamental cycle per non-tree edge (LCA walk, vertex bitmaps);
       3. merge cycles sharing >= 2 vertices (transitive closure);
       4. tree edges no fundamental cycle covers are bridges => 2-vertex
          blocks;
-* ``np_pairs_for_sets`` — the host driver compacting a level's sets into
-  sorted (set, block) pair arrays, equal to the reference's.
-
-The reference ``vmap``s one set's functions over the batch; here the batch
-is the leading dimension of every tensor.
+  its dense path ``has_cut_vertex_batch`` and the oracle.
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import torch
 
 from . import bitset as bs
 from . import telemetry as _telemetry
+from ..kernels import ops
 
 
 # ------------------------------------------------------------------ oracle --
@@ -92,124 +92,11 @@ def np_cut_vertices(s: int, adj_np: np.ndarray) -> int:
     return out
 
 
-# ----------------------------------------------------------- torch batched --
-
-def _bit(v: torch.Tensor) -> torch.Tensor:
-    return torch.ones_like(v) << v
-
-
-def _bfs_tree(S, adj, nmax: int):
-    """BFS tree of each G[S] from lsb(S): parent idx and depth, (B, nmax)."""
-    sh = torch.arange(nmax, dtype=torch.int32, device=S.device)
-    vbits = _bit(sh)
-    root = bs.lsb(S)
-    visited, frontier = root, root
-    parent = torch.full((S.shape[0], nmax), -1, dtype=torch.int32,
-                        device=S.device)
-    depth = torch.where(((root[:, None] >> sh) & 1) == 1, 0, 1 << 20) \
-        .to(torch.int32)
-    for d in range(nmax):
-        new = bs.neighbors(frontier, adj) & S & ~visited
-        isnew = (new[:, None] & vbits) != 0
-        # each newly visited v picks its lowest-index neighbour inside the
-        # frontier as parent: popcount(lsb(bm) - 1), 0 for an empty bm
-        pbm = adj[None, :] & frontier[:, None]
-        pidx = bs.popcount(bs.lsb(pbm) - 1) * (pbm != 0)
-        parent = torch.where(isnew, pidx, parent)
-        depth = torch.where(isnew, d + 1, depth)
-        visited = visited | new
-        frontier = new
-    return parent, depth
-
-
-def _fundamental_cycles(parent, depth, eu_idx, ev_idx, active, nmax: int):
-    """Vertex bitmap of the fundamental cycle of each (non-tree) edge slot;
-    every tensor is (B, slots) except parent/depth (B, nmax)."""
-    a = eu_idx.clamp(min=0)
-    b = ev_idx.clamp(min=0)
-    cyc = torch.zeros_like(a)
-    for _ in range(2 * nmax):
-        da = depth.gather(1, a.long())
-        db = depth.gather(1, b.long())
-        ne = a != b
-        step_a = ne & (da >= db)
-        step_b = ne & (db > da)
-        both = ne & (da == db)
-        cyc = cyc | _bit(a) | _bit(b)
-        na = torch.where(step_a | both, parent.gather(1, a.long()), a)
-        nb = torch.where(step_b | both, parent.gather(1, b.long()), b)
-        a = na.clamp(min=0)
-        b = nb.clamp(min=0)
-    cyc = cyc | _bit(a)                                      # the LCA
-    return torch.where(active, cyc, 0)
-
-
-def _merge_cycles(cycles):
-    """Transitive closure of 'share >= 2 vertices' by iterated bitmap OR,
-    then duplicates of an earlier slot zeroed.  cycles: (B, slots)."""
-    cur = cycles
-    while True:
-        nz = cur != 0
-        inter = bs.popcount(cur[:, :, None] & cur[:, None, :])
-        share = (inter >= 2) & nz[:, :, None] & nz[:, None, :]
-        nxt = bs._or_last(torch.where(share, cur[:, None, :], 0)) | cur
-        if torch.equal(nxt, cur):
-            break
-        cur = nxt
-    idx = torch.arange(cur.shape[1], device=cur.device)
-    dup = ((cur[:, :, None] == cur[:, None, :])
-           & (idx[None, :] < idx[:, None]) & (cur[:, :, None] != 0))
-    return torch.where(dup.any(dim=2), 0, cur)
-
-
-def blocks_chunk(S, adj, eu_idx, ev_idx, edge_live, *, nmax: int,
-                 cyc_cap: int):
-    """Phase A of MPDP-general: blocks of every set of ``S`` (int32[B]).
-
-    Returns ``(merged int32[B, cyc_cap], bridge int32[B, nmax])``; zero
-    entries are padding.  ``adj`` is the query's int32[nmax] table and the
-    edge arrays its int32[emax] endpoint indices (-1 pad) and live mask.
-    """
-    B = S.shape[0]
-    parent, depth = _bfs_tree(S, adj, nmax)
-    eu_c, ev_c = eu_idx.clamp(min=0), ev_idx.clamp(min=0)
-    ubit = torch.where(eu_idx >= 0, _bit(eu_c), 0)
-    vbit = torch.where(ev_idx >= 0, _bit(ev_c), 0)
-    Sc = S[:, None]
-    in_s = edge_live[None, :] & ((ubit & Sc) != 0) & ((vbit & Sc) != 0)
-    pu = parent[:, eu_c.long()]
-    pv = parent[:, ev_c.long()]
-    non_tree = in_s & ~((pu == ev_idx) | (pv == eu_idx))
-    # compact non-tree edge endpoints into cyc_cap slots; slot cyc_cap is
-    # the drop column (JAX's mode="drop") and is cut off below
-    pos = torch.cumsum(non_tree.to(torch.int32), dim=1) - 1
-    slot = torch.where(non_tree, pos, cyc_cap).clamp(max=cyc_cap).long()
-
-    def compact(vals, fill):
-        buf = torch.full((B, cyc_cap + 1), fill, dtype=torch.int32,
-                         device=S.device)
-        return buf.scatter_(1, slot, vals.to(torch.int32).expand(B, -1)
-                            .contiguous())[:, :cyc_cap]
-
-    cu = compact(eu_idx, -1)
-    cv = compact(ev_idx, -1)
-    act = compact(non_tree, 0) != 0
-    cycles = _fundamental_cycles(parent, depth, cu, cv, act, nmax)
-    merged = _merge_cycles(cycles)
-    sh = torch.arange(nmax, dtype=torch.int32, device=S.device)
-    vbits = _bit(sh)
-    has_parent = (parent >= 0) & ((Sc & vbits) != 0)
-    pbits = torch.where(has_parent, _bit(parent.clamp(min=0)), 0)
-    pair = vbits | pbits                                     # (B, nmax)
-    cov = (((cycles[:, None, :] & pair[:, :, None]) == pair[:, :, None])
-           & (cycles[:, None, :] != 0))
-    bridge = torch.where(has_parent & ~cov.any(dim=2), pair, 0)
-    return merged, bridge
-
+# ---------------------------------------------------------- dense path --
 
 def has_cut_vertex_batch(S, adj, nmax: int):
     """True per set iff G[S] has a cut vertex (the dense-graph early-out)."""
-    vbits = _bit(torch.arange(nmax, dtype=torch.int32, device=S.device))[None, :]
+    vbits = (1 << torch.arange(nmax, dtype=torch.int32, device=S.device))[None, :]
     rest = S[:, None] & ~vbits                               # (B, nmax)
     in_s = (S[:, None] & vbits) != 0
     reach = bs.grow(bs.lsb(rest), rest, adj)
@@ -230,27 +117,27 @@ def np_pairs_for_sets(sets_np, g, adj, eu_idx, ev_idx, edge_live,
     """
     mu = g.m - g.n + 1
     dev = adj.device
-    scap = 4096
     pair_set, pair_block = [], []
     if mu <= cyc_cap:
         # the cyclomatic number of any induced subgraph is <= mu(G): size
         # the fundamental-cycle slots to the query, not the ceiling
         eff_cap = max(1, min(cyc_cap, mu))
-        for s0 in range(0, len(sets_np), scap):
-            Sd = torch.from_numpy(np.ascontiguousarray(
-                sets_np[s0: s0 + scap], np.int32)).to(dev)
-            merged, bridge = blocks_chunk(Sd, adj, eu_idx, ev_idx, edge_live,
-                                          nmax=nmax, cyc_cap=eff_cap)
-            both = torch.cat([merged, bridge], dim=1)
-            nz = both != 0
-            with _telemetry.span("engine.fetch"):
-                got = torch.stack([Sd[:, None].expand_as(both)[nz],
-                                   both[nz]]).cpu().numpy()
-            pair_set.append(got[0])
-            pair_block.append(got[1])
+        sets_np = np.ascontiguousarray(sets_np, np.int32)
+        # a set's blocks: at most eff_cap merged cycles and a bridge for
+        # each of its vertices but the BFS root
+        width = eff_cap + int(bs.np_popcount(sets_np).max(initial=1)) - 1
+        rows = ops.phase_a_blocks(torch.from_numpy(sets_np).to(dev), adj,
+                                  eu_idx, ev_idx, edge_live, nmax, eff_cap,
+                                  width)
+        with _telemetry.span("engine.fetch"):
+            rows = rows.cpu().numpy()
+        nz = rows != 0
+        pair_set.append(np.repeat(sets_np, np.count_nonzero(nz, axis=1)))
+        pair_block.append(rows[nz])
     else:
         # dense path: no-cut-vertex sets are single blocks (cliques); rare
         # cut-vertex sets go to the host oracle
+        scap = 4096
         flags = np.zeros(len(sets_np), bool)
         for s0 in range(0, len(sets_np), scap):
             Sd = torch.from_numpy(np.ascontiguousarray(

@@ -79,6 +79,15 @@
 //                            batched and the solo general evaluate, the
 //                            latter on a one-row table)
 //
+// One more replaces no Pallas kernel but the reference's jitted XLA phase A
+// (src/repro/core/blocks.py:236, vmapped over a chunk of sets), which the
+// port had run as about 1,900-4,500 eager torch ops a (query, level):
+//
+//   phase_a_blocks_kernel <- blocks_chunk (core/blocks.py:236) and the
+//                            (set, block) compaction of np_pairs_for_sets
+//                            (core/blocks.py:274): one thread a set, its
+//                            blocks left-justified in a fixed-width row
+//
 // What bounds them on this card.  A lane reads 4-16 bytes and writes 4-12
 // (int32 in and out, each once); the int32 work per lane is a handful of
 // set-bit walks of at most nmax (<= 30) steps, each a find-first-set, a
@@ -133,6 +142,13 @@
 //     path and each step is one broadcast load that stays in L1 after the
 //     first warp of an SM.  The four pair rows are gathered the same way;
 //     only the adjacency stack sits in shared memory.
+//   * Phase A does a few hundred int32 steps a set at the cyclomatic
+//     numbers of real queries (2-3) over at most tens of thousands of sets
+//     a level, and moves (1 + width) x 4 bytes a set: bound by launch
+//     latency, like the others.  What it removes is host work: one launch
+//     a (query, level) in place of the eager ops, the whole level in one
+//     grid, the query's adjacency row and edge endpoints staged in shared
+//     memory once a block, and the rows read back in one copy.
 //
 // Plain C interface (bound with ctypes): each rt_* function launches on the
 // given stream and returns cudaGetLastError() as an int (0 = success).
@@ -666,6 +682,141 @@ bgeneral_eval_decode_kernel(const int* __restrict__ pairs, int pcap,
   p_out[t] = p;
 }
 
+// ------------------------------------------------------- phase A (blocks) --
+
+// Phase A of MPDP-general: the blocks of G[S] for each set S of one query,
+// as the port's plain blocks_chunk computes them (kernels/ref.py), one
+// thread a set, every step on bitmaps and per-thread arrays:
+//   1. the BFS tree from lsb(S): a vertex found in round d takes depth
+//      d + 1 and, as parent, its lowest-index neighbour in the frontier;
+//      unreached vertices keep parent -1 and depth kUnreached;
+//   2. the edges of G[S] that are not tree edges, in edge-array order, into
+//      the first eff_cap slots (later ones are dropped);
+//   3. one fundamental cycle a slot by the LCA walk (the deeper end steps
+//      to its parent, both on a tie, at most 2 nmax steps; stopping once
+//      the ends meet gives the same bitmap);
+//   4. the cycles merged in rounds, each reading the previous round's slots,
+//      a slot taking every slot that shares >= 2 vertices with it, until no
+//      slot changes; then the duplicates of earlier slots zeroed;
+//   5. the bridges: each tree edge (v, parent[v]) that no cycle of step 3
+//      covers, by ascending v.
+// Row t of out (width ints) gets set t's merged blocks in slot order, then
+// its bridges, zero after (at most eff_cap + popcount(S) - 1 of them; a
+// narrower row keeps the first width).  Edges with a dead or out-of-range
+// endpoint are staged as -1 and belong to no set.  Shared memory: adj
+// (nmax) and the edge endpoints (2 x emax).
+constexpr int kCycHard = 24;         // fundamental-cycle slots (cyc_cap)
+constexpr int kUnreached = 1 << 20;  // depth of a vertex the BFS never finds
+
+__global__ void __launch_bounds__(kThreads)
+phase_a_blocks_kernel(const int* __restrict__ sets,
+                      const int* __restrict__ adj,
+                      const int* __restrict__ eu_idx,
+                      const int* __restrict__ ev_idx,
+                      const unsigned char* __restrict__ edge_live,
+                      int* __restrict__ out, int n_sets, int nmax, int emax,
+                      int eff_cap, int width) {
+  extern __shared__ int smem[];
+  int* sadj = smem;
+  int* seu = sadj + nmax;
+  int* sev = seu + emax;
+  stage(sadj, adj, nmax);
+  for (int e = threadIdx.x; e < emax; e += blockDim.x) {
+    const int u = eu_idx[e], v = ev_idx[e];
+    const bool ok = edge_live[e] && u >= 0 && u < nmax && v >= 0 && v < nmax;
+    seu[e] = ok ? u : -1;
+    sev[e] = ok ? v : -1;
+  }
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_sets) return;
+  const int nmask = (1 << nmax) - 1;
+  const int s = sets[t];
+  int* row = out + static_cast<long long>(t) * width;
+
+  // 1. BFS tree
+  int parent[kNmaxHard], depth[kNmaxHard];
+  const int root = lsb(s);
+  for (int v = 0; v < nmax; ++v) {
+    parent[v] = -1;
+    depth[v] = ((root >> v) & 1) ? 0 : kUnreached;
+  }
+  int visited = root, frontier = root;
+  for (int d = 0; d < nmax && frontier; ++d) {
+    const int fresh = neighbors(frontier, sadj, nmask) & s & ~visited;
+    for (unsigned m = static_cast<unsigned>(fresh); m; m &= m - 1) {
+      const int v = __ffs(m) - 1;
+      const int pbm = sadj[v] & frontier;
+      parent[v] = pbm ? __ffs(pbm) - 1 : 0;
+      depth[v] = d + 1;
+    }
+    visited |= fresh;
+    frontier = fresh;
+  }
+
+  // 2. non-tree edges of G[S] into slots; 3. their fundamental cycles
+  int cyc[kCycHard];
+  int nslot = 0;
+  for (int e = 0; e < emax && nslot < eff_cap; ++e) {
+    const int u = seu[e], v = sev[e];
+    if (u < 0 || v < 0 || !((s >> u) & 1) || !((s >> v) & 1)) continue;
+    if (parent[u] == v || parent[v] == u) continue;          // a tree edge
+    int a = u, b = v, c = 0;
+    for (int step = 0; step < 2 * nmax && a != b; ++step) {
+      c |= (1 << a) | (1 << b);
+      const int da = depth[a], db = depth[b];
+      const int na = da >= db ? parent[a] : a;
+      const int nb = db >= da ? parent[b] : b;
+      a = max(na, 0);
+      b = max(nb, 0);
+    }
+    cyc[nslot++] = c | (1 << a);                              // the LCA
+  }
+
+  // 4. merge (Jacobi rounds), then drop duplicates of earlier slots
+  int cur[kCycHard], nxt[kCycHard];
+  for (int i = 0; i < nslot; ++i) cur[i] = cyc[i];
+  for (bool changed = true; changed;) {
+    changed = false;
+    for (int i = 0; i < nslot; ++i) {
+      int x = cur[i];
+      if (x) {
+        for (int j = 0; j < nslot; ++j) {
+          if (cur[j] && __popc(cur[i] & cur[j]) >= 2) x |= cur[j];
+        }
+      }
+      nxt[i] = x;
+      changed |= x != cur[i];
+    }
+    for (int i = 0; i < nslot; ++i) cur[i] = nxt[i];
+  }
+  int w = 0;
+  for (int i = 0; i < nslot; ++i) {
+    bool dup = cur[i] == 0;
+    for (int j = 0; j < i && !dup; ++j) dup = cur[j] == cur[i];
+    if (!dup) {
+      if (w < width) row[w] = cur[i];
+      ++w;
+    }
+  }
+
+  // 5. bridges: tree edges no pre-merge cycle covers
+  for (int v = 0; v < nmax; ++v) {
+    const int p = parent[v];
+    if (p < 0 || !((s >> v) & 1)) continue;
+    const int pair = (1 << v) | (1 << p);
+    bool covered = false;
+    for (int k = 0; k < nslot && !covered; ++k) {
+      covered = (cyc[k] & pair) == pair;
+    }
+    if (!covered) {
+      if (w < width) row[w] = pair;
+      ++w;
+    }
+  }
+  for (; w < width; ++w) row[w] = 0;
+}
+
 inline dim3 grid_for(int L) { return dim3((L + kThreads - 1) / kThreads); }
 
 // Grid of a grid-stride kernel: the blocks resident on the card at once
@@ -846,6 +997,18 @@ int rt_bgeneral_eval_decode(const int* pairs, int pcap, int n_pairs,
                                 static_cast<cudaStream_t>(stream)>>>(
       pairs, pcap, n_pairs, lane_count, adj_b, S, sl, enum_ok, ccp_out, qid, p,
       L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_phase_a_blocks(const int* sets, const int* adj, const int* eu_idx,
+                      const int* ev_idx, const unsigned char* edge_live,
+                      int* out, int n_sets, int nmax, int emax, int eff_cap,
+                      int width, void* stream) {
+  size_t smem = static_cast<size_t>(nmax + 2 * emax) * sizeof(int);
+  phase_a_blocks_kernel<<<grid_for(n_sets), kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      sets, adj, eu_idx, ev_idx, edge_live, out, n_sets, nmax, emax, eff_cap,
+      width);
   return static_cast<int>(cudaGetLastError());
 }
 

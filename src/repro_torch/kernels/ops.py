@@ -13,7 +13,9 @@ batched DPSUB chunk's (query, set, subset) lanes from its offset tables
 an MPDP:Tree chunk's (query, set, edge) lanes from its offset tables (the
 batched and the solo tree evaluate) and ``bgeneral_eval_decode`` an
 MPDP-general chunk's (pair, rank) lanes from its pair table (the batched
-and the solo general evaluate).  Tensors on the CPU go to the plain
+and the solo general evaluate).  ``phase_a_blocks`` is no lane kernel: it
+finds the blocks of a level's sets of one query (phase A of MPDP-general),
+one row of block bitmaps a set.  Tensors on the CPU go to the plain
 PyTorch version in ``ref``; tensors on a CUDA device go to the kernel, or
 the wrapper raises (wrong dtype, shape, layout or mixed devices, or a
 refused launch).  There is no fallback from one to the other.
@@ -38,10 +40,11 @@ LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
             "bconnectivity_span": 0, "bccp_eval": 0, "bccp_eval_decode": 0,
             "btree_eval": 0,
             "btree_eval_decode": 0, "bgeneral_eval": 0,
-            "bgeneral_eval_decode": 0}
+            "bgeneral_eval_decode": 0, "phase_a_blocks": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
 _SMEM_LIMIT = 48 * 1024       # static dynamic-shared-memory budget per block
 _I32_MAX = (1 << 31) - 1
+CYC_CAP_HARD = 24             # phase_a_blocks' cycle slots (config.CYC_CAP_DEFAULT)
 
 
 def reset_launches() -> None:
@@ -288,6 +291,42 @@ def _launch_general_decode(pairs, n_pairs: int, lane_count: int, adj_b,
     return tuple(outs)
 
 
+def _launch_phase_a(S, adj, eu_idx, ev_idx, edge_live, nmax: int,
+                    eff_cap: int, width: int):
+    """Check the arguments, allocate the int32[N, width] rows and launch
+    ``rt_phase_a_blocks``."""
+    name = "phase_a_blocks"
+    _check_table(name, adj, nmax)
+    if S.dtype != torch.int32 or S.dim() != 1 or not S.is_contiguous():
+        raise ValueError(f"{name}: S must be contiguous int32[N], got "
+                         f"{S.dtype}{tuple(S.shape)}")
+    emax = eu_idx.shape[0] if eu_idx.dim() == 1 else 0
+    if emax < 1:
+        raise ValueError(f"{name}: eu_idx must be int32[emax], emax > 0, got "
+                         f"{eu_idx.dtype}{tuple(eu_idx.shape)}")
+    _check_vec(name, "eu_idx", eu_idx, (emax,))
+    _check_vec(name, "ev_idx", ev_idx, (emax,))
+    if edge_live.dtype != torch.bool or tuple(edge_live.shape) != (emax,) \
+            or not edge_live.is_contiguous():
+        raise ValueError(f"{name}: edge_live must be contiguous bool[{emax}], "
+                         f"got {edge_live.dtype}{tuple(edge_live.shape)}")
+    if 4 * (nmax + 2 * emax) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: unsupported edge arrays of {emax}")
+    if not 1 <= eff_cap <= CYC_CAP_HARD:
+        raise ValueError(f"{name}: eff_cap = {eff_cap} is outside "
+                         f"[1, {CYC_CAP_HARD}]")
+    if not 1 <= width <= eff_cap + nmax:
+        raise ValueError(f"{name}: width = {width} is outside "
+                         f"[1, {eff_cap + nmax}]")
+    _check_int32(name, slots=S.numel() * width)
+    out = torch.empty((S.numel(), width), dtype=torch.int32, device=S.device)
+    if S.numel():
+        _run(name, S.device, S.data_ptr(), adj.data_ptr(), eu_idx.data_ptr(),
+             ev_idx.data_ptr(), edge_live.data_ptr(), out.data_ptr(),
+             S.numel(), nmax, emax, eff_cap, width)
+    return out
+
+
 # -- solo engine ---------------------------------------------------------------
 
 def connectivity(S, adj, nmax: int):
@@ -435,3 +474,23 @@ def bgeneral_eval_decode(pairs, n_pairs: int, lane_count: int, adj_b,
                                             nmax, chunk)
     return _launch_general_decode(pairs, n_pairs, lane_count, adj_b, nmax,
                                   chunk)
+
+
+# -- phase A of MPDP-general ---------------------------------------------------
+
+def phase_a_blocks(S, adj, eu_idx, ev_idx, edge_live, nmax: int,
+                   eff_cap: int, width: int):
+    """The blocks of G[S] for each set of ``S`` (int32[N]) of one query ->
+    int32[N, width]: row t holds set t's merged cycle blocks in slot order,
+    then its bridges by ascending child vertex, as vertex bitmaps,
+    left-justified and zero after (the first ``width`` of them; at most
+    ``eff_cap + popcount(S) - 1`` are non-zero).  ``adj`` is the query's
+    int32[nmax] table, ``eu_idx``/``ev_idx`` its int32[emax] edge endpoints
+    (-1 pad), ``edge_live`` bool[emax]; ``eff_cap`` fundamental-cycle slots
+    (at most ``CYC_CAP_HARD`` on a card) keep the first non-tree edges of
+    G[S] in edge order."""
+    if _on_cpu("phase_a_blocks", (S, eu_idx, ev_idx, edge_live), adj):
+        return ref.phase_a_blocks_ref(S, adj, eu_idx, ev_idx, edge_live,
+                                      nmax, eff_cap, width)
+    return _launch_phase_a(S, adj, eu_idx, ev_idx, edge_live, nmax, eff_cap,
+                           width)

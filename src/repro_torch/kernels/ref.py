@@ -7,7 +7,8 @@ the six forms that build their own lanes (``connectivity_span``,
 ``ccp_eval_dpsub``, ``bconnectivity_span``, ``bccp_eval_decode``,
 ``btree_eval_decode``, ``bgeneral_eval_decode``) the unrank or lane decode
 of its chunk bodies
-followed by the lane kernel.
+followed by the lane kernel, and ``phase_a_blocks`` the reference's
+``blocks.blocks_chunk`` (phase A of MPDP-general) with its compaction.
 ``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each kernel
 against these on the card.
 
@@ -207,3 +208,148 @@ def bgeneral_eval_decode_ref(pairs, n_pairs: int, lane_count: int, adj_b,
     ccp = enum_ok & (_ccp(lb, rb, adjq) != 0)
     S_left = bs.grow_rows(lb, S & ~rb, adjq)
     return (S, S_left, enum_ok.to(torch.int32), ccp.to(torch.int32), qid, p)
+
+
+# -- phase A of MPDP-general: one query's (nmax,) table and edge arrays -------
+
+_PHASE_A_SLICE = 4096    # sets a slice: bounds the (B, slots, slots) temporaries
+
+
+def _bit(v: torch.Tensor) -> torch.Tensor:
+    return torch.ones_like(v) << v
+
+
+def _bfs_tree(S, adj, nmax: int):
+    """BFS tree of each G[S] from lsb(S): parent idx and depth, (B, nmax)."""
+    sh = torch.arange(nmax, dtype=torch.int32, device=S.device)
+    vbits = _bit(sh)
+    root = bs.lsb(S)
+    visited, frontier = root, root
+    parent = torch.full((S.shape[0], nmax), -1, dtype=torch.int32,
+                        device=S.device)
+    depth = torch.where(((root[:, None] >> sh) & 1) == 1, 0, 1 << 20) \
+        .to(torch.int32)
+    for d in range(nmax):
+        new = bs.neighbors(frontier, adj) & S & ~visited
+        isnew = (new[:, None] & vbits) != 0
+        # each newly visited v picks its lowest-index neighbour inside the
+        # frontier as parent: popcount(lsb(bm) - 1), 0 for an empty bm
+        pbm = adj[None, :] & frontier[:, None]
+        pidx = bs.popcount(bs.lsb(pbm) - 1) * (pbm != 0)
+        parent = torch.where(isnew, pidx, parent)
+        depth = torch.where(isnew, d + 1, depth)
+        visited = visited | new
+        frontier = new
+    return parent, depth
+
+
+def _fundamental_cycles(parent, depth, eu_idx, ev_idx, active, nmax: int):
+    """Vertex bitmap of the fundamental cycle of each (non-tree) edge slot;
+    every tensor is (B, slots) except parent/depth (B, nmax)."""
+    a = eu_idx.clamp(min=0)
+    b = ev_idx.clamp(min=0)
+    cyc = torch.zeros_like(a)
+    for _ in range(2 * nmax):
+        da = depth.gather(1, a.long())
+        db = depth.gather(1, b.long())
+        ne = a != b
+        step_a = ne & (da >= db)
+        step_b = ne & (db > da)
+        both = ne & (da == db)
+        cyc = cyc | _bit(a) | _bit(b)
+        na = torch.where(step_a | both, parent.gather(1, a.long()), a)
+        nb = torch.where(step_b | both, parent.gather(1, b.long()), b)
+        a = na.clamp(min=0)
+        b = nb.clamp(min=0)
+    cyc = cyc | _bit(a)                                      # the LCA
+    return torch.where(active, cyc, 0)
+
+
+def _merge_cycles(cycles):
+    """Transitive closure of 'share >= 2 vertices' by iterated bitmap OR,
+    then duplicates of an earlier slot zeroed.  cycles: (B, slots)."""
+    cur = cycles
+    while True:
+        nz = cur != 0
+        inter = bs.popcount(cur[:, :, None] & cur[:, None, :])
+        share = (inter >= 2) & nz[:, :, None] & nz[:, None, :]
+        nxt = bs._or_last(torch.where(share, cur[:, None, :], 0)) | cur
+        if torch.equal(nxt, cur):
+            break
+        cur = nxt
+    idx = torch.arange(cur.shape[1], device=cur.device)
+    dup = ((cur[:, :, None] == cur[:, None, :])
+           & (idx[None, :] < idx[:, None]) & (cur[:, :, None] != 0))
+    return torch.where(dup.any(dim=2), 0, cur)
+
+
+def blocks_chunk(S, adj, eu_idx, ev_idx, edge_live, *, nmax: int,
+                 cyc_cap: int):
+    """Phase A of MPDP-general: blocks of every set of ``S`` (int32[B]):
+    1. BFS spanning tree (parent/depth) of G[S];
+    2. fundamental cycle per non-tree edge (LCA walk, vertex bitmaps);
+    3. merge cycles sharing >= 2 vertices (transitive closure);
+    4. tree edges no fundamental cycle covers are bridges => 2-vertex
+       blocks.
+
+    Returns ``(merged int32[B, cyc_cap], bridge int32[B, nmax])``; zero
+    entries are padding.  ``adj`` is the query's int32[nmax] table and the
+    edge arrays its int32[emax] endpoint indices (-1 pad) and live mask.
+    The reference ``vmap``s one set's functions over the batch; here the
+    batch is the leading dimension of every tensor.
+    """
+    B = S.shape[0]
+    parent, depth = _bfs_tree(S, adj, nmax)
+    eu_c, ev_c = eu_idx.clamp(min=0), ev_idx.clamp(min=0)
+    ubit = torch.where(eu_idx >= 0, _bit(eu_c), 0)
+    vbit = torch.where(ev_idx >= 0, _bit(ev_c), 0)
+    Sc = S[:, None]
+    in_s = edge_live[None, :] & ((ubit & Sc) != 0) & ((vbit & Sc) != 0)
+    pu = parent[:, eu_c.long()]
+    pv = parent[:, ev_c.long()]
+    non_tree = in_s & ~((pu == ev_idx) | (pv == eu_idx))
+    # compact non-tree edge endpoints into cyc_cap slots; slot cyc_cap is
+    # the drop column (JAX's mode="drop") and is cut off below
+    pos = torch.cumsum(non_tree.to(torch.int32), dim=1) - 1
+    slot = torch.where(non_tree, pos, cyc_cap).clamp(max=cyc_cap).long()
+
+    def compact(vals, fill):
+        buf = torch.full((B, cyc_cap + 1), fill, dtype=torch.int32,
+                         device=S.device)
+        return buf.scatter_(1, slot, vals.to(torch.int32).expand(B, -1)
+                            .contiguous())[:, :cyc_cap]
+
+    cu = compact(eu_idx, -1)
+    cv = compact(ev_idx, -1)
+    act = compact(non_tree, 0) != 0
+    cycles = _fundamental_cycles(parent, depth, cu, cv, act, nmax)
+    merged = _merge_cycles(cycles)
+    sh = torch.arange(nmax, dtype=torch.int32, device=S.device)
+    vbits = _bit(sh)
+    has_parent = (parent >= 0) & ((Sc & vbits) != 0)
+    pbits = torch.where(has_parent, _bit(parent.clamp(min=0)), 0)
+    pair = vbits | pbits                                     # (B, nmax)
+    cov = (((cycles[:, None, :] & pair[:, :, None]) == pair[:, :, None])
+           & (cycles[:, None, :] != 0))
+    bridge = torch.where(has_parent & ~cov.any(dim=2), pair, 0)
+    return merged, bridge
+
+
+def phase_a_blocks_ref(S, adj, eu_idx, ev_idx, edge_live, nmax: int,
+                       eff_cap: int, width: int):
+    """Row t: the blocks of G[S[t]] from ``blocks_chunk`` with ``cyc_cap =
+    eff_cap``, its merged blocks in slot order then its bridges by
+    ascending vertex, left-justified and zero after, the first ``width``
+    of them (``width <= eff_cap + nmax``) -> int32[N, width].  Slices of
+    ``_PHASE_A_SLICE`` sets; a set's row does not depend on the others."""
+    rows = [torch.zeros((0, width), dtype=torch.int32, device=S.device)]
+    for s0 in range(0, S.shape[0], _PHASE_A_SLICE):
+        merged, bridge = blocks_chunk(S[s0: s0 + _PHASE_A_SLICE], adj,
+                                      eu_idx, ev_idx, edge_live, nmax=nmax,
+                                      cyc_cap=eff_cap)
+        both = torch.cat([merged, bridge], dim=1)
+        # the non-zero entries first, each part in its order
+        order = torch.sort((both == 0).to(torch.int8), dim=1,
+                           stable=True).indices
+        rows.append(both.gather(1, order)[:, :width])
+    return torch.cat(rows)
