@@ -273,6 +273,12 @@ class _LevelLoop:
         self._deadline_at = (None if self.deadline_s is None
                              else faults.now() + self.deadline_s)
 
+    def _count_chunk(self) -> None:
+        """One filter span or evaluate chunk dispatched (the recorder's
+        ``engine.chunks`` counter beside ``chunks_dispatched``)."""
+        self.chunks_dispatched += 1
+        _telemetry.count("engine.chunks")
+
     def _expired(self, i: int, max_n: int) -> bool:
         """One check per DP level; with ``deadline_s=None`` a single
         attribute test."""
@@ -542,7 +548,7 @@ class BatchEngine(_LevelLoop):
             for lane0 in range(0, ctx["total"], SPAN):
                 self._filter_step(ctx, i, lane0)
                 faults.fire("chunk")
-                self.chunks_dispatched += 1
+                self._count_chunk()
                 self._filter_drain(ctx, self.pend_window)
         return ctx
 
@@ -635,10 +641,11 @@ class BatchEngine(_LevelLoop):
             return None
         with _telemetry.stage(self.timings, "evaluate", t0):
             for j in range(len(ctx["lane0s"])):
-                self._eval_step(ctx, i, j)
-                faults.fire("chunk")
-                self.chunks_dispatched += 1
-                self._eval_drain(ctx, self.pend_window)
+                with _telemetry.leaf("engine.chunk"):
+                    self._eval_step(ctx, i, j)
+                    faults.fire("chunk")
+                    self._count_chunk()
+                    self._eval_drain(ctx, self.pend_window)
         return ctx
 
     def _eval_begin(self, i: int, sets_by_q: list[np.ndarray]):
@@ -754,10 +761,11 @@ class BatchEngine(_LevelLoop):
             return None
         with _telemetry.stage(self.timings, "evaluate", t0):
             for lane0 in range(0, ctx["total"], self.chunk):
-                self._eval_general_step(ctx, lane0)
-                faults.fire("chunk")
-                self.chunks_dispatched += 1
-                self._eval_general_drain(ctx, self.pend_window)
+                with _telemetry.leaf("engine.chunk"):
+                    self._eval_general_step(ctx, lane0)
+                    faults.fire("chunk")
+                    self._count_chunk()
+                    self._eval_general_drain(ctx, self.pend_window)
         return ctx
 
     def _eval_general_begin(self, sets_by_q: list[np.ndarray], pairs):

@@ -14,7 +14,10 @@ Phase A of MPDP-general, as in ``repro.core.blocks``:
       3. merge cycles sharing >= 2 vertices (transitive closure);
       4. tree edges no fundamental cycle covers are bridges => 2-vertex
          blocks;
-  its dense path ``has_cut_vertex_batch`` and the oracle.
+  its dense path (the query's cyclomatic number past ``cyc_cap``, as on
+  cliques) ``has_cut_vertex_batch`` and the oracle, under the span
+  ``blocks.dense`` and the counters ``blocks.dense_sets`` and
+  ``blocks.oracle_sets`` (``core.telemetry``).
 """
 from __future__ import annotations
 
@@ -137,21 +140,24 @@ def np_pairs_for_sets(sets_np, g, adj, eu_idx, ev_idx, edge_live,
     else:
         # dense path: no-cut-vertex sets are single blocks (cliques); rare
         # cut-vertex sets go to the host oracle
-        scap = 4096
-        flags = np.zeros(len(sets_np), bool)
-        for s0 in range(0, len(sets_np), scap):
-            Sd = torch.from_numpy(np.ascontiguousarray(
-                sets_np[s0: s0 + scap], np.int32)).to(dev)
-            cut = has_cut_vertex_batch(Sd, adj, nmax)
-            with _telemetry.span("engine.fetch"):
-                flags[s0: s0 + len(Sd)] = cut.cpu().numpy()
-        easy = sets_np[~flags]
-        pair_set.append(easy)
-        pair_block.append(easy)
-        for s in sets_np[flags]:
-            for b in np_find_blocks(int(s), g.edges, g.n):
-                pair_set.append(np.array([s], np.int32))
-                pair_block.append(np.array([b], np.int32))
+        with _telemetry.span("blocks.dense"):
+            scap = 4096
+            flags = np.zeros(len(sets_np), bool)
+            for s0 in range(0, len(sets_np), scap):
+                Sd = torch.from_numpy(np.ascontiguousarray(
+                    sets_np[s0: s0 + scap], np.int32)).to(dev)
+                cut = has_cut_vertex_batch(Sd, adj, nmax)
+                with _telemetry.span("engine.fetch"):
+                    flags[s0: s0 + len(Sd)] = cut.cpu().numpy()
+            easy = sets_np[~flags]
+            pair_set.append(easy)
+            pair_block.append(easy)
+            for s in sets_np[flags]:
+                for b in np_find_blocks(int(s), g.edges, g.n):
+                    pair_set.append(np.array([s], np.int32))
+                    pair_block.append(np.array([b], np.int32))
+            _telemetry.count("blocks.dense_sets", len(sets_np))
+            _telemetry.count("blocks.oracle_sets", int(flags.sum()))
     ps = np.concatenate(pair_set).astype(np.int32) if pair_set else np.zeros(0, np.int32)
     pb = np.concatenate(pair_block).astype(np.int32) if pair_block else np.zeros(0, np.int32)
     order = np.argsort(ps, kind="stable")

@@ -373,6 +373,7 @@ class ExactEngine:
                                    dg.etes_r)}
         self.counters = Counters()
         self.timings: dict[str, float] = {}
+        self.chunks_dispatched = 0        # filter spans + evaluate chunks
         self._init_memo()
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -432,6 +433,7 @@ class ExactEngine:
         for rank0 in range(0, total, SPAN):
             S, conn = ops.connectivity_span(i, rank0, min(SPAN, total - rank0),
                                             self.binom, self.dg.adj, self.nmax)
+            self._count_chunk()
             with _telemetry.span("engine.fetch"):
                 sets_l.append(S[conn != 0].cpu().numpy())
         return np.concatenate(sets_l)
@@ -453,6 +455,7 @@ class ExactEngine:
             pad[: len(sl)] = sl
             cand = _expand_chunk(self._dev(pad), len(sl), self.dg.adj,
                                  nmax=self.nmax, cap=cap)
+            self._count_chunk()
             with _telemetry.span("engine.fetch"):
                 c = cand.cpu().numpy().ravel()
             cand_l.append(c[c != 0])
@@ -466,6 +469,12 @@ class ExactEngine:
     def _count(self, ev, cc) -> None:
         self.counters.evaluated += int(ev[0])
         self.counters.ccp += int(cc[0])
+
+    def _count_chunk(self) -> None:
+        """One filter span or evaluate chunk dispatched (the recorder's
+        ``engine.chunks`` counter beside ``chunks_dispatched``)."""
+        self.chunks_dispatched += 1
+        _telemetry.count("engine.chunks")
 
     # ---------------------------------------------------------- deadline ---
     def _arm_deadline(self) -> None:
@@ -502,16 +511,19 @@ class ExactEngine:
                 best_left = np.zeros(ns, np.int32)
                 off = self.level_off[i]
                 for lane0 in range(0, lanes, self.chunk):
-                    cnt = min(self.chunk, lanes - lane0)
-                    sc, sl, ev, cc = _eval_dpsub_chunk(
-                        self.all_sets, off, lane0 >> i,
-                        lane0 & ((1 << i) - 1), i, cnt, self.dg.adj,
-                        self.memo_cost, self.memo_rows, nmax=self.nmax,
-                        chunk=self.chunk, nseg=self.chunk + 1, **self._tkw)
-                    sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
-                                            cc.reshape(1))
-                    self._count(ev, cc)
-                    _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
+                    with _telemetry.leaf("engine.chunk"):
+                        self._count_chunk()
+                        cnt = min(self.chunk, lanes - lane0)
+                        sc, sl, ev, cc = _eval_dpsub_chunk(
+                            self.all_sets, off, lane0 >> i,
+                            lane0 & ((1 << i) - 1), i, cnt, self.dg.adj,
+                            self.memo_cost, self.memo_rows, nmax=self.nmax,
+                            chunk=self.chunk, nseg=self.chunk + 1,
+                            **self._tkw)
+                        sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
+                                                cc.reshape(1))
+                        self._count(ev, cc)
+                        _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
                 self._commit_level(sets_np, best_cost, best_left)
 
     # ---------------------------------------------------------- MPDP tree --
@@ -531,18 +543,20 @@ class ExactEngine:
                 best_left = np.zeros(ns, np.int32)
                 off = self.level_off[i]
                 for lane0 in range(0, lanes, self.chunk):
-                    cnt = min(self.chunk, lanes - lane0)
-                    offs = self._dev(_tree_offsets(off, lane0 // m,
-                                                   lane0 % m, cnt))
-                    sc, sl, ev, cc = _eval_tree_chunk(
-                        self.all_sets, offs, self.m1, self.emu1, self.emv1,
-                        self.adj1, self.memo_cost, self.memo_rows,
-                        nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 1,
-                        **self._tkw)
-                    sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
-                                            cc.reshape(1))
-                    self._count(ev, cc)
-                    _merge_best(best_cost, best_left, lane0 // m, sc, sl)
+                    with _telemetry.leaf("engine.chunk"):
+                        self._count_chunk()
+                        cnt = min(self.chunk, lanes - lane0)
+                        offs = self._dev(_tree_offsets(off, lane0 // m,
+                                                       lane0 % m, cnt))
+                        sc, sl, ev, cc = _eval_tree_chunk(
+                            self.all_sets, offs, self.m1, self.emu1,
+                            self.emv1, self.adj1, self.memo_cost,
+                            self.memo_rows, nmax=self.nmax, chunk=self.chunk,
+                            nseg=self.chunk + 1, **self._tkw)
+                        sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
+                                                cc.reshape(1))
+                        self._count(ev, cc)
+                        _merge_best(best_cost, best_left, lane0 // m, sc, sl)
                 self._commit_level(sets_np, best_cost, best_left)
 
     # ------------------------------------------------------- MPDP general --
@@ -580,23 +594,26 @@ class ExactEngine:
                 best_left = np.zeros(len(sets_np), np.int32)
                 k_all, c_all, l_all = [], [], []
                 for lane0 in range(0, total, self.chunk):
-                    lane1 = min(lane0 + self.chunk, total)
-                    p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
-                    p1 = int(np.searchsorted(offs, lane1, side="left"))
-                    npair = p1 - p0
-                    pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
-                    sc, sl, ev, cc = _eval_general_chunk(
-                        self._dev(pairs), npair, lane1 - lane0, self.adj1,
-                        self.memo_cost, self.memo_rows, nmax=self.nmax,
-                        chunk=self.chunk, **self._tkw)
-                    sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
-                                            cc.reshape(1))
-                    self._count(ev, cc)
-                    scn = sc[:npair]
-                    fin = np.isfinite(scn)
-                    k_all.append(pk[p0:p1][fin])
-                    c_all.append(scn[fin])
-                    l_all.append(sl[:npair][fin])
+                    with _telemetry.leaf("engine.chunk"):
+                        self._count_chunk()
+                        lane1 = min(lane0 + self.chunk, total)
+                        p0 = int(np.searchsorted(offs, lane0,
+                                                 side="right")) - 1
+                        p1 = int(np.searchsorted(offs, lane1, side="left"))
+                        npair = p1 - p0
+                        pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
+                        sc, sl, ev, cc = _eval_general_chunk(
+                            self._dev(pairs), npair, lane1 - lane0,
+                            self.adj1, self.memo_cost, self.memo_rows,
+                            nmax=self.nmax, chunk=self.chunk, **self._tkw)
+                        sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
+                                                cc.reshape(1))
+                        self._count(ev, cc)
+                        scn = sc[:npair]
+                        fin = np.isfinite(scn)
+                        k_all.append(pk[p0:p1][fin])
+                        c_all.append(scn[fin])
+                        l_all.append(sl[:npair][fin])
                 if k_all:
                     _merge_scattered(best_cost, best_left,
                                      np.concatenate(k_all),
@@ -624,23 +641,26 @@ class ExactEngine:
                         continue
                     lanes = ca * cb
                     for lane0 in range(0, lanes, self.chunk):
-                        cnt = min(self.chunk, lanes - lane0)
-                        S, cand, A, ev, cc = _eval_dpsize_chunk(
-                            self.all_sets, self.level_off[a],
-                            self.level_off[b], cb, lane0 // cb, lane0 % cb,
-                            cnt, self.dg, self.memo_cost, self.memo_rows,
-                            nmax=self.nmax, chunk=self.chunk)
-                        with _telemetry.span("engine.fetch"):
-                            got = torch.cat([S, cand.view(_I32), A,
-                                             ev.reshape(1),
-                                             cc.reshape(1)]).cpu().numpy()
-                        c = self.chunk
-                        cn = got[c: 2 * c].view(np.float32)
-                        fin = np.isfinite(cn)
-                        self._count(got[3 * c:], got[3 * c + 1:])
-                        s_all.append(got[:c][fin])
-                        c_all.append(cn[fin])
-                        l_all.append(got[2 * c: 3 * c][fin])
+                        with _telemetry.leaf("engine.chunk"):
+                            self._count_chunk()
+                            cnt = min(self.chunk, lanes - lane0)
+                            S, cand, A, ev, cc = _eval_dpsize_chunk(
+                                self.all_sets, self.level_off[a],
+                                self.level_off[b], cb, lane0 // cb,
+                                lane0 % cb, cnt, self.dg, self.memo_cost,
+                                self.memo_rows, nmax=self.nmax,
+                                chunk=self.chunk)
+                            with _telemetry.span("engine.fetch"):
+                                got = torch.cat([S, cand.view(_I32), A,
+                                                 ev.reshape(1),
+                                                 cc.reshape(1)]).cpu().numpy()
+                            c = self.chunk
+                            cn = got[c: 2 * c].view(np.float32)
+                            fin = np.isfinite(cn)
+                            self._count(got[3 * c:], got[3 * c + 1:])
+                            s_all.append(got[:c][fin])
+                            c_all.append(cn[fin])
+                            l_all.append(got[2 * c: 3 * c][fin])
                 if s_all:
                     ss = np.concatenate(s_all).astype(np.int64)
                     scratch_c = np.full(1 << self.n, INF, np.float32)

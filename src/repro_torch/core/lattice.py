@@ -258,7 +258,7 @@ class LatticeShardedEngine(_LevelLoop):
                             i, foff[d][j], min(SPAN, int(sizes[d]) - c0),
                             self.binom[d], self.adj_b[d], self.nmax))
                 faults.fire("chunk")
-                self.chunks_dispatched += 1
+                self._count_chunk()
                 self._filter_drain(ctx, PEND_WINDOW)
         return ctx
 
@@ -321,26 +321,29 @@ class LatticeShardedEngine(_LevelLoop):
                              _put(lvl, dev),
                              _put(np.zeros(1, np.int32), dev)))
             for j, c0 in enumerate(c0s.tolist()):
-                for d in range(self.D):
-                    if c0 >= sizes[d]:
-                        continue
-                    eoff_d, loff_d, soff_d = tabs[d]
-                    seg0 = int((lane_off[d] + c0) // mult)  # global set index
-                    if self.algorithm == "mpdp_tree":
-                        out = _beval_tree_chunk(
-                            self.all_sets[d], eoff_d[j], loff_d, soff_d, seg0,
-                            self.m_b[d], self.adj_b[d], self.emu_b[d],
-                            self.emv_b[d], self.memo_cost[d],
-                            self.memo_rows[d], **self._tkw[d], **statics)
-                    else:
-                        out = _beval_dpsub_chunk(
-                            self.all_sets[d], eoff_d[j], loff_d, soff_d,
-                            seg0, i, self.adj_b[d], self.memo_cost[d],
-                            self.memo_rows[d], **self._tkw[d], **statics)
-                    ctx["pend"][d].append((seg0, out))
-                faults.fire("chunk")
-                self.chunks_dispatched += 1
-                self._eval_drain(ctx, PEND_WINDOW)
+                with _telemetry.leaf("engine.chunk"):
+                    for d in range(self.D):
+                        if c0 >= sizes[d]:
+                            continue
+                        eoff_d, loff_d, soff_d = tabs[d]
+                        # the global set index
+                        seg0 = int((lane_off[d] + c0) // mult)
+                        if self.algorithm == "mpdp_tree":
+                            out = _beval_tree_chunk(
+                                self.all_sets[d], eoff_d[j], loff_d, soff_d,
+                                seg0, self.m_b[d], self.adj_b[d],
+                                self.emu_b[d], self.emv_b[d],
+                                self.memo_cost[d], self.memo_rows[d],
+                                **self._tkw[d], **statics)
+                        else:
+                            out = _beval_dpsub_chunk(
+                                self.all_sets[d], eoff_d[j], loff_d, soff_d,
+                                seg0, i, self.adj_b[d], self.memo_cost[d],
+                                self.memo_rows[d], **self._tkw[d], **statics)
+                        ctx["pend"][d].append((seg0, out))
+                    faults.fire("chunk")
+                    self._count_chunk()
+                    self._eval_drain(ctx, PEND_WINDOW)
         return ctx
 
     def _eval_drain(self, ctx: dict, limit: int) -> None:
@@ -391,23 +394,25 @@ class LatticeShardedEngine(_LevelLoop):
                    "ccp": 0, "k": [[] for _ in self.devs],
                    "c": [[] for _ in self.devs], "l": [[] for _ in self.devs]}
             for c0 in range(0, int(np.diff(lane_off).max()), self.chunk):
-                for d, dev in enumerate(self.devs):
-                    base = int(lane_off[d]) + c0
-                    lane1 = min(base + self.chunk, int(lane_off[d + 1]))
-                    if lane1 <= base:
-                        continue
-                    p0 = int(np.searchsorted(offs, base, side="right")) - 1
-                    p1 = int(np.searchsorted(offs, lane1, side="left"))
-                    table = _pair_table(ps, pb, None, offs, p0, p1, base)
-                    out = _beval_general_chunk(
-                        _put(table, dev), p1 - p0, lane1 - base,
-                        self.adj_b[d], self.memo_cost[d], self.memo_rows[d],
-                        nmax=self.nmax, chunk=self.chunk, bcap=1,
-                        **self._tkw[d])
-                    ctx["pend"][d].append((p0, p1 - p0, out))
-                faults.fire("chunk")
-                self.chunks_dispatched += 1
-                self._eval_general_drain(ctx, PEND_WINDOW)
+                with _telemetry.leaf("engine.chunk"):
+                    for d, dev in enumerate(self.devs):
+                        base = int(lane_off[d]) + c0
+                        lane1 = min(base + self.chunk, int(lane_off[d + 1]))
+                        if lane1 <= base:
+                            continue
+                        p0 = int(np.searchsorted(offs, base, side="right")) - 1
+                        p1 = int(np.searchsorted(offs, lane1, side="left"))
+                        table = _pair_table(ps, pb, None, offs, p0, p1, base)
+                        out = _beval_general_chunk(
+                            _put(table, dev), p1 - p0, lane1 - base,
+                            self.adj_b[d], self.memo_cost[d],
+                            self.memo_rows[d],
+                            nmax=self.nmax, chunk=self.chunk, bcap=1,
+                            **self._tkw[d])
+                        ctx["pend"][d].append((p0, p1 - p0, out))
+                    faults.fire("chunk")
+                    self._count_chunk()
+                    self._eval_general_drain(ctx, PEND_WINDOW)
         return ctx
 
     def _eval_general_drain(self, ctx: dict, limit: int) -> None:

@@ -224,7 +224,7 @@ class ShardedBatchEngine(_LevelLoop):
                     if lane0 < c["total"]:
                         sh._filter_step(c, i, lane0)
                 faults.fire("chunk")
-                self.chunks_dispatched += 1
+                self._count_chunk()
                 for sh, c in zip(self.shards, ctxs):
                     sh._filter_drain(c, self.pend_window)
         return ctxs
@@ -249,13 +249,14 @@ class ShardedBatchEngine(_LevelLoop):
             return None
         with _telemetry.stage(self.timings, "evaluate", t0):
             for j in range(max(len(c["lane0s"]) for _, c in live)):
-                for sh, c in live:
-                    if j < len(c["lane0s"]):
-                        sh._eval_step(c, i, j)
-                faults.fire("chunk")
-                self.chunks_dispatched += 1
-                for sh, c in live:
-                    sh._eval_drain(c, self.pend_window)
+                with _telemetry.leaf("engine.chunk"):
+                    for sh, c in live:
+                        if j < len(c["lane0s"]):
+                            sh._eval_step(c, i, j)
+                    faults.fire("chunk")
+                    self._count_chunk()
+                    for sh, c in live:
+                        sh._eval_drain(c, self.pend_window)
         return ctxs
 
     def _eval_finalize(self, i: int, sets, ctxs) -> None:
@@ -280,13 +281,14 @@ class ShardedBatchEngine(_LevelLoop):
         with _telemetry.stage(self.timings, "evaluate", t0):
             for lane0 in range(0, max(c["total"] for _, c in live),
                                self.chunk):
-                for sh, c in live:
-                    if lane0 < c["total"]:
-                        sh._eval_general_step(c, lane0)
-                faults.fire("chunk")
-                self.chunks_dispatched += 1
-                for sh, c in live:
-                    sh._eval_general_drain(c, self.pend_window)
+                with _telemetry.leaf("engine.chunk"):
+                    for sh, c in live:
+                        if lane0 < c["total"]:
+                            sh._eval_general_step(c, lane0)
+                    faults.fire("chunk")
+                    self._count_chunk()
+                    for sh, c in live:
+                        sh._eval_general_drain(c, self.pend_window)
         return ctxs
 
     def _eval_general_finalize(self, i: int, sets, ctxs) -> None:

@@ -40,8 +40,25 @@ read them:
   ``engine.filter`` / ``engine.evaluate`` / ``engine.phase_a``   the level
                          loops' stages (``stage``)
   ``engine.fetch``       a blocking device-to-host read in a level loop
+  ``engine.chunk``       one evaluate chunk of a level loop: its launch and
+                         the drain after it (the fetches it waits for), a
+                         ``leaf``, so those fetches keep ``engine.evaluate``
+                         as their parent
+  ``blocks.dense``       phase A's dense path (``blocks.np_pairs_for_sets``
+                         past ``cyc_cap``), its fetches nested inside
   ``uniondp.solve`` / ``uniondp.partition`` / ``uniondp.subsolve`` /
   ``uniondp.merge`` / ``uniondp.reopt``   ``heuristics.uniondp.solve``
+
+**Counters.**  ``count(name, k)`` adds ``k`` to the counter ``name`` of the
+request its thread runs (the innermost open span's, else the one set by
+``request(rid)``, else 0), while the recorder is on; ``counts()`` returns
+``{(name, request): total}`` and ``clear()`` resets them.  The names:
+
+  ``engine.chunks``       a level loop's filter spans and evaluate chunks,
+                          as its engine's ``chunks_dispatched`` counts them
+  ``blocks.dense_sets``   sets through phase A's dense path
+  ``blocks.oracle_sets``  of those, sets with a cut vertex, decomposed one
+                          at a time by the host oracle ``np_find_blocks``
 """
 from __future__ import annotations
 
@@ -144,6 +161,7 @@ Span = collections.namedtuple("Span", "name t0 t1 id parent request thread")
 _ON = False
 _buf: collections.deque = collections.deque(maxlen=CAPACITY)
 _dropped = 0
+_counts: collections.Counter = collections.Counter()   # (name, request)
 _lock = threading.Lock()
 _ids = itertools.count(1)             # span and request ids
 _local = threading.local()            # .stack: open spans; .request
@@ -177,7 +195,25 @@ def clear() -> None:
     global _dropped
     with _lock:
         _buf.clear()
+        _counts.clear()
         _dropped = 0
+
+
+def counts() -> dict:
+    """A copy of the counters: ``{(name, request): total}``."""
+    with _lock:
+        return dict(_counts)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to counter ``name`` of this thread's request (nothing
+    while the recorder is off)."""
+    if not _ON:
+        return
+    st = _stack()
+    rid = st[-1].request if st else getattr(_local, "request", 0)
+    with _lock:
+        _counts[(name, rid)] += k
 
 
 def new_request() -> int:
@@ -247,6 +283,30 @@ def span(name: str):
     """``with span(name):`` records the block as a span (nothing while the
     recorder is off)."""
     return _Span(name) if _ON else _NULL
+
+
+class _Leaf:
+    """One open span that is no parent (``leaf``)."""
+
+    __slots__ = ("name", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        record(self.name, self.t0, time.perf_counter_ns())
+        return False
+
+
+def leaf(name: str):
+    """``with leaf(name):`` records the block as a span that is no parent:
+    the spans opened inside it keep the enclosing span as theirs, as if it
+    were not there (nothing while the recorder is off)."""
+    return _Leaf(name) if _ON else _NULL
 
 
 def stage(timings: dict, key: str, t0: int | None = None) -> _Span:

@@ -107,6 +107,7 @@ def test_daemon_request_spans_share_one_request(tmp_path):
             "engine.filter": {"service.flight"},
             "engine.evaluate": {"service.flight"},
             "engine.phase_a": {"service.flight"},
+            "engine.chunk": {"engine.evaluate"},
             "engine.fetch": {"engine.filter", "engine.evaluate",
                              "engine.phase_a"}}
     for s in spans:
