@@ -7,7 +7,7 @@ Usage:  python3 chip_smoke.py        (one CUDA card; exits non-zero on any
 Phases, in order, none of them caught:
   1. device  — card name/count and ``nvidia-smi`` name + power limit;
   2. build   — compile ``kernels/csrc/ccp_eval.cu`` with nvcc for sm_90a;
-  3. kernels — each of the fourteen CUDA entry points against its plain
+  3. kernels — each of the sixteen CUDA entry points against its plain
      PyTorch version on the same card tensors, bit for bit, lanes built
      with numpy from a seed over real generator graphs: the four batched
      kernels and the four batched forms that build their own lanes
@@ -43,7 +43,15 @@ Phases, in order, none of them caught:
      widths each, and on every level of stream (a), d1 and l1 (d1 on the
      lattice, one shard), timed at each level of musicbrainz_query(16, 1)
      (printed: the largest level and the sum) and at the largest level of
-     musicbrainz_query(20, 0) (the JSON line);
+     musicbrainz_query(20, 0) (the JSON line); the fused evaluate forms
+     (``btree_eval_prune``, ``bgeneral_eval_prune``: the two decodes with
+     the chunk bodies' cost, prune and counts in the kernel) at the same
+     shapes as their decode forms with random and tied memo tables, on
+     every call of stream (a), d1, a clique of 15, musicbrainz_query(16,
+     1) and snowflake(16, 1), timed beside the decode kernel and torch
+     epilogue they replaced (card and host) at the busiest chunk of each
+     of the last three (the clique's and the snowflake's the JSON lines)
+     and of stream (a);
   4. batched path — ``optimize_many`` on ``cuda`` over three streams, every
      plan validated and every cost held against the host DPccp oracle
      (relative 1e-4), ``Counters`` and costs of stream (c) and the first
@@ -51,8 +59,10 @@ Phases, in order, none of them caught:
      run (exact / relative 1e-5), one ``bconnectivity_span`` launch per
      level and flight, launch counters read around exactly this path;
      then a ``torch.profiler`` window over stream (a);
-     on every path one ``bgeneral_eval_decode`` launch per MPDP-general
-     chunk, one ``bccp_eval_decode`` launch per batched DPSUB chunk, one
+     on every path one ``bgeneral_eval_decode`` (typed) or
+     ``bgeneral_eval_prune`` launch per MPDP-general chunk, the same of
+     the tree forms per MPDP:Tree chunk, one ``bccp_eval_decode`` launch
+     per batched DPSUB chunk, one
      ``phase_a_blocks`` launch per (query, level) on phase A's sparse path and
      none of the seven set-given kernels the lane-building forms replaced
      (``OFF_PATH``);
@@ -290,6 +300,9 @@ from repro_torch.tree import leaves as tree_leaves, leaves_with_path  # noqa: E4
 from repro_torch.workloads import generators as gen  # noqa: E402
 
 INT32_OPS_S = 132 * 64 * 1.98e9       # 132 SMs x 64 INT32 lanes x 1.98 GHz
+FP32_OPS_S = 132 * 128 * 1.98e9       # 132 SMs x 128 FP32 lanes x 1.98 GHz:
+                                      # also the SMs' dispatch rate of all
+                                      # operations
 OPS_PER_STEP = 3                      # one set-bit step: ffs, row load, OR
 OPS_PER_LANE = 12                     # per-lane decode, loads, stores
 UNRANK_OPS_PER_STEP = 4               # one unrank step: load C(v,kk), compare,
@@ -331,6 +344,12 @@ KERNELS = {
     "bgeneral_eval_decode": ((), 6, "src/repro/kernels/ccp_eval.py:184 + the "
                              "general decode of src/repro/core/batch.py:259-283 "
                              "and src/repro/core/engine.py:253-268"),
+    "btree_eval_prune": ((), 1, "src/repro/kernels/ccp_eval.py:159 + the "
+                         "MPDP:Tree decode and the epilogue (cost, prune, "
+                         "counts) of src/repro/core/batch.py:202-243"),
+    "bgeneral_eval_prune": ((), 1, "src/repro/kernels/ccp_eval.py:184 + the "
+                            "general decode and the epilogue (cost, prune, "
+                            "counts) of src/repro/core/batch.py:259-305"),
     "phase_a_blocks": ((), 1, "no Pallas kernel: the jitted blocks_chunk of "
                        "src/repro/core/blocks.py:236 + the pair compaction "
                        "of src/repro/core/blocks.py:274"),
@@ -341,15 +360,20 @@ BATCHED = ("bconnectivity", "bccp_eval", "btree_eval", "bgeneral_eval")
 BATCHED_FORMS = ("bconnectivity_span", "bccp_eval_decode",
                  "btree_eval_decode", "bgeneral_eval_decode")
 SOLO_CHECKED = SOLO + ("btree_eval",)   # btree_eval on a one-row table
+# the tree and general evaluates of inner-join flights: the decode forms
+# with the chunk epilogue in the kernel (typed flights keep the decodes)
+FUSED_FORMS = ("btree_eval_prune", "bgeneral_eval_prune")
+FUSED_OF = {"btree_eval_decode": "btree_eval_prune",
+            "bgeneral_eval_decode": "bgeneral_eval_prune"}
+INNER_FORMS = ("bconnectivity_span", "bccp_eval_decode") + FUSED_FORMS
 # what each path runs: the set-given kernels left it for the forms that
 # build their own lanes, and must make no launch there
-BATCHED_PATH = BATCHED_FORMS + ("phase_a_blocks",)
-SOLO_PATH = SPAN_FORMS + ("btree_eval_decode", "bgeneral_eval_decode",
-                          "phase_a_blocks")
+BATCHED_PATH = INNER_FORMS + ("phase_a_blocks",)
+SOLO_PATH = SPAN_FORMS + FUSED_FORMS + ("phase_a_blocks",)
 TYPED_PATH = SPAN_FORMS + BATCHED_FORMS
 # the heuristics' subproblems: batched flights, and 17-20-relation ones
 # solo (a DPSUB subproblem goes solo only past 16 relations: not here)
-HEUR_PATH = BATCHED_FORMS + ("connectivity_span",)
+HEUR_PATH = INNER_FORMS + ("connectivity_span",)
 OFF_PATH = ("connectivity", "ccp_eval", "grow_pair", "bconnectivity",
             "bccp_eval", "btree_eval", "bgeneral_eval")
 SYMBOL = {"connectivity": "connectivity_kernel<false>",
@@ -701,18 +725,30 @@ def busiest_general(calls):
     return max(calls, key=lambda a: a[2])
 
 
+def busiest_tree(calls):
+    """The btree_eval_prune (or _decode) call with the most live lanes."""
+    return max(calls, key=lambda a: min(int(a[1][-1]), a[-1]))
+
+
+def decode_args(args):
+    """A fused form's call -> its decode form's call: the memo tables
+    (after ``adj_b``) left out."""
+    at = 9 if len(args) == 14 else 4
+    return (*args[:at], *args[at + 2:])
+
+
 def busiest_stream_calls(graphs):
-    """Run ``optimize_many(graphs, "auto")`` once with the three batched
-    forms held against their plain versions on every call; return the
+    """Run ``optimize_many(graphs, "auto")`` once with the batched forms
+    it runs held against their plain versions on every call; return the
     arguments of the busiest ``bconnectivity_span`` call (most ranks),
-    ``btree_eval_decode`` call and ``bgeneral_eval_decode`` call (most
-    live lanes)."""
-    seen = spied_calls(BATCHED_FORMS + ("phase_a_blocks",),
+    ``btree_eval_prune`` call and ``bgeneral_eval_prune`` call (most live
+    lanes)."""
+    seen = spied_calls(("bconnectivity_span",) + FUSED_FORMS
+                       + ("phase_a_blocks",),
                        lambda: batch.optimize_many(graphs, "auto"), "stream (a)")
     return (max(seen["bconnectivity_span"], key=lambda a: a[2]),
-            max(seen["btree_eval_decode"],
-                key=lambda a: min(int(a[1][-1]), a[-1])),
-            busiest_general(seen["bgeneral_eval_decode"]), seen)
+            busiest_tree(seen["btree_eval_prune"]),
+            busiest_general(seen["bgeneral_eval_prune"]), seen)
 
 
 def busiest_dpsub_calls(graphs):
@@ -806,7 +842,8 @@ def check(name, args, where: str, fn=None) -> int:
     torch.cuda.synchronize()
     err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
               if a.numel() else 0 for a, b in zip(got, want))
-    if err != 0 or any(a.dtype != torch.int32 for a in got):
+    dtype = torch.int64 if name in FUSED_FORMS else torch.int32
+    if err != 0 or any(a.dtype != dtype for a in got):
         raise AssertionError(f"{name} disagrees with its plain version at "
                              f"{where}: max |diff| {err}")
     return err
@@ -948,11 +985,11 @@ def phase_a_work(args):
 
 
 def d1_general_calls():
-    """Run d1 once with its ``bgeneral_eval_decode`` and ``phase_a_blocks``
+    """Run d1 once with its ``bgeneral_eval_prune`` and ``phase_a_blocks``
     calls held against the plain versions; return the calls' arguments by
     name."""
     label, g, algorithm, opts, _ = solo_parts()[0]
-    return spied_calls(("bgeneral_eval_decode", "phase_a_blocks"),
+    return spied_calls(("bgeneral_eval_prune", "phase_a_blocks"),
                        lambda: engine.optimize(g, algorithm, **opts), label)
 
 
@@ -967,15 +1004,175 @@ def phase_a_levels(label: str, g, run):
     return calls
 
 
+MEMO_INDEX_OPS = 11  # a ccp lane's memo indices: S & ~S_left, the query's
+                     # base, three ORs, three two-sided clamps
+COST_FLOPS = 32      # a ccp lane's cost.join_cost and its two adds: 10 adds,
+                     # 8 multiplies, 10 min/max, 4 exp2f (C_TUP * rows once)
+REDUCE_OPS = 4       # a live lane's 64-bit compare-and-select into its
+                     # segment's minimum (two int32 ops) and its two counts
+MEMO_CAP = 1 << 20   # made-up memo tables: larger indices clamp into them
+
+
+def with_memo(args, seed: int, tie: bool = False):
+    """A decode form's arguments -> its fused form's: memo tables of
+    ``min(bcap << nmax, MEMO_CAP)`` entries inserted after ``adj_b``,
+    random costs (one in ten INF) and log2 rows, or with ``tie`` every
+    entry alike (each segment's splits tie)."""
+    at = 9 if len(args) == 12 else 4
+    adj_b, nmax = args[at - 1], args[at]
+    size = min(adj_b.shape[0] << nmax, MEMO_CAP)
+    if tie:
+        cost = torch.full((size,), 1000.0, device=DEV)
+        rows = torch.full((size,), 20.0, device=DEV)
+    else:
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        cost = 1.0 + 1e6 * torch.rand(size, generator=g, device=DEV)
+        cost[torch.rand(size, generator=g, device=DEV) < 0.1] = float("inf")
+        rows = 60.0 * torch.rand(size, generator=g, device=DEV)
+    return (*args[:at], cost, rows, *args[at:])
+
+
+def memo_of(args):
+    """A fused form's memo tables (after ``adj_b``)."""
+    at = 9 if len(args) == 14 else 4
+    return args[at], args[at + 1]
+
+
+def torch_epilogue(name, args):
+    """What a chunk body ran before its fused form: the decode kernel, then
+    the epilogue in torch ops (``ref.tree_epilogue``,
+    ``ref.general_epilogue``), packed as the fused form packs it."""
+    d = decode_args(args)
+    cost, rows = memo_of(args)
+    if name == "btree_eval_prune":
+        return ref.tree_epilogue(ops.btree_eval_decode(*d), d[8], cost, rows,
+                                 d[9], d[10])
+    return ref.general_epilogue(ops.bgeneral_eval_decode(*d), d[0].shape[1],
+                                d[3], cost, rows, d[4])
+
+
+def prune_work(name, args):
+    """(bytes, int32 operations, float operations) of a fused form's call,
+    *assumed*: its decode form's walks and table reads, without the lane
+    outputs; on each ccp lane MEMO_INDEX_OPS and COST_FLOPS, and each
+    distinct memo entry the ccp lanes read, read once; REDUCE_OPS a live
+    lane; one 8-byte key a segment and two counts a query written once."""
+    d = decode_args(args)
+    cost, rows = memo_of(args)
+    if name == "btree_eval_prune":
+        nbytes, n_ops = tree_decode_work(d)
+        S, S_left, ccp_i, qid, _ = call("btree_eval_decode", d, plain=True)
+        nbytes -= 20 * d[-1]
+        nseg, bcap, nmax = d[-2], d[8].shape[0], d[9]
+        live = min(int(d[1][-1]), d[-1])
+    else:
+        nbytes, n_ops = general_decode_work(d)
+        S, S_left, _, ccp_i, qid, _ = call("bgeneral_eval_decode", d,
+                                           plain=True)
+        nbytes -= 24 * d[-1]
+        nseg, bcap, nmax = d[0].shape[1], d[3].shape[0], d[4]
+        live = d[2]
+    on = ccp_i != 0
+    base = qid[on] << nmax
+    sides = torch.cat([base | S_left[on], base | (S & ~S_left)[on]])
+    n_cost = torch.unique(sides.clamp(0, cost.numel() - 1)).numel()
+    n_rows = torch.unique(torch.cat([sides, base | S[on]]).clamp(
+        0, rows.numel() - 1)).numel()
+    ccp = int(on.sum())
+    return (nbytes + 4 * (n_cost + n_rows) + 8 * (nseg + bcap),
+            n_ops + MEMO_INDEX_OPS * ccp + REDUCE_OPS * live,
+            COST_FLOPS * ccp)
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host and card time per call of ``fn`` back to back, in us."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def busiest_fused(label, graphs):
+    """Run ``optimize_many(graphs, "auto")`` with the fused forms held
+    against their plain versions on every call; return the busiest call of
+    each that ran."""
+    seen = spied_calls(FUSED_FORMS,
+                       lambda: batch.optimize_many(graphs, "auto"), label)
+    pick = {"btree_eval_prune": busiest_tree,
+            "bgeneral_eval_prune": busiest_general}
+    return {k: pick[k](c) for k, c in seen.items() if c}
+
+
+def time_fused(name, args, row: dict, at: str) -> None:
+    """Time a fused form's call (card us a launch, the bound of
+    ``prune_work``, its plain version) beside the torch epilogue it
+    replaced, on the card and on the host with the fetch, and check the
+    two bit for bit; the fused form's numbers into row."""
+    bcap = args[8 if name == "btree_eval_prune" else 3].shape[0]
+    old = torch_epilogue(name, args)
+    new = call(name, args)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(old, new):
+        raise AssertionError(f"{name} disagrees with the torch epilogue at "
+                             f"{at}")
+    measure(name, args, row, prune_work(name, args))
+    row["epilogue_ms"] = event_ms(lambda: torch_epilogue(name, args), 20)
+    row["host_us"] = host_us(lambda: engine._fetch(engine.Pruned(
+        call(name, args)[0], bcap)))
+    row["epilogue_host_us"] = host_us(lambda: engine._fetch(engine.Pruned(
+        torch_epilogue(name, args), bcap)))
+    log_row(name, row, at)
+    log(f"kernel {name}: the decode kernel and torch epilogue it replaced "
+        f"{row['epilogue_ms'] * 1e3:.2f} us on the card; a chunk with its "
+        f"fetch {row['host_us']:.1f} us on the host, "
+        f"{row['epilogue_host_us']:.1f} us before, at {at}")
+
+
+def phase_fused(rows, tree_p, general_p) -> None:
+    """The fused evaluate epilogue at the benchmark cells' shapes: the
+    busiest chunk of a clique of 15 (its largest level; the JSON row of
+    bgeneral_eval_prune), of musicbrainz_query(16, 1) and of
+    snowflake(16, 1) (the JSON row of btree_eval_prune), each query alone
+    in its flight as the daemon runs it, every call of the three runs held
+    against the plain version; and stream (a)'s busiest chunks."""
+    clique = busiest_fused("clique 15", [gen.clique(15, 1)])
+    mb16 = busiest_fused("musicbrainz 16", [gen.musicbrainz_query(16, 1)])
+    sf16 = busiest_fused("snowflake 16", [gen.snowflake(16, 1)])
+    for name, args, row, at in (
+            ("bgeneral_eval_prune", clique["bgeneral_eval_prune"],
+             rows["bgeneral_eval_prune"], "clique(15, 1)"),
+            ("bgeneral_eval_prune", mb16["bgeneral_eval_prune"], {},
+             "musicbrainz_query(16, 1)"),
+            ("btree_eval_prune", sf16["btree_eval_prune"],
+             rows["btree_eval_prune"], "snowflake(16, 1)"),
+            ("btree_eval_prune", tree_p, {}, "stream (a)"),
+            ("bgeneral_eval_prune", general_p, {}, "stream (a)")):
+        live = args[2] if name == "bgeneral_eval_prune" else \
+            min(int(args[1][-1]), args[-1])
+        row["at"] = (f"L={args[-1]} live={live} nmax=16 bcap="
+                     f"{args[8 if name == 'btree_eval_prune' else 3].shape[0]}"
+                     f" ({at}'s busiest chunk)")
+        time_fused(name, args, row, row["at"])
+    log("fused kernels ok on every chunk of clique(15, 1), "
+        "musicbrainz_query(16, 1) and snowflake(16, 1)")
+
+
 def measure(name, args, row: dict, work) -> None:
     """Card time per launch, plain-version time and the bound of
-    ``work = (bytes, int32 operations)``, into row."""
-    nbytes, ops_n = work
+    ``work = (bytes, int32 operations[, float operations])``, into row:
+    the operations' time is the INT32 pipe's or, with float operations,
+    that of dispatching all of them, whichever is longer."""
+    nbytes, ops_n, *flops = work
+    flops = sum(flops)
     ms = event_ms(lambda: call(name, args), 100)
     plain_ms = event_ms(lambda: call(name, args, plain=True), 10)
     t_b = nbytes / roofline.HBM_BW * 1e3
-    t_o = ops_n / INT32_OPS_S * 1e3
+    t_o = max(ops_n / INT32_OPS_S, (ops_n + flops) / FP32_OPS_S) * 1e3
     row.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, int32_ops=ops_n,
+               float_ops=flops,
                bound_ms=max(t_b, t_o),
                bound_by="bytes" if t_b >= t_o else "operations")
 
@@ -1014,7 +1211,16 @@ def phase_kernels():
                          general_decode_work),
                         ("bgeneral_eval_decode",
                          general_inputs(graphs, bcap, nmax, L, seed + 1, True),
-                         None)):
+                         None),
+                        ("btree_eval_prune", with_memo(
+                            tree_inputs(graphs, bcap, nmax, L, seed), seed),
+                         None),
+                        ("bgeneral_eval_prune", with_memo(
+                            general_inputs(graphs, bcap, nmax, L, seed, False),
+                            seed), None),
+                        ("bgeneral_eval_prune", with_memo(
+                            general_inputs(graphs, bcap, nmax, L, seed + 1,
+                                           True), seed + 1, tie=True), None)):
                     err = check(name, args, f"nmax={nmax} bcap={bcap} L={L} "
                                 f"(lanes built in the kernel)")
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -1049,7 +1255,13 @@ def phase_kernels():
                          solo_general_inputs(g, nmax, L, L + nmax + gi, False)),
                         ("bgeneral_eval_decode",
                          solo_general_inputs(g, nmax, L, L + nmax + gi + 1,
-                                             True))):
+                                             True)),
+                        ("btree_eval_prune", with_memo(
+                            solo_tree_inputs(g, nmax, L, seed=L + nmax + gi),
+                            L + gi, tie=True)),
+                        ("bgeneral_eval_prune", with_memo(
+                            solo_general_inputs(g, nmax, L, L + nmax + gi,
+                                                False), L + gi))):
                     rows[name]["max_abs_err"] = max(
                         rows[name]["max_abs_err"],
                         check(name, args, f"nmax={nmax} n={g.n} L={L} "
@@ -1078,32 +1290,34 @@ def phase_kernels():
         check("ccp_eval_dpsub", args, "d3 busiest level"))
     measure("ccp_eval_dpsub", args, rows["ccp_eval_dpsub"], dpsub_work(args))
     log(f"solo kernels ok at d4's level-12 span and d3's level-{args[4]} chunk")
-    span, tree, general, seen = busiest_stream_calls(
+    span, tree_p, general_p, seen = busiest_stream_calls(
         gen.mixed_stream(32, seed=0, sizes=(12, 13, 14, 15, 16)))
+    tree, general = decode_args(tree_p), decode_args(general_p)
     for name, a, work in (("bconnectivity_span", span, bspan_work),
                           ("btree_eval_decode", tree, tree_decode_work),
                           ("bgeneral_eval_decode", general,
                            general_decode_work)):
         measure(name, a, rows[name], work(a))
     log(f"batched kernels ok on stream (a)'s {len(seen['bconnectivity_span'])} "
-        f"bconnectivity_span, {len(seen['btree_eval_decode'])} "
-        f"btree_eval_decode and {len(seen['bgeneral_eval_decode'])} "
-        f"bgeneral_eval_decode calls")
+        f"bconnectivity_span, {len(seen['btree_eval_prune'])} "
+        f"btree_eval_prune and {len(seen['bgeneral_eval_prune'])} "
+        f"bgeneral_eval_prune calls")
     dpsub, b_calls = busiest_dpsub_calls(stream_b())
     measure("bccp_eval_decode", dpsub, rows["bccp_eval_decode"],
             dpsub_decode_work(dpsub))
     log(f"batched kernels ok on stream (b)'s {len(b_calls)} bccp_eval_decode "
         f"calls")
     d1_seen = d1_general_calls()
-    d1_calls = d1_seen["bgeneral_eval_decode"]
-    d1_busy = busiest_general(d1_calls)
+    d1_calls = d1_seen["bgeneral_eval_prune"]
+    d1_busy = decode_args(busiest_general(d1_calls))
     at_l = {}
     measure("bgeneral_eval_decode", d1_busy, at_l, general_decode_work(d1_busy))
     log_row("bgeneral_eval_decode", at_l,
             f"L={d1_busy[5]} live={d1_busy[2]} pairs={d1_busy[1]} "
             f"pcap={d1_busy[0].shape[1]} nmax=24 one row (d1's busiest chunk)")
-    log(f"solo kernels ok on d1's {len(d1_calls)} bgeneral_eval_decode calls")
+    log(f"solo kernels ok on d1's {len(d1_calls)} bgeneral_eval_prune calls")
     phase_a_kernel(rows, seen["phase_a_blocks"], d1_seen["phase_a_blocks"])
+    phase_fused(rows, tree_p, general_p)
     at_main = {
         "connectivity_span": "count=5200300 k=12 nmax=30 (d4's level-12 span)",
         "ccp_eval_dpsub": f"L={L_MAIN} nmax=24 i={args[4]} (d3's busiest level)",
@@ -1181,8 +1395,9 @@ def phase_a_kernel(rows, a_calls, d1_calls) -> None:
 def log_row(name, row, at):
     log(f"kernel {name}: {row['ms'] * 1e3:.2f} us/launch, plain "
         f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us "
-        f"({row['bound_by']}: {row['bytes']} B, {row['int32_ops']} int32 ops) "
-        f"at {at}")
+        f"({row['bound_by']}: {row['bytes']} B, {row['int32_ops']} int32 ops"
+        + (f", {row['float_ops']} float ops" if row.get('float_ops') else "")
+        + f") at {at}")
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -1285,7 +1500,9 @@ class ChunkCalls:
     bodies that launch ``bgeneral_eval_decode`` (the MPDP-general ones),
     ``btree_eval_decode`` (the MPDP:Tree ones) and ``bccp_eval_decode``
     (the batched DPSUB one), as the batched, lattice and solo engines
-    call them, and under ``phase_a_blocks`` the calls of
+    call them; an MPDP-general or MPDP:Tree call without conflict arrays
+    (``targs``) counts under the fused form it launches instead
+    (``FUSED_OF``); and under ``phase_a_blocks`` the calls of
     ``blocks.np_pairs_for_sets`` on card tensors that take its sparse path
     (cyclomatic number <= cyc_cap) with sets; the CPU runs that the checks
     make are not counted."""
@@ -1299,7 +1516,7 @@ class ChunkCalls:
                                    (lattice, "_beval_dpsub_chunk"))}
 
     def __init__(self):
-        self.count = {k: 0 for k in self.BODIES}
+        self.count = {k: 0 for k in (*self.BODIES, *FUSED_FORMS)}
         self.count["phase_a_blocks"] = 0
         self.real = {(m, n): getattr(m, n) for bodies in self.BODIES.values()
                      for m, n in bodies}
@@ -1308,7 +1525,9 @@ class ChunkCalls:
     def __enter__(self):
         def counted(kernel, fn):
             def body(first, *args, **kw):
-                self.count[kernel] += first.is_cuda
+                fused = kernel in FUSED_OF and not kw.get("targs")
+                self.count[FUSED_OF[kernel] if fused else kernel] += \
+                    first.is_cuda
                 return fn(first, *args, **kw)
             return body
         for kernel, bodies in self.BODIES.items():
@@ -1328,13 +1547,18 @@ class ChunkCalls:
             setattr(m, n, fn)
 
 
-def check_path(label: str, launches: dict, path, chunks: dict) -> None:
+def check_path(label: str, launches: dict, path, chunks: dict,
+               typed: bool = False) -> None:
     """Raise unless every kernel of the path launched, the set-given
-    kernels they replaced did not, the MPDP-general, MPDP:Tree and
-    batched DPSUB evaluates made one ``bgeneral_eval_decode``,
-    ``btree_eval_decode`` and ``bccp_eval_decode`` launch per chunk and
-    phase A one ``phase_a_blocks`` launch per (query, level) on its sparse
-    path (``chunks``: ``ChunkCalls`` counts)."""
+    kernels they replaced did not, nor the tree and general decode forms
+    where the path runs no typed query (not ``typed``), the
+    MPDP-general and MPDP:Tree evaluates made one ``bgeneral_eval_prune``
+    and ``btree_eval_prune`` launch per chunk of an inner-join flight and
+    one ``bgeneral_eval_decode`` and ``btree_eval_decode`` launch per
+    chunk of a typed one, the batched DPSUB evaluates one
+    ``bccp_eval_decode`` launch per chunk, and phase A one
+    ``phase_a_blocks`` launch per (query, level) on its sparse path
+    (``chunks``: ``ChunkCalls`` counts)."""
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {label} path: "
@@ -1343,19 +1567,22 @@ def check_path(label: str, launches: dict, path, chunks: dict) -> None:
     if off:
         raise AssertionError(f"set-given kernels launched on the {label} "
                              f"path: {off}")
+    kept = {k: chunks[k] for k in FUSED_OF if chunks[k]}
+    if kept and not typed:
+        raise AssertionError(f"{label} path: chunks of typed flights {kept}")
     for kernel, n in chunks.items():
         if launches[kernel] != n:
             raise AssertionError(f"{label} path: {launches[kernel]} {kernel} "
                                  f"launches for {n} chunk bodies")
-    log(f"{label} path: one bgeneral_eval_decode launch for each of its "
-        f"{chunks['bgeneral_eval_decode']} MPDP-general chunks, one "
-        f"btree_eval_decode launch for each of its "
-        f"{chunks['btree_eval_decode']} MPDP:Tree chunks and one "
-        f"bccp_eval_decode launch for each of its "
-        f"{chunks['bccp_eval_decode']} batched DPSUB chunks, one "
-        f"phase_a_blocks launch for each of its {chunks['phase_a_blocks']} "
-        f"sparse phase-A (query, level)s, no launch of "
-        f"{', '.join(OFF_PATH)}")
+    log(f"{label} path: one launch for each chunk body: "
+        f"bgeneral_eval_prune {chunks['bgeneral_eval_prune']} and "
+        f"bgeneral_eval_decode {chunks['bgeneral_eval_decode']} "
+        f"(MPDP-general, inner and typed), btree_eval_prune "
+        f"{chunks['btree_eval_prune']} and btree_eval_decode "
+        f"{chunks['btree_eval_decode']} (MPDP:Tree), bccp_eval_decode "
+        f"{chunks['bccp_eval_decode']} (batched DPSUB), phase_a_blocks "
+        f"{chunks['phase_a_blocks']} (sparse phase-A (query, level)s); no "
+        f"launch of {', '.join(OFF_PATH)}")
 
 
 def profile(label: str, fn, names) -> float:
@@ -1560,7 +1787,7 @@ def phase_typed():
         typed = dict(ops.LAUNCHES)
         log(f"typed path: {time.perf_counter() - t_start:.1f} s on cuda; "
             f"launches " + json.dumps(typed))
-        check_path("typed", typed, TYPED_PATH, chunks.count)
+        check_path("typed", typed, TYPED_PATH, chunks.count, typed=True)
         try:
             engine.optimize(solo[1][1], "dpsize")
         except ValueError as e:
@@ -1791,7 +2018,7 @@ def phase_heuristics():
         heur = dict(ops.LAUNCHES)
         log(f"heuristics path: {time.perf_counter() - t_start:.1f} s on cuda; "
             f"launches " + json.dumps(heur))
-        check_path("heuristics", heur, HEUR_PATH, chunks.count)
+        check_path("heuristics", heur, HEUR_PATH, chunks.count, typed=True)
         cpu = {i: f.result() for i, f in futs.items()}
     log(f"heuristics cpu runs: {len(cpu)} parts, done at "
         f"{time.perf_counter() - t_start:.1f} s (3 worker processes)")
@@ -1818,8 +2045,9 @@ def phase_heuristics():
 
 # ---------------------------------------------------------------- phase 8 --
 
-SERVICE_PATH = SPAN_FORMS + BATCHED_FORMS      # flights, solo d1/d3, s4
-EVAL_FORMS = ("bccp_eval_decode", "btree_eval_decode", "bgeneral_eval_decode")
+SERVICE_PATH = SPAN_FORMS + INNER_FORMS        # flights, solo d1/d3, s4
+EVAL_FORMS = ("bccp_eval_decode", "btree_eval_decode",
+              "bgeneral_eval_decode") + FUSED_FORMS
 S3_DUPS = 16                                   # relabelled duplicates in s3
 
 
@@ -2450,9 +2678,17 @@ def daemon_parts(tmp, svc_out, v4_ref):
 # --------------------------------------------------------------- phase 10 --
 
 SHARDS = 4                      # logical shards of the one card
-SHARDED_PATH = BATCHED_FORMS    # sharded flights and the lattice
-EVAL_OF = {"dpsub": "bccp_eval_decode", "mpdp_tree": "btree_eval_decode",
-           "mpdp_general": "bgeneral_eval_decode"}
+SHARDED_PATH = INNER_FORMS      # sharded flights and the lattice
+EVAL_OF = {"dpsub": "bccp_eval_decode", "mpdp_tree": "btree_eval_prune",
+           "mpdp_general": "bgeneral_eval_prune"}
+TYPED_EVAL_OF = {"dpsub": "bccp_eval_decode", "mpdp_tree": "btree_eval_decode",
+                 "mpdp_general": "bgeneral_eval_decode"}
+
+
+def eval_form(space: str, typed: bool) -> str:
+    """The kernel a chunk of ``space`` launches: typed flights keep the
+    decode forms."""
+    return (TYPED_EVAL_OF if typed else EVAL_OF)[space]
 
 
 def card_mesh(n: int):
@@ -2520,11 +2756,13 @@ def sharded_prediction(graphs, algorithm, D, lanes, pads) -> dict:
     and padded with 2-relation queries), level and shard, one
     ``bconnectivity_span`` launch per ``SPAN`` ranks and one evaluate
     launch per ``CHUNK`` lanes; ``lanes`` are the single-shard run's lanes
-    per (query, level), ``pads`` the pad's level-2 lanes."""
+    per (query, level), ``pads`` the pad's level-2 lanes.  A shard's tree
+    and general chunks launch the decode forms where it holds a typed
+    query, the fused forms where not (a shard of pads alone too)."""
     pending = batch.probe_stream(graphs, [None] * len(graphs), None,
                                  algorithm)
     buckets, solo = batch.bucket_pending(graphs, pending, algorithm)
-    want = {k: 0 for k in BATCHED_FORMS}
+    want = {k: 0 for k in BATCHED_FORMS + FUSED_FORMS}
     for (_, space, _), idxs in sorted(buckets.items()):
         step = MAX_FLIGHT * D
         for s0 in range(0, len(idxs), step):
@@ -2532,6 +2770,7 @@ def sharded_prediction(graphs, algorithm, D, lanes, pads) -> dict:
             padded = group + [None] * ((-len(group)) % D)     # None: a pad
             for d in range(D):
                 members = padded[d::D]
+                typed = any(g is not None and g.typed for g in members)
                 for i in range(2, max(g.n for g in group) + 1):
                     ranks = sum(comb(2 if g is None else g.n, i)
                                 for g in members)
@@ -2539,7 +2778,7 @@ def sharded_prediction(graphs, algorithm, D, lanes, pads) -> dict:
                     lanes_d = sum((pads[space] if i == 2 else 0) if g is None
                                   else lanes.get((id(g), i), 0)
                                   for g in members)
-                    want[EVAL_OF[space]] += -(-lanes_d // L_MAIN)
+                    want[eval_form(space, typed)] += -(-lanes_d // L_MAIN)
     return want
 
 
@@ -2711,7 +2950,7 @@ def run_lattice(label, g, algorithm, D, want, launches=None):
     if launches is None:
         pred = lattice_prediction(g.n, spy.totals, D)
         launches = {"bconnectivity_span": pred["bconnectivity_span"],
-                    EVAL_OF[eng.algorithm]: pred["evals"]}
+                    eval_form(eng.algorithm, eng.typed): pred["evals"]}
     elif not eng.pipeline:
         raise AssertionError(f"lattice {label}: not pipelined")
     check_launches(f"lattice {label}", got, launches)
@@ -2890,7 +3129,7 @@ def phase_sharded(res4, solo_res, t20, heur_out, svc_out):
         if failures.errors:
             raise AssertionError(f"sharded flights failed and were "
                                  f"redispatched: {failures.errors}")
-        check_path("sharded", shd, SHARDED_PATH, chunks.count)
+        check_path("sharded", shd, SHARDED_PATH, chunks.count, typed=True)
         solo_made = {k: shd[k] for k in SPAN_FORMS if shd[k]}
         if solo_made:
             raise AssertionError(f"solo launches on the sharded path: "
@@ -2926,8 +3165,7 @@ def phase_sharded(res4, solo_res, t20, heur_out, svc_out):
 
 # the execute path's optimizers: solo mpdp and dpsub (e1, e2, e3's n = 20)
 # and the batched flights of optimize_many, IDP2 and UnionDP (no DPSUB one)
-EXEC_PATH = SPAN_FORMS + ("bconnectivity_span", "btree_eval_decode",
-                          "bgeneral_eval_decode")
+EXEC_PATH = SPAN_FORMS + ("bconnectivity_span",) + FUSED_FORMS
 FIG10 = (8, 10, 12)           # musicbrainz_query(n, seed=n): the reference's
 FIG10_ROWS = 3000             # Fig. 10 setting (benchmarks/paper_figs.py)
 E2_ROWS = 30000

@@ -18,8 +18,11 @@ through ``kernels.ops`` — the CUDA kernels on the card, their plain
 PyTorch versions for CPU tensors; the filter's unrank
 (``bconnectivity_span``, one launch per level) and the DPSUB, MPDP:Tree
 and MPDP-general lane decodes (``bccp_eval_decode``,
-``btree_eval_decode``, ``bgeneral_eval_decode``) run inside the kernels.
-The memo tensors are updated in place.
+``btree_eval_decode``, ``bgeneral_eval_decode``) run inside the kernels;
+the MPDP:Tree and MPDP-general chunks of an inner-join flight run their
+cost, prune and counts there as well (``btree_eval_prune``,
+``bgeneral_eval_prune``), one launch and one copy a chunk.  The memo
+tensors are updated in place.
 
 The level loop (``_LevelLoop``) is the reference's: the synchronous driver,
 or with ``pipeline=True`` the pipelined one, which dispatches level i's
@@ -47,10 +50,10 @@ orientations of each lane under the conflict mask
 exactly as before.
 
 Where the reference's array semantics and torch differ, this module
-spells them out: out-of-range gather indices are clamped (``_take``),
-``mode="drop"`` scatters drop their padding explicitly,
-``segment_min``/``segment_max`` start from the reference's empty-segment
-identities (``engine._prune``) and ``searchsorted(side="right")`` is
+spells them out: out-of-range gather indices are clamped
+(``kernels.ref.take``), ``mode="drop"`` scatters drop their padding
+explicitly, ``segment_min``/``segment_max`` start from the reference's
+empty-segment identities (``kernels.ref.prune``) and ``searchsorted(side="right")`` is
 ``right=True``.
 
 ``optimize_many`` is the public entry point.  It consults an optional
@@ -84,12 +87,13 @@ from . import engine as _eng
 from . import faults
 from . import telemetry as _telemetry
 from . import unrank as ur
-from ..kernels import ops
+from ..kernels import ops, ref
+from ..kernels.ref import memo_reads, segment_sum as _segment_sum
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
-from .engine import (_CLIP, INF, SPAN, _cap, _fetch, _merge_best,
-                     _merge_scattered, _pair_table, _prune,
-                     _scatter_into, _take, _typed_lane_cost, _use_pipeline,
+from .engine import (_CLIP, INF, SPAN, Pruned, _cap, _fetch, _fused,
+                     _merge_best, _merge_scattered, _pair_table, _prune,
+                     _scatter_into, _typed_lane_cost, _use_pipeline,
                      resolve_device)
 from .joingraph import JoinGraph, typed_edge_arrays
 from .plancache import canonical_signature
@@ -102,11 +106,6 @@ _I32 = torch.int32
 
 def _bcap(b: int) -> int:
     return _cap(b, 4)
-
-
-def _segment_sum(x: torch.Tensor, qid: torch.Tensor, bcap: int) -> torch.Tensor:
-    return torch.zeros(bcap, dtype=_I32, device=x.device).index_add_(
-        0, qid, x.to(_I32))
 
 
 def _offset_rows(off: np.ndarray, lane0s: np.ndarray, bcap: int) -> np.ndarray:
@@ -132,18 +131,15 @@ def _lane_cost(S, S_left, S_right, ccp, qid, nmax: int, memo_cost, memo_rows,
                targs=()):
     """Candidate cost of each lane's (S_left, S_right) split (INF off-CCP)
     and the left bitmap the prune keeps; a typed flight costs both operand
-    orientations under the conflict mask of the lane's query."""
-    mbase = qid << nmax
-    cl = _take(memo_cost, mbase | S_left)
-    cr = _take(memo_cost, mbase | S_right)
-    rl = _take(memo_rows, mbase | S_left)
-    rr = _take(memo_rows, mbase | S_right)
-    rows_S = _take(memo_rows, mbase | S)
-    if targs:
-        return _typed_lane_cost(S_left, S_right, rows_S, ccp, cl, cr, rl, rr,
-                                *[a[qid] for a in targs])
-    return (torch.where(ccp, cl + cr + cm.join_cost(rl, rr, rows_S),
-                        float(INF)), S_left)
+    orientations under the conflict mask of the lane's query; an
+    inner-only one is ``kernels.ref.lane_cost``."""
+    if not targs:
+        return ref.lane_cost(S, S_left, S_right, ccp, qid, nmax, memo_cost,
+                             memo_rows)
+    cl, cr, rl, rr, rows_S = memo_reads(S, S_left, S_right, qid, nmax,
+                                        memo_cost, memo_rows)
+    return _typed_lane_cost(S_left, S_right, rows_S, ccp, cl, cr, rl, rr,
+                            *[a[qid] for a in targs])
 
 
 def _beval_dpsub_chunk(all_sets, eoff, loff, soff, seg0, i, adj_b, memo_cost,
@@ -175,12 +171,17 @@ def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
                       chunk: int, nseg: int, bcap: int):
     """Batched MPDP:Tree evaluate: the ``btree_eval_decode`` kernel decodes
     each lane's (query, set, edge) and splits S; the cost and the prune
-    stay here.
+    stay here.  An inner-join flight runs them in the kernel as well: one
+    ``btree_eval_prune`` launch (``Pruned``).
 
     m_b: i32[bcap] per-query edge count (lane-minor dimension);
     emu_b/emv_b: i32[bcap, emax] per-query edge endpoint bitmaps (0 pad).
     Every enumerated in-set edge IS a CCP pair (Theorem 3).
     """
+    if _fused(targs):
+        return Pruned(ops.btree_eval_prune(
+            all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b,
+            memo_cost, memo_rows, nmax, nseg, chunk), bcap)
     S, S_left, in_i, qid, seg = ops.btree_eval_decode(
         all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax,
         nseg, chunk)
@@ -197,7 +198,8 @@ def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
                          bcap: int):
     """Batched MPDP-general evaluate: the ``bgeneral_eval_decode`` kernel
     decodes each lane's (query, set, block, rank) and splits S; the cost
-    and the prune stay here.
+    and the prune stay here.  An inner-join flight runs them in the kernel
+    as well: one ``bgeneral_eval_prune`` launch (``Pruned``).
 
     Phase A compacted every set's blocks into sorted (set, block) pairs;
     the fused lane space is the block prefix-sum over all queries' pairs,
@@ -205,6 +207,10 @@ def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
     chunk-local lane offset) table (``engine._pair_table``), one segment
     per pair.
     """
+    if _fused(targs):
+        return Pruned(ops.bgeneral_eval_prune(
+            pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows, nmax,
+            chunk), bcap)
     S, S_left, enum_i, ccp_i, qid, p = ops.bgeneral_eval_decode(
         pairs, n_pairs, lane_count, adj_b, nmax, chunk)
     cand, lbx = _lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid, nmax,
@@ -708,7 +714,7 @@ class BatchEngine(_LevelLoop):
         pend = ctx["pend"]
         while len(pend) > limit:
             seg0, out = pend.popleft()
-            sc, sl, ev_q, ccp_q = _fetch(*out)
+            sc, sl, ev_q, ccp_q = _fetch(out)
             ctx["ev"] += ev_q[: self.B]
             ctx["ccp"] += ccp_q[: self.B]
             _merge_best(ctx["best_cost"], ctx["best_left"], seg0, sc, sl)
@@ -803,7 +809,7 @@ class BatchEngine(_LevelLoop):
         pend, pk = ctx["pend"], ctx["pk"]
         while len(pend) > limit:
             p0, npair, out = pend.popleft()
-            sc, sl, ev_q, ccp_q = _fetch(*out)
+            sc, sl, ev_q, ccp_q = _fetch(out)
             ctx["ev"] += ev_q[: self.B]
             ctx["ccp"] += ccp_q[: self.B]
             scn = sc[:npair]

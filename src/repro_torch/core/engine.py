@@ -21,8 +21,16 @@ evaluate -> prune -> scatter* runs on the engine's torch device:
   scatter   dense memo tables indexed by subset bitmap
 
 Each evaluate chunk comes back to the host in one device-to-host copy
-(``_fetch``).  Where the reference's array semantics and torch differ, this
-module spells them out: out-of-range gathers clamp (``_take``), memo
+(``_fetch``).  The MPDP:Tree and MPDP-general chunks of an inner-join
+graph run their epilogue (the memo gathers, the join cost, the prune and
+the counts) inside the kernel too (``ops.btree_eval_prune``,
+``ops.bgeneral_eval_prune``): one launch and one copy a chunk; typed
+graphs and DPSUB keep the epilogue in torch ops (``_fused``), those of
+the kernels' plain versions (``kernels.ref``).  ``_fetch`` counts every
+evaluate chunk it reads (``engine.eval_chunks``) and each fused one
+(``engine.fused_chunks``).  Where the reference's array semantics and
+torch differ, this module spells them out: out-of-range gathers clamp
+(``_take``), memo
 scatters drop indices outside the table (``_scatter_into``),
 ``searchsorted(side="right")`` is ``right=True``, and ``_prune`` starts its
 segments from the reference's empty-segment identities (``+inf`` for cost,
@@ -51,6 +59,7 @@ from __future__ import annotations
 import os
 import time
 from math import comb
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,6 +73,7 @@ from . import faults
 from . import telemetry as _telemetry
 from . import unrank as ur
 from ..kernels import ops
+from ..kernels.ref import prune as _prune, take as _take
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .joingraph import DeviceGraph, JoinGraph
@@ -71,7 +81,6 @@ from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
 INF = np.float32(np.inf)
 _I32 = torch.int32
-_I32_MIN = int(np.iinfo(np.int32).min)
 _CLIP = 1 << 30          # offset clip keeps chunk-local offsets int32
 SPAN = 1 << 24           # ranks per filter launch (S and conn: 128 MiB)
 
@@ -102,11 +111,6 @@ def _use_pipeline() -> bool:
     return os.environ.get("REPRO_PIPELINE", "0") == "1"
 
 
-def _take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``buf[idx]`` with the reference's gather semantics (indices clamped)."""
-    return buf[idx.clamp(0, buf.shape[0] - 1)]
-
-
 def _scatter_into(buf: torch.Tensor, idx_np: np.ndarray, val_np) -> None:
     """``buf[idx] = val`` in place; indices outside ``buf`` are dropped (the
     reference's ``mode="drop"``)."""
@@ -117,14 +121,40 @@ def _scatter_into(buf: torch.Tensor, idx_np: np.ndarray, val_np) -> None:
     buf[idx.to(buf.device)] = val.to(buf.device)
 
 
-def _fetch(seg_cost, seg_left, ev_q, ccp_q):
-    """One device->host copy of a chunk's results."""
-    n = seg_cost.shape[0]
+class Pruned(NamedTuple):
+    """A fused chunk's result on the device: the buffer of
+    ``ops.btree_eval_prune`` or ``ops.bgeneral_eval_prune`` and its
+    number of query rows."""
+    buf: torch.Tensor
+    bcap: int
+
+
+def _fused(targs) -> bool:
+    """Whether an MPDP:Tree or MPDP-general chunk runs the fused evaluate
+    epilogue: on a flight without conflict arrays.  A typed flight costs
+    both operand orientations of a lane and keeps the epilogue in torch
+    ops."""
+    return not targs
+
+
+def _fetch(out):
+    """One device->host copy of a chunk's results -> (seg_cost, seg_left,
+    ev_q, ccp_q) numpy arrays; ``out`` is a fused chunk's ``Pruned`` or the
+    four tensors of the torch epilogue.  Counts the chunk in the
+    recorder's ``engine.eval_chunks``, and a fused one in
+    ``engine.fused_chunks``."""
+    _telemetry.count("engine.eval_chunks")
     with _telemetry.span("engine.fetch"):
-        buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q,
-                         ccp_q]).cpu().numpy()
-    return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + len(ev_q)],
-            buf[2 * n + len(ev_q):])
+        if isinstance(out, Pruned):
+            _telemetry.count("engine.fused_chunks")
+            return ops.unpack_pruned(out.buf.cpu().numpy(), out.bcap)
+        seg_cost, seg_left, ev_q, ccp_q = out
+        n = seg_cost.shape[0]
+        k = ev_q.numel()
+        buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q.reshape(-1),
+                         ccp_q.reshape(-1)]).cpu().numpy()
+    return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + k],
+            buf[2 * n + k:])
 
 
 def _merge_best(best_cost, best_left, base, seg_cost, seg_left):
@@ -148,21 +178,6 @@ def _merge_scattered(best_cost, best_left, ks, cs, ls):
     np.minimum.at(best_cost, ks, cs)
     tie = cs == best_cost[ks]
     np.maximum.at(best_left, ks[tie], ls[tie])
-
-
-def _prune(seg: torch.Tensor, cand_cost: torch.Tensor, cand_left: torch.Tensor,
-           nseg: int):
-    """Two-pass in-chunk prune: segment-min cost then max-left among ties."""
-    seg = seg.long()
-    seg_cost = torch.full((nseg,), float("inf"), dtype=torch.float32,
-                          device=cand_cost.device)
-    seg_cost.scatter_reduce_(0, seg, cand_cost, "amin")
-    is_best = cand_cost == seg_cost[seg]
-    left_cand = torch.where(is_best & torch.isfinite(cand_cost), cand_left, 0)
-    seg_left = torch.full((nseg,), _I32_MIN, dtype=_I32,
-                          device=cand_left.device)
-    seg_left.scatter_reduce_(0, seg, left_cand, "amax")
-    return seg_cost, seg_left
 
 
 # ============================================================ chunk bodies ==
@@ -232,7 +247,8 @@ def _eval_dpsub_chunk(all_sets, level_off: int, base_set: int, base_sub: int,
     ccp = live & (ccp_i != 0)
     cand, lbx = _split_cost(lb | rb, lb, rb, ccp, memo_cost, memo_rows, targs)
     seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
-    return seg_cost, seg_left, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
+    return (seg_cost, seg_left, live.sum(dtype=_I32).reshape(1),
+            ccp.sum(dtype=_I32).reshape(1))
 
 
 def _tree_offsets(level_off: int, base_set: int, base_e: int,
@@ -251,7 +267,12 @@ def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
     """MPDP:Tree lanes through ``btree_eval_decode`` on the one-row tables
     ``adj1``, ``m1``, ``emu1``, ``emv1`` and ``offs`` (``_tree_offsets``):
     the same function as the reference's decode and ``grow_excl_edge`` on
-    one query."""
+    one query.  An inner-join graph's chunk is one ``btree_eval_prune``
+    launch (``Pruned``)."""
+    if _fused(targs):
+        return Pruned(ops.btree_eval_prune(
+            all_sets, offs[0:2], offs[2:3], offs[3:4], 0, m1, emu1, emv1,
+            adj1, memo_cost, memo_rows, nmax, nseg, chunk), 1)
     S, S_left, in_i, _, seg = ops.btree_eval_decode(
         all_sets, offs[0:2], offs[2:3], offs[3:4], 0, m1, emu1, emv1, adj1,
         nmax, nseg, chunk)
@@ -260,7 +281,7 @@ def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
     cand, lbx = _split_cost(S, S_left, S & ~S_left, edge_in, memo_cost,
                             memo_rows, targs)
     seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
-    ev = edge_in.sum(dtype=_I32)
+    ev = edge_in.sum(dtype=_I32).reshape(1)
     return seg_cost, seg_left, ev, ev
 
 
@@ -287,13 +308,19 @@ def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj1, memo_cost,
     table ``adj1`` and the chunk's pair table ``pairs`` (``_pair_table``,
     query row 0): the same function as the reference's decode, ccp test
     and ``grow`` on one query (Alg.3 lines 6/7 and 17).  One segment per
-    pair of the table."""
+    pair of the table.  An inner-join graph's chunk is one
+    ``bgeneral_eval_prune`` launch (``Pruned``)."""
+    if _fused(targs):
+        return Pruned(ops.bgeneral_eval_prune(
+            pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows, nmax,
+            chunk), 1)
     S, S_left, enum_i, ccp_i, _, p = ops.bgeneral_eval_decode(
         pairs, n_pairs, lane_count, adj1, nmax, chunk)
     cand, lbx = _split_cost(S, S_left, S & ~S_left, ccp_i != 0, memo_cost,
                             memo_rows, targs)
     seg_cost, seg_left = _prune(p, cand, lbx, pairs.shape[1])
-    return seg_cost, seg_left, enum_i.sum(dtype=_I32), ccp_i.sum(dtype=_I32)
+    return (seg_cost, seg_left, enum_i.sum(dtype=_I32).reshape(1),
+            ccp_i.sum(dtype=_I32).reshape(1))
 
 
 def _eval_dpsize_chunk(all_sets, off_a: int, off_b: int, count_b: int,
@@ -514,14 +541,12 @@ class ExactEngine:
                     with _telemetry.leaf("engine.chunk"):
                         self._count_chunk()
                         cnt = min(self.chunk, lanes - lane0)
-                        sc, sl, ev, cc = _eval_dpsub_chunk(
+                        sc, sl, ev, cc = _fetch(_eval_dpsub_chunk(
                             self.all_sets, off, lane0 >> i,
                             lane0 & ((1 << i) - 1), i, cnt, self.dg.adj,
                             self.memo_cost, self.memo_rows, nmax=self.nmax,
                             chunk=self.chunk, nseg=self.chunk + 1,
-                            **self._tkw)
-                        sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
-                                                cc.reshape(1))
+                            **self._tkw))
                         self._count(ev, cc)
                         _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
                 self._commit_level(sets_np, best_cost, best_left)
@@ -548,13 +573,11 @@ class ExactEngine:
                         cnt = min(self.chunk, lanes - lane0)
                         offs = self._dev(_tree_offsets(off, lane0 // m,
                                                        lane0 % m, cnt))
-                        sc, sl, ev, cc = _eval_tree_chunk(
+                        sc, sl, ev, cc = _fetch(_eval_tree_chunk(
                             self.all_sets, offs, self.m1, self.emu1,
                             self.emv1, self.adj1, self.memo_cost,
                             self.memo_rows, nmax=self.nmax, chunk=self.chunk,
-                            nseg=self.chunk + 1, **self._tkw)
-                        sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
-                                                cc.reshape(1))
+                            nseg=self.chunk + 1, **self._tkw))
                         self._count(ev, cc)
                         _merge_best(best_cost, best_left, lane0 // m, sc, sl)
                 self._commit_level(sets_np, best_cost, best_left)
@@ -602,12 +625,10 @@ class ExactEngine:
                         p1 = int(np.searchsorted(offs, lane1, side="left"))
                         npair = p1 - p0
                         pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
-                        sc, sl, ev, cc = _eval_general_chunk(
+                        sc, sl, ev, cc = _fetch(_eval_general_chunk(
                             self._dev(pairs), npair, lane1 - lane0,
                             self.adj1, self.memo_cost, self.memo_rows,
-                            nmax=self.nmax, chunk=self.chunk, **self._tkw)
-                        sc, sl, ev, cc = _fetch(sc, sl, ev.reshape(1),
-                                                cc.reshape(1))
+                            nmax=self.nmax, chunk=self.chunk, **self._tkw))
                         self._count(ev, cc)
                         scn = sc[:npair]
                         fin = np.isfinite(scn)
@@ -650,6 +671,7 @@ class ExactEngine:
                                 lane0 % cb, cnt, self.dg, self.memo_cost,
                                 self.memo_rows, nmax=self.nmax,
                                 chunk=self.chunk)
+                            _telemetry.count("engine.eval_chunks")
                             with _telemetry.span("engine.fetch"):
                                 got = torch.cat([S, cand.view(_I32), A,
                                                  ev.reshape(1),

@@ -350,7 +350,7 @@ class LatticeShardedEngine(_LevelLoop):
         for d, pend in enumerate(ctx["pend"]):
             while len(pend) > limit:
                 seg0, out = pend.popleft()
-                sc, sl, ev_q, ccp_q = _fetch(*out)
+                sc, sl, ev_q, ccp_q = _fetch(out)
                 ctx["ev"] += int(ev_q[0])
                 ctx["ccp"] += int(ccp_q[0])
                 _merge_best(ctx["best_cost"][d], ctx["best_left"][d], seg0,
@@ -420,7 +420,7 @@ class LatticeShardedEngine(_LevelLoop):
         for d, pend in enumerate(ctx["pend"]):
             while len(pend) > limit:
                 p0, npair, out = pend.popleft()
-                sc, sl, ev_q, ccp_q = _fetch(*out)
+                sc, sl, ev_q, ccp_q = _fetch(out)
                 ctx["ev"] += int(ev_q[0])
                 ctx["ccp"] += int(ccp_q[0])
                 scn = sc[:npair]

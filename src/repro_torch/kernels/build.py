@@ -45,6 +45,10 @@ _SIGNATURES = {
     "rt_bgeneral_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rt_bgeneral_eval_decode": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _P],
+    "rt_btree_eval_prune": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                            _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "rt_bgeneral_eval_prune": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                               _I, _I, _P],
     "rt_phase_a_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

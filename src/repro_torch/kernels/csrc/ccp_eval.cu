@@ -23,7 +23,7 @@
 //                            MPDP-general split: S_left = grow(lb) in S & ~rb,
 //                            S_right = S & ~S_left
 //
-// Eight read the stacked (bcap, nmax) table at each lane's query row (the
+// Ten read the stacked (bcap, nmax) table at each lane's query row (the
 // batched engine, and on a one-row table the solo tree and general
 // evaluates; the set-given bconnectivity, bccp_eval, btree_eval and
 // bgeneral_eval are off the main path):
@@ -59,9 +59,8 @@
 //                            (query, set, edge) from the chunk's offset
 //                            tables, the clamped set gather, then as
 //                            btree_eval_kernel; writes S, S_left, edge_in,
-//                            q and the lane's segment (the batched and the
-//                            solo tree evaluate, the latter on a one-row
-//                            table)
+//                            q and the lane's segment (the typed tree
+//                            evaluates, batched and solo)
 //   bgeneral_eval_kernel  <- bgeneral_eval_kernel (ccp_eval.py:184)
 //                            MPDP-general lane: lb = pdep(r, block),
 //                            ccp(lb, block & ~lb), S_left = grow(lb) in
@@ -76,8 +75,15 @@
 //                            of the chunk's offset row, its (set, block,
 //                            query), then as bgeneral_eval_kernel; writes
 //                            S, S_left, enum_ok, ccp, q and the pair (the
-//                            batched and the solo general evaluate, the
-//                            latter on a one-row table)
+//                            typed general evaluates, batched and solo)
+//   btree_eval_prune_kernel, bgeneral_eval_prune_kernel
+//                         <- the two decode kernels above with the epilogue
+//                            of the reference's chunk bodies: the memo
+//                            gathers, cost.join_cost, the per-segment
+//                            minimum and the per-query counts; write one
+//                            key a segment and two counts a query (the
+//                            inner-join tree and general evaluates, batched
+//                            and solo)
 //
 // One more replaces no Pallas kernel but the reference's jitted XLA phase A
 // (src/repro/core/blocks.py:236, vmapped over a chunk of sets), which the
@@ -149,11 +155,18 @@
 //     a (query, level) in place of the eager ops, the whole level in one
 //     grid, the query's adjacency row and edge endpoints staged in shared
 //     memory once a block, and the rows read back in one copy.
+//   * The fused evaluate epilogue writes 8 bytes a segment and 8 a query in
+//     place of 20-24 a lane, and gathers five floats from the memo on a
+//     ccp lane only (the memo, at most 8 MB batched, stays in L2); a
+//     non-ccp lane skips its grow and its gathers.  Its reduction is a
+//     warp shuffle ladder and a few atomics a warp.  What it removes is
+//     host work again: the chunk's eager ops.
 //
 // Plain C interface (bound with ctypes): each rt_* function launches on the
 // given stream and returns cudaGetLastError() as an int (0 = success).
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <algorithm>
 
@@ -562,12 +575,70 @@ __global__ void btree_eval_kernel(const int* __restrict__ S,
 // MPDP:Tree chunk lane t: query q = lane_query(eoff, t), local = t -
 // eoff[q], mq = max(m_b[q], 1), set_idx = floor(local / mq), e =
 // clamp(local mod mq, 0, emax - 1), S = all_sets[clamp(loff[q] + set_idx,
-// 0, n_sets - 1)], (ub, vb) = edge e of query q, then the btree_eval lane;
-// edge_in masked by t < eoff[bcap], seg = clamp(soff[q] + set_idx - seg0,
-// 0, nseg - 1).  int32 adds wrap as torch's do.  Every lane is decoded,
-// dead ones included.  Shared memory: eoff (bcap + 1), loff, soff, m_b
+// 0, n_sets - 1)], (ub, vb) = edge e of query q; edge_in = t < eoff[bcap]
+// and both endpoints in S, seg = clamp(soff[q] + set_idx - seg0, 0, nseg -
+// 1).  int32 adds wrap as torch's do.  Every lane is decoded, dead ones
+// included.  Shared memory (stage_tree): eoff (bcap + 1), loff, soff, m_b
 // (bcap each), adj_b (bcap x nmax); the edge tables are read through the
 // read-only cache.
+struct TreeTables {
+  const int* eoff;
+  const int* loff;
+  const int* soff;
+  const int* m;
+  const int* adj;
+};
+
+struct TreeLane {
+  int s, ub, vb, edge_in, q, seg;
+};
+
+__device__ __forceinline__ TreeTables stage_tree(int* smem, const int* eoff,
+                                                 const int* loff,
+                                                 const int* soff,
+                                                 const int* m_b,
+                                                 const int* adj_b, int bcap,
+                                                 int nmax) {
+  int* seoff = smem;
+  int* sloff = seoff + bcap + 1;
+  int* ssoff = sloff + bcap;
+  int* sm = ssoff + bcap;
+  int* sadj = sm + bcap;
+  stage(seoff, eoff, bcap + 1);
+  stage(sloff, loff, bcap);
+  stage(ssoff, soff, bcap);
+  stage(sm, m_b, bcap);
+  stage(sadj, adj_b, bcap * nmax);
+  __syncthreads();
+  return {seoff, sloff, ssoff, sm, sadj};
+}
+
+__device__ __forceinline__ TreeLane tree_lane(
+    int t, const TreeTables& tb, const int* __restrict__ all_sets, int n_sets,
+    int seg0, const int* __restrict__ emu_b, const int* __restrict__ emv_b,
+    int emax, int bcap, int nseg) {
+  TreeLane ln;
+  ln.q = lane_query(tb.eoff, bcap, t);
+  const int local = wrap_sub(t, tb.eoff[ln.q]);
+  const int mq = max(tb.m[ln.q], 1);
+  int set_idx = local / mq;              // floor quotient and modulo (mq > 0)
+  int e = local - set_idx * mq;
+  if (e < 0) {
+    e += mq;
+    --set_idx;
+  }
+  e = min(e, emax - 1);
+  ln.s = all_sets[min(max(wrap_add(tb.loff[ln.q], set_idx), 0), n_sets - 1)];
+  ln.ub = __ldg(emu_b + ln.q * emax + e);
+  ln.vb = __ldg(emv_b + ln.q * emax + e);
+  ln.edge_in = t < tb.eoff[bcap] && (ln.s & ln.ub) != 0 && (ln.s & ln.vb) != 0;
+  ln.seg = min(max(wrap_sub(wrap_add(tb.soff[ln.q], set_idx), seg0), 0),
+               nseg - 1);
+  return ln;
+}
+
+// The decode of tree_lane, then the btree_eval lane: S_left = grow(ub) in
+// S minus edge (u, v).
 __global__ void __launch_bounds__(kWideThreads)
 btree_eval_decode_kernel(const int* __restrict__ all_sets, int n_sets,
                          const int* __restrict__ eoff,
@@ -582,39 +653,19 @@ btree_eval_decode_kernel(const int* __restrict__ all_sets, int n_sets,
                          int* __restrict__ seg_out, int L, int bcap, int nmax,
                          int nseg) {
   extern __shared__ int smem[];
-  int* seoff = smem;
-  int* sloff = seoff + bcap + 1;
-  int* ssoff = sloff + bcap;
-  int* sm = ssoff + bcap;
-  int* sadj = sm + bcap;
-  stage(seoff, eoff, bcap + 1);
-  stage(sloff, loff, bcap);
-  stage(ssoff, soff, bcap);
-  stage(sm, m_b, bcap);
-  stage(sadj, adj_b, bcap * nmax);
-  __syncthreads();
+  const TreeTables tb = stage_tree(smem, eoff, loff, soff, m_b, adj_b, bcap,
+                                   nmax);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= L) return;
   const int nmask = (1 << nmax) - 1;
-  const int q = lane_query(seoff, bcap, t);
-  const int local = wrap_sub(t, seoff[q]);
-  const int mq = max(sm[q], 1);
-  int set_idx = local / mq;              // floor quotient and modulo (mq > 0)
-  int e = local - set_idx * mq;
-  if (e < 0) {
-    e += mq;
-    --set_idx;
-  }
-  e = min(e, emax - 1);
-  const int s = all_sets[min(max(wrap_add(sloff[q], set_idx), 0), n_sets - 1)];
-  const int ub = __ldg(emu_b + q * emax + e);
-  const int vb = __ldg(emv_b + q * emax + e);
-  S_out[t] = s;
-  sl_out[t] = grow_excl(ub, s, sadj + q * nmax, nmask, ub, vb);
-  in_out[t] = t < seoff[bcap] && (s & ub) != 0 && (s & vb) != 0;
-  qid_out[t] = q;
-  seg_out[t] = min(max(wrap_sub(wrap_add(ssoff[q], set_idx), seg0), 0),
-                   nseg - 1);
+  const TreeLane ln = tree_lane(t, tb, all_sets, n_sets, seg0, emu_b, emv_b,
+                                emax, bcap, nseg);
+  S_out[t] = ln.s;
+  sl_out[t] = grow_excl(ln.ub, ln.s, tb.adj + ln.q * nmax, nmask, ln.ub,
+                        ln.vb);
+  in_out[t] = ln.edge_in;
+  qid_out[t] = ln.q;
+  seg_out[t] = ln.seg;
 }
 
 __global__ void bgeneral_eval_kernel(const int* __restrict__ S,
@@ -645,9 +696,33 @@ __global__ void bgeneral_eval_kernel(const int* __restrict__ S,
 // p = clamp(upper_bound(off, pcap, t) - 1, 0, n_pairs - 1), r = t - off[p]
 // (int32 wrap), q = clamp(query[p], 0, bcap - 1), lb = pdep(r, block[p]),
 // rb = block[p] & ~lb; enum_ok = t < lane_count && lb && rb, ccp = enum_ok
-// && ccp(lb, rb), S_left = grow(lb) in set[p] & ~rb.  Every lane is
-// decoded, dead ones included.  Shared memory: adj_b (bcap x nmax); the
-// pair table is read through the read-only cache.
+// && ccp(lb, rb) on row q of the staged adjacency stack.  Every lane is
+// decoded, dead ones included.  The pair table is read through the
+// read-only cache.
+struct GeneralLane {
+  int s, lb, rb, enum_ok, ccp, q, p;
+};
+
+__device__ __forceinline__ GeneralLane general_lane(
+    int t, const int* __restrict__ pairs, int pcap, int n_pairs,
+    int lane_count, const int* sadj, int bcap, int nmax) {
+  const int nmask = (1 << nmax) - 1;
+  const int* off = pairs + 3 * pcap;
+  GeneralLane ln;
+  ln.p = min(max(upper_bound_ldg(off, pcap, t) - 1, 0), n_pairs - 1);
+  const int r = wrap_sub(t, __ldg(off + ln.p));
+  ln.s = __ldg(pairs + ln.p);
+  const int blk = __ldg(pairs + pcap + ln.p);
+  ln.q = min(max(__ldg(pairs + 2 * pcap + ln.p), 0), bcap - 1);
+  ln.lb = pdep(r, blk, nmask);
+  ln.rb = blk & ~ln.lb;
+  ln.enum_ok = t < lane_count && ln.lb != 0 && ln.rb != 0;
+  ln.ccp = ln.enum_ok && ccp(ln.lb, ln.rb, sadj + ln.q * nmax, nmask);
+  return ln;
+}
+
+// The decode of general_lane, then S_left = grow(lb) in set[p] & ~rb.
+// Shared memory: adj_b (bcap x nmax).
 __global__ void __launch_bounds__(kWideThreads)
 bgeneral_eval_decode_kernel(const int* __restrict__ pairs, int pcap,
                             int n_pairs, int lane_count,
@@ -664,22 +739,219 @@ bgeneral_eval_decode_kernel(const int* __restrict__ pairs, int pcap,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= L) return;
   const int nmask = (1 << nmax) - 1;
-  const int* off = pairs + 3 * pcap;
-  const int p = min(max(upper_bound_ldg(off, pcap, t) - 1, 0), n_pairs - 1);
-  const int r = wrap_sub(t, __ldg(off + p));
-  const int s = __ldg(pairs + p);
-  const int blk = __ldg(pairs + pcap + p);
-  const int q = min(max(__ldg(pairs + 2 * pcap + p), 0), bcap - 1);
-  const int* row = sadj + q * nmax;
-  const int lb = pdep(r, blk, nmask);
-  const int rb = blk & ~lb;
-  const bool enum_ok = t < lane_count && lb != 0 && rb != 0;
-  S_out[t] = s;
-  sl_out[t] = grow(lb, s & ~rb, row, nmask);
-  enum_out[t] = enum_ok;
-  ccp_out[t] = enum_ok && ccp(lb, rb, row, nmask);
-  qid_out[t] = q;
-  p_out[t] = p;
+  const GeneralLane ln = general_lane(t, pairs, pcap, n_pairs, lane_count,
+                                      sadj, bcap, nmax);
+  S_out[t] = ln.s;
+  sl_out[t] = grow(ln.lb, ln.s & ~ln.rb, sadj + ln.q * nmax, nmask);
+  enum_out[t] = ln.enum_ok;
+  ccp_out[t] = ln.ccp;
+  qid_out[t] = ln.q;
+  p_out[t] = ln.p;
+}
+
+// ------------------------------------------- fused evaluate epilogue --
+
+// The MPDP:Tree and MPDP-general evaluates of inner-join flights end in
+// the epilogue of their chunk bodies (core/batch._lane_cost,
+// core/engine._prune and batch._segment_sum), which torch runs as about
+// 73 eager ops a chunk.  btree_eval_prune_kernel and
+// bgeneral_eval_prune_kernel build the lanes as the two decode kernels do
+// and run that epilogue in registers, so that a chunk is one launch and
+// one copy:
+//   1. the memo gathers at (q << nmax) | x for x = S_left, S_right, S,
+//      each index clamped into the memo as core/engine._take clamps;
+//   2. cost.join_cost and the split's cost (cl + cr) + jc, INF off the ccp
+//      mask, in torch's order of operations with every operation rounded
+//      on its own (__fmul_rn, __fadd_rn: no contraction into an FMA), the
+//      constants the float32 values torch gives its scalars: torch runs
+//      each operation as its own kernel, so the costs are its bits;
+//   3. _prune's per-segment minimum (ties to the larger left bitmap, a lane
+//      of INF cost offering left 0, an empty segment (INF, INT32_MIN)) as
+//      the maximum of one 64-bit key a lane (prune_key): a segmented
+//      maximum over each warp's runs of equal segment (segments are
+//      contiguous in lane order), then one atomicMax a run.  A maximum does
+//      not depend on the order of the blocks;
+//   4. the per-query enumerated and ccp counts (_segment_sum), one
+//      atomicAdd of a popcount a query and warp: integer sums, exact.
+// Output: keys uint64[nseg] then counts int32[2 * bcap] (enumerated, ccp),
+// zeroed by the caller; kernels/ops.unpack_pruned reads them back.
+
+constexpr float kLog2Cap = static_cast<float>(100.0);       // cost.LOG2_CAP
+constexpr float kHashBuild = static_cast<float>(1.8);       // C_HASH_BUILD
+constexpr float kHashProbe = static_cast<float>(0.55);      // C_HASH_PROBE
+constexpr float kMerge = static_cast<float>(0.4);           // C_MERGE
+constexpr float kSort = static_cast<float>(0.25);           // C_SORT
+constexpr float kNl = static_cast<float>(0.02);             // C_NL
+constexpr float kTup = static_cast<float>(0.05);            // C_TUP
+
+__device__ __forceinline__ float rows_from_log2(float rl2) {
+  return exp2f(fminf(rl2, kLog2Cap));
+}
+
+// cost.join_cost on one lane, operation for operation.
+__device__ __forceinline__ float join_cost(float l2, float r2, float o2) {
+  const float rl = rows_from_log2(l2);
+  const float rr = rows_from_log2(r2);
+  const float tup = __fmul_rn(kTup, rows_from_log2(o2));
+  const float hj = __fadd_rn(__fadd_rn(__fmul_rn(kHashBuild, fminf(rl, rr)),
+                                       __fmul_rn(kHashProbe, fmaxf(rl, rr))),
+                             tup);
+  const float mj = __fadd_rn(
+      __fadd_rn(__fmul_rn(kSort, __fadd_rn(__fmul_rn(rl, fmaxf(l2, 1.0f)),
+                                           __fmul_rn(rr, fmaxf(r2, 1.0f)))),
+                __fmul_rn(kMerge, __fadd_rn(rl, rr))),
+      tup);
+  const float nl = __fadd_rn(__fmul_rn(kNl, rows_from_log2(__fadd_rn(l2, r2))),
+                             tup);
+  return fminf(hj, fminf(mj, nl));
+}
+
+__device__ __forceinline__ float memo_at(const float* __restrict__ memo,
+                                         int size, int idx) {
+  return memo[min(max(idx, 0), size - 1)];
+}
+
+// The cost of splitting S into (S_left, S & ~S_left) for query q.
+__device__ __forceinline__ float split_cost(int s, int sl, int q, int nmax,
+                                            const float* __restrict__ cost,
+                                            const float* __restrict__ rows,
+                                            int size) {
+  const int base = q << nmax;
+  const int sr = s & ~sl;
+  const float cl = memo_at(cost, size, base | sl);
+  const float cr = memo_at(cost, size, base | sr);
+  const float jc = join_cost(memo_at(rows, size, base | sl),
+                             memo_at(rows, size, base | sr),
+                             memo_at(rows, size, base | s));
+  return __fadd_rn(__fadd_rn(cl, cr), jc);
+}
+
+// The lane's place in _prune's order, larger better: 0x7F800000 - the
+// cost's bits (costs are >= 0, so their bits order as they do) in the high
+// word, the left bitmap with its sign bit flipped in the low word.  A lane
+// of INF cost offers left 0; the key 0 of an empty segment reads back as
+// (INF, INT32_MIN).
+__device__ __forceinline__ unsigned long long prune_key(float cost,
+                                                        int left) {
+  const unsigned hi = 0x7F800000u - __float_as_uint(cost);
+  const unsigned lo =
+      static_cast<unsigned>(cost < CUDART_INF_F ? left : 0) ^ 0x80000000u;
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// Fold the warp's keys into keys[seg]: a segmented maximum down each run of
+// equal seg (a lane takes the lane `off` above it where the two share a
+// segment, so a run's first lane ends with the run's maximum), then one
+// atomicMax a run.  Lanes past the chunk pass seg = -1.  Every lane of the
+// warp takes part.
+__device__ __forceinline__ void prune_warp(unsigned long long* keys, int nseg,
+                                           int seg, unsigned long long key) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned long long k = __shfl_down_sync(0xffffffffu, key, off);
+    const int s = __shfl_down_sync(0xffffffffu, seg, off);
+    if (lane + off < 32 && s == seg && k > key) key = k;
+  }
+  const int prev = __shfl_up_sync(0xffffffffu, seg, 1);
+  if ((lane == 0 || prev != seg) && seg >= 0 && seg < nseg && key != 0)
+    atomicMax(keys + seg, key);
+}
+
+// Add the warp's enumerated (a) and ccp (b) lanes of each query q into
+// counts[q] and counts[bcap + q].  Lanes past the chunk pass q = -1.
+__device__ __forceinline__ void count_warp(int* counts, int bcap, int q,
+                                           bool a, bool b) {
+  const unsigned same = __match_any_sync(0xffffffffu, q);
+  const int na = __popc(__ballot_sync(0xffffffffu, a) & same);
+  const int nb = __popc(__ballot_sync(0xffffffffu, b) & same);
+  if (q >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(same) - 1) {
+    if (na) atomicAdd(counts + q, na);
+    if (nb) atomicAdd(counts + bcap + q, nb);
+  }
+}
+
+// btree_eval_decode_kernel's lanes, then the epilogue: every edge_in lane
+// is a ccp pair (Theorem 3), so both counts count edge_in.  Shared memory
+// as btree_eval_decode_kernel's.
+__global__ void __launch_bounds__(kWideThreads)
+btree_eval_prune_kernel(const int* __restrict__ all_sets, int n_sets,
+                        const int* __restrict__ eoff,
+                        const int* __restrict__ loff,
+                        const int* __restrict__ soff, int seg0,
+                        const int* __restrict__ m_b,
+                        const int* __restrict__ emu_b,
+                        const int* __restrict__ emv_b, int emax,
+                        const int* __restrict__ adj_b,
+                        const float* __restrict__ memo_cost,
+                        const float* __restrict__ memo_rows, int memo_size,
+                        unsigned long long* __restrict__ keys,
+                        int* __restrict__ counts, int L, int bcap, int nmax,
+                        int nseg) {
+  extern __shared__ int smem[];
+  const TreeTables tb = stage_tree(smem, eoff, loff, soff, m_b, adj_b, bcap,
+                                   nmax);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int seg = -1, q = -1;
+  bool in = false;
+  unsigned long long key = 0;
+  if (t < L) {
+    const TreeLane ln = tree_lane(t, tb, all_sets, n_sets, seg0, emu_b, emv_b,
+                                  emax, bcap, nseg);
+    float cost = CUDART_INF_F;
+    int sl = 0;
+    if (ln.edge_in) {
+      sl = grow_excl(ln.ub, ln.s, tb.adj + ln.q * nmax, (1 << nmax) - 1,
+                     ln.ub, ln.vb);
+      cost = split_cost(ln.s, sl, ln.q, nmax, memo_cost, memo_rows,
+                        memo_size);
+    }
+    key = prune_key(cost, sl);
+    seg = ln.seg;
+    q = ln.q;
+    in = ln.edge_in;
+  }
+  prune_warp(keys, nseg, seg, key);
+  count_warp(counts, bcap, q, in, in);
+}
+
+// bgeneral_eval_decode_kernel's lanes, then the epilogue, one segment a
+// pair (nseg = pcap).  Shared memory: adj_b (bcap x nmax).
+__global__ void __launch_bounds__(kWideThreads)
+bgeneral_eval_prune_kernel(const int* __restrict__ pairs, int pcap,
+                           int n_pairs, int lane_count,
+                           const int* __restrict__ adj_b,
+                           const float* __restrict__ memo_cost,
+                           const float* __restrict__ memo_rows,
+                           int memo_size,
+                           unsigned long long* __restrict__ keys,
+                           int* __restrict__ counts, int L, int bcap,
+                           int nmax) {
+  extern __shared__ int sadj[];
+  stage(sadj, adj_b, bcap * nmax);
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int seg = -1, q = -1;
+  bool en = false, cc = false;
+  unsigned long long key = 0;
+  if (t < L) {
+    const GeneralLane ln = general_lane(t, pairs, pcap, n_pairs, lane_count,
+                                        sadj, bcap, nmax);
+    float cost = CUDART_INF_F;
+    int sl = 0;
+    if (ln.ccp) {
+      sl = grow(ln.lb, ln.s & ~ln.rb, sadj + ln.q * nmax, (1 << nmax) - 1);
+      cost = split_cost(ln.s, sl, ln.q, nmax, memo_cost, memo_rows,
+                        memo_size);
+    }
+    key = prune_key(cost, sl);
+    seg = ln.p;
+    q = ln.q;
+    en = ln.enum_ok;
+    cc = ln.ccp;
+  }
+  prune_warp(keys, pcap, seg, key);
+  count_warp(counts, bcap, q, en, cc);
 }
 
 // ------------------------------------------------------- phase A (blocks) --
@@ -997,6 +1269,36 @@ int rt_bgeneral_eval_decode(const int* pairs, int pcap, int n_pairs,
                                 static_cast<cudaStream_t>(stream)>>>(
       pairs, pcap, n_pairs, lane_count, adj_b, S, sl, enum_ok, ccp_out, qid, p,
       L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_btree_eval_prune(const int* all_sets, int n_sets, const int* eoff,
+                        const int* loff, const int* soff, int seg0,
+                        const int* m_b, const int* emu_b, const int* emv_b,
+                        int emax, const int* adj_b, const float* memo_cost,
+                        const float* memo_rows, int memo_size,
+                        unsigned long long* keys, int* counts, int L,
+                        int bcap, int nmax, int nseg, void* stream) {
+  size_t smem = static_cast<size_t>(4 * bcap + 1 + bcap * nmax) * sizeof(int);
+  btree_eval_prune_kernel<<<(L + kWideThreads - 1) / kWideThreads,
+                            kWideThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      all_sets, n_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, emax, adj_b,
+      memo_cost, memo_rows, memo_size, keys, counts, L, bcap, nmax, nseg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_bgeneral_eval_prune(const int* pairs, int pcap, int n_pairs,
+                           int lane_count, const int* adj_b,
+                           const float* memo_cost, const float* memo_rows,
+                           int memo_size, unsigned long long* keys,
+                           int* counts, int L, int bcap, int nmax,
+                           void* stream) {
+  bgeneral_eval_prune_kernel<<<(L + kWideThreads - 1) / kWideThreads,
+                               kWideThreads, smem_for(bcap, nmax),
+                               static_cast<cudaStream_t>(stream)>>>(
+      pairs, pcap, n_pairs, lane_count, adj_b, memo_cost, memo_rows,
+      memo_size, keys, counts, L, bcap, nmax);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,8 +13,13 @@ batched DPSUB chunk's (query, set, subset) lanes from its offset tables
 an MPDP:Tree chunk's (query, set, edge) lanes from its offset tables (the
 batched and the solo tree evaluate) and ``bgeneral_eval_decode`` an
 MPDP-general chunk's (pair, rank) lanes from its pair table (the batched
-and the solo general evaluate).  ``phase_a_blocks`` is no lane kernel: it
-finds the blocks of a level's sets of one query (phase A of MPDP-general),
+and the solo general evaluate).  ``btree_eval_prune`` and
+``bgeneral_eval_prune`` build the same lanes as the last two and run the
+chunk bodies' epilogue in the kernel as well: the memo gathers, the join
+cost, the per-segment minimum and the per-query counts, into one buffer
+that ``unpack_pruned`` reads back (the evaluates of inner-join flights;
+typed flights keep the two decode forms).  ``phase_a_blocks`` is no lane
+kernel: it finds the blocks of a level's sets of one query (phase A of MPDP-general),
 one row of block bitmaps a set.  Tensors on the CPU go to the plain
 PyTorch version in ``ref``; tensors on a CUDA device go to the kernel, or
 the wrapper raises (wrong dtype, shape, layout or mixed devices, or a
@@ -31,6 +36,7 @@ read it; that device is made current around the launch (``_run``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build, ref
@@ -40,10 +46,12 @@ LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
             "bconnectivity_span": 0, "bccp_eval": 0, "bccp_eval_decode": 0,
             "btree_eval": 0,
             "btree_eval_decode": 0, "bgeneral_eval": 0,
-            "bgeneral_eval_decode": 0, "phase_a_blocks": 0}
+            "bgeneral_eval_decode": 0, "btree_eval_prune": 0,
+            "bgeneral_eval_prune": 0, "phase_a_blocks": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
 _SMEM_LIMIT = 48 * 1024       # static dynamic-shared-memory budget per block
 _I32_MAX = (1 << 31) - 1
+_I32_MIN = -(1 << 31)
 CYC_CAP_HARD = 24             # phase_a_blocks' cycle slots (config.CYC_CAP_DEFAULT)
 
 
@@ -232,11 +240,9 @@ def _launch_dpsub_decode(all_sets, eoff, loff, soff, seg0: int, i: int,
     return tuple(outs)
 
 
-def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
-                        emv_b, adj_b, nmax: int, nseg: int, chunk: int):
-    """Check the arguments, allocate (S, S_left, edge_in, qid, seg) and
-    launch ``rt_btree_eval_decode``."""
-    name = "btree_eval_decode"
+def _check_tree(name: str, all_sets, eoff, loff, soff, seg0: int, m_b,
+                emu_b, emv_b, adj_b, nmax: int, nseg: int, chunk: int):
+    """Check the arguments of the MPDP:Tree forms; return (bcap, emax)."""
     bcap = _check_stack(name, adj_b, nmax, 4, 1)
     _check_sets(name, all_sets)
     _check_vec(name, "eoff", eoff, (bcap + 1,))
@@ -251,6 +257,16 @@ def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
     _check_int32(name, seg0=seg0, nseg=nseg, chunk=chunk)
     if nseg < 1:
         raise ValueError(f"{name}: nseg = {nseg} must be positive")
+    return bcap, emax
+
+
+def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
+                        emv_b, adj_b, nmax: int, nseg: int, chunk: int):
+    """Check the arguments, allocate (S, S_left, edge_in, qid, seg) and
+    launch ``rt_btree_eval_decode``."""
+    name = "btree_eval_decode"
+    bcap, emax = _check_tree(name, all_sets, eoff, loff, soff, seg0, m_b,
+                             emu_b, emv_b, adj_b, nmax, nseg, chunk)
     outs = [torch.empty(chunk, dtype=torch.int32, device=adj_b.device)
             for _ in range(5)]
     if chunk:
@@ -262,11 +278,10 @@ def _launch_tree_decode(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
     return tuple(outs)
 
 
-def _launch_general_decode(pairs, n_pairs: int, lane_count: int, adj_b,
-                           nmax: int, chunk: int):
-    """Check the arguments, allocate (S, S_left, enum_ok, ccp, qid, p) and
-    launch ``rt_bgeneral_eval_decode``."""
-    name = "bgeneral_eval_decode"
+def _check_general(name: str, pairs, n_pairs: int, lane_count: int, adj_b,
+                   nmax: int, chunk: int):
+    """Check the arguments of the MPDP-general forms; return (bcap,
+    pcap)."""
     bcap = _check_stack(name, adj_b, nmax, 0)
     if bcap > 1 and nmax > 16:
         raise ValueError(f"{name}: nmax = {nmax} with bcap = {bcap}: a stack "
@@ -282,6 +297,16 @@ def _launch_general_decode(pairs, n_pairs: int, lane_count: int, adj_b,
     if not 0 <= lane_count <= chunk:
         raise ValueError(f"{name}: lane_count = {lane_count} is outside "
                          f"[0, {chunk}]")
+    return bcap, pcap
+
+
+def _launch_general_decode(pairs, n_pairs: int, lane_count: int, adj_b,
+                           nmax: int, chunk: int):
+    """Check the arguments, allocate (S, S_left, enum_ok, ccp, qid, p) and
+    launch ``rt_bgeneral_eval_decode``."""
+    name = "bgeneral_eval_decode"
+    bcap, pcap = _check_general(name, pairs, n_pairs, lane_count, adj_b, nmax,
+                                chunk)
     outs = [torch.empty(chunk, dtype=torch.int32, device=adj_b.device)
             for _ in range(6)]
     if chunk:
@@ -289,6 +314,62 @@ def _launch_general_decode(pairs, n_pairs: int, lane_count: int, adj_b,
              adj_b.data_ptr(), *[o.data_ptr() for o in outs], chunk, bcap,
              nmax)
     return tuple(outs)
+
+
+def _check_memo(name: str, memo_cost, memo_rows) -> int:
+    """Check the memo tables the fused forms gather from; return their
+    size."""
+    for key, t in (("memo_cost", memo_cost), ("memo_rows", memo_rows)):
+        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous() \
+                or t.shape != memo_cost.shape \
+                or not 1 <= t.numel() <= _I32_MAX:
+            raise ValueError(f"{name}: {key} must be contiguous "
+                             f"float32[size], 0 < size < 2^31, as long as "
+                             f"memo_cost, got {t.dtype}{tuple(t.shape)}")
+    return memo_cost.numel()
+
+
+def _pruned_buffer(nseg: int, bcap: int, device) -> torch.Tensor:
+    """The fused forms' output, zeroed: int64 keys[nseg], then int32
+    counts[2 * bcap] (two to an int64)."""
+    return torch.zeros(nseg + bcap, dtype=torch.int64, device=device)
+
+
+def _launch_tree_prune(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
+                       emv_b, adj_b, memo_cost, memo_rows, nmax: int,
+                       nseg: int, chunk: int):
+    """Check the arguments, allocate the zeroed buffer and launch
+    ``rt_btree_eval_prune``."""
+    name = "btree_eval_prune"
+    bcap, emax = _check_tree(name, all_sets, eoff, loff, soff, seg0, m_b,
+                             emu_b, emv_b, adj_b, nmax, nseg, chunk)
+    size = _check_memo(name, memo_cost, memo_rows)
+    out = _pruned_buffer(nseg, bcap, adj_b.device)
+    if chunk:
+        _run(name, adj_b.device, all_sets.data_ptr(), all_sets.numel(),
+             eoff.data_ptr(), loff.data_ptr(), soff.data_ptr(), seg0,
+             m_b.data_ptr(), emu_b.data_ptr(), emv_b.data_ptr(), emax,
+             adj_b.data_ptr(), memo_cost.data_ptr(), memo_rows.data_ptr(),
+             size, out.data_ptr(), out.data_ptr() + 8 * nseg, chunk, bcap,
+             nmax, nseg)
+    return out
+
+
+def _launch_general_prune(pairs, n_pairs: int, lane_count: int, adj_b,
+                          memo_cost, memo_rows, nmax: int, chunk: int):
+    """Check the arguments, allocate the zeroed buffer and launch
+    ``rt_bgeneral_eval_prune``."""
+    name = "bgeneral_eval_prune"
+    bcap, pcap = _check_general(name, pairs, n_pairs, lane_count, adj_b, nmax,
+                                chunk)
+    size = _check_memo(name, memo_cost, memo_rows)
+    out = _pruned_buffer(pcap, bcap, adj_b.device)
+    if chunk:
+        _run(name, adj_b.device, pairs.data_ptr(), pcap, n_pairs, lane_count,
+             adj_b.data_ptr(), memo_cost.data_ptr(), memo_rows.data_ptr(),
+             size, out.data_ptr(), out.data_ptr() + 8 * pcap, chunk, bcap,
+             nmax)
+    return out
 
 
 def _launch_phase_a(S, adj, eu_idx, ev_idx, edge_live, nmax: int,
@@ -474,6 +555,61 @@ def bgeneral_eval_decode(pairs, n_pairs: int, lane_count: int, adj_b,
                                             nmax, chunk)
     return _launch_general_decode(pairs, n_pairs, lane_count, adj_b, nmax,
                                   chunk)
+
+
+# -- the fused evaluate epilogue -------------------------------------------
+
+def btree_eval_prune(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
+                     emv_b, adj_b, memo_cost, memo_rows, nmax: int, nseg: int,
+                     chunk: int):
+    """The ``chunk`` lanes of ``btree_eval_decode``, costed and pruned ->
+    the int64[nseg + bcap] buffer ``unpack_pruned`` reads: per segment the
+    cheapest split (ties to the larger left bitmap, a lane of ``INF`` cost
+    offering left 0, an empty segment ``INF`` and ``INT32_MIN``), per query
+    its edge_in lanes, twice (every in-set edge is a ccp pair).  A lane's
+    split costs ``(cl + cr) + cost.join_cost(rl, rr, rows_S)`` on
+    ``memo_cost``/``memo_rows`` (float32[size]) at ``(q << nmax) | x``,
+    clamped into them; ``INF`` where edge_in is 0.  On the CPU: the
+    decode form, then the chunk bodies' torch epilogue
+    (``ref.tree_epilogue``)."""
+    if _on_cpu("btree_eval_prune", (all_sets, eoff, loff, soff, m_b, emu_b,
+                                    emv_b, memo_cost, memo_rows), adj_b):
+        return ref.tree_epilogue(
+            btree_eval_decode(all_sets, eoff, loff, soff, seg0, m_b, emu_b,
+                              emv_b, adj_b, nmax, nseg, chunk),
+            adj_b, memo_cost, memo_rows, nmax, nseg)
+    return _launch_tree_prune(all_sets, eoff, loff, soff, seg0, m_b, emu_b,
+                              emv_b, adj_b, memo_cost, memo_rows, nmax, nseg,
+                              chunk)
+
+
+def bgeneral_eval_prune(pairs, n_pairs: int, lane_count: int, adj_b,
+                        memo_cost, memo_rows, nmax: int, chunk: int):
+    """The ``chunk`` lanes of ``bgeneral_eval_decode``, costed and pruned
+    -> the int64[pcap + bcap] buffer ``unpack_pruned`` reads: one segment a
+    pair of the table, as for ``btree_eval_prune``, and per query its
+    enum_ok and its ccp lanes; a lane's split is ``INF`` where ccp is 0."""
+    if _on_cpu("bgeneral_eval_prune", (pairs, memo_cost, memo_rows), adj_b):
+        return ref.general_epilogue(
+            bgeneral_eval_decode(pairs, n_pairs, lane_count, adj_b, nmax,
+                                 chunk),
+            pairs.shape[1], adj_b, memo_cost, memo_rows, nmax)
+    return _launch_general_prune(pairs, n_pairs, lane_count, adj_b, memo_cost,
+                                 memo_rows, nmax, chunk)
+
+
+def unpack_pruned(buf: np.ndarray, bcap: int):
+    """A fused form's buffer, fetched to the host (int64[nseg + bcap]) ->
+    (seg_cost float32[nseg], seg_left int32[nseg], enumerated int32[bcap],
+    ccp int32[bcap]).  Key k holds ``0x7F800000 - bits(cost)`` in its high
+    word and ``left ^ INT32_MIN`` in its low one (little-endian: the low
+    word first); the key 0 of an empty segment reads ``INF`` and
+    ``INT32_MIN``."""
+    n = len(buf) - bcap
+    w = buf.view(np.int32)
+    seg_cost = (np.int32(0x7F800000) - w[1: 2 * n: 2]).view(np.float32)
+    seg_left = w[0: 2 * n: 2] ^ np.int32(_I32_MIN)
+    return seg_cost, seg_left, w[2 * n: 2 * n + bcap], w[2 * n + bcap:]
 
 
 # -- phase A of MPDP-general ---------------------------------------------------

@@ -9,6 +9,11 @@ the six forms that build their own lanes (``connectivity_span``,
 of its chunk bodies
 followed by the lane kernel, and ``phase_a_blocks`` the reference's
 ``blocks.blocks_chunk`` (phase A of MPDP-general) with its compaction.
+``btree_eval_prune`` and ``bgeneral_eval_prune`` are the last two decodes
+followed by the eager epilogue that the chunk bodies of ``core`` run on
+typed and DPSUB chunks (``lane_cost``, ``prune``, ``segment_sum``, kept
+here), whose costs agree with the reference's to a relative 1e-5
+(``core.cost``).
 ``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each kernel
 against these on the card.
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core import bitset as bs
+from ..core import cost as cm
 from ..core import unrank as ur
 
 
@@ -208,6 +214,116 @@ def bgeneral_eval_decode_ref(pairs, n_pairs: int, lane_count: int, adj_b,
     ccp = enum_ok & (_ccp(lb, rb, adjq) != 0)
     S_left = bs.grow_rows(lb, S & ~rb, adjq)
     return (S, S_left, enum_ok.to(torch.int32), ccp.to(torch.int32), qid, p)
+
+
+# -- the chunk bodies' eager epilogue -----------------------------------------
+# ``core.batch`` and ``core.engine`` run these after the decode forms (typed
+# and DPSUB chunks); the fused forms' plain versions run them after the
+# last two decodes.
+
+_I32_MIN = -(1 << 31)
+
+
+def take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``buf[idx]`` with the reference's gather semantics (indices clamped)."""
+    return buf[idx.clamp(0, buf.shape[0] - 1)]
+
+
+def memo_reads(S, S_left, S_right, qid, nmax: int, memo_cost, memo_rows):
+    """The lanes' memo reads at ``(qid << nmax) | x``, clamped: the costs
+    of S_left and S_right, then the rows of S_left, S_right and S."""
+    mbase = qid << nmax
+    return (take(memo_cost, mbase | S_left), take(memo_cost, mbase | S_right),
+            take(memo_rows, mbase | S_left), take(memo_rows, mbase | S_right),
+            take(memo_rows, mbase | S))
+
+
+def lane_cost(S, S_left, S_right, ccp, qid, nmax: int, memo_cost, memo_rows):
+    """Candidate cost of each lane's inner-join (S_left, S_right) split,
+    ``(cl + cr) + cost.join_cost(rl, rr, rows_S)`` on ``memo_reads``
+    (``INF`` off the ccp mask), and the left bitmap the prune keeps."""
+    cl, cr, rl, rr, rows_S = memo_reads(S, S_left, S_right, qid, nmax,
+                                        memo_cost, memo_rows)
+    return (torch.where(ccp, cl + cr + cm.join_cost(rl, rr, rows_S),
+                        float("inf")), S_left)
+
+
+def prune(seg: torch.Tensor, cand_cost: torch.Tensor, cand_left: torch.Tensor,
+          nseg: int):
+    """Two-pass in-chunk prune: segment-min cost then max-left among ties;
+    an empty segment keeps the reference's identities (``INF``,
+    ``INT32_MIN``) and a lane of ``INF`` cost offers left 0."""
+    seg = seg.long()
+    seg_cost = torch.full((nseg,), float("inf"), dtype=torch.float32,
+                          device=cand_cost.device)
+    seg_cost.scatter_reduce_(0, seg, cand_cost, "amin")
+    is_best = cand_cost == seg_cost[seg]
+    left_cand = torch.where(is_best & torch.isfinite(cand_cost), cand_left, 0)
+    seg_left = torch.full((nseg,), _I32_MIN, dtype=torch.int32,
+                          device=cand_left.device)
+    seg_left.scatter_reduce_(0, seg, left_cand, "amax")
+    return seg_cost, seg_left
+
+
+def segment_sum(x: torch.Tensor, qid: torch.Tensor, bcap: int) -> torch.Tensor:
+    """Per query row the sum of its lanes' ``x``, int32[bcap]."""
+    return torch.zeros(bcap, dtype=torch.int32, device=x.device).index_add_(
+        0, qid, x.to(torch.int32))
+
+
+def pack_pruned(seg_cost, seg_left, enum_q, ccp_q):
+    """The fused forms' buffer from the eager epilogue's outputs: int64
+    keys ``(0x7F800000 - bits(cost)) << 32 | (left ^ INT32_MIN)`` a
+    segment, then the int32 counts, enumerated then ccp, two to an int64
+    (``ops.unpack_pruned`` reads it back)."""
+    hi = 0x7F800000 - seg_cost.view(torch.int32)
+    keys = torch.stack([seg_left ^ _I32_MIN, hi], dim=1).view(torch.int64)
+    return torch.cat([keys.reshape(-1),
+                      torch.cat([enum_q, ccp_q]).view(torch.int64)])
+
+
+def tree_epilogue(lanes, adj_b, memo_cost, memo_rows, nmax: int,
+                  nseg: int):
+    """The eager epilogue (``lane_cost``, ``prune``, ``segment_sum``) on
+    the lanes of ``btree_eval_decode``, packed by ``pack_pruned``."""
+    S, S_left, in_i, qid, seg = lanes
+    edge_in = in_i != 0
+    cand, lbx = lane_cost(S, S_left, S & ~S_left, edge_in, qid, nmax,
+                          memo_cost, memo_rows)
+    ev_q = segment_sum(edge_in, qid, adj_b.shape[0])
+    return pack_pruned(*prune(seg, cand, lbx, nseg), ev_q, ev_q)
+
+
+def general_epilogue(lanes, pcap: int, adj_b, memo_cost, memo_rows,
+                     nmax: int):
+    """The eager epilogue on the lanes of ``bgeneral_eval_decode``, one
+    segment a pair of the table, packed by ``pack_pruned``."""
+    S, S_left, enum_i, ccp_i, qid, p = lanes
+    cand, lbx = lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid, nmax,
+                          memo_cost, memo_rows)
+    bcap = adj_b.shape[0]
+    return pack_pruned(*prune(p, cand, lbx, pcap),
+                       segment_sum(enum_i, qid, bcap),
+                       segment_sum(ccp_i, qid, bcap))
+
+
+def btree_eval_prune_ref(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
+                         emv_b, adj_b, memo_cost, memo_rows, nmax: int,
+                         nseg: int, chunk: int):
+    """``btree_eval_decode_ref``'s lanes through ``tree_epilogue``."""
+    return tree_epilogue(
+        btree_eval_decode_ref(all_sets, eoff, loff, soff, seg0, m_b, emu_b,
+                              emv_b, adj_b, nmax, nseg, chunk),
+        adj_b, memo_cost, memo_rows, nmax, nseg)
+
+
+def bgeneral_eval_prune_ref(pairs, n_pairs: int, lane_count: int, adj_b,
+                            memo_cost, memo_rows, nmax: int, chunk: int):
+    """``bgeneral_eval_decode_ref``'s lanes through ``general_epilogue``."""
+    return general_epilogue(
+        bgeneral_eval_decode_ref(pairs, n_pairs, lane_count, adj_b, nmax,
+                                 chunk),
+        pairs.shape[1], adj_b, memo_cost, memo_rows, nmax)
 
 
 # -- phase A of MPDP-general: one query's (nmax,) table and edge arrays -------

@@ -750,14 +750,17 @@ class PruneLanes:
 
 
 def _hold_chunk(got, want, label, lanes=None, ties=None):
-    """(seg_cost, seg_left, ev, ccp): integers exact, costs within a
+    """A chunk body's result, read back as the level loops read it
+    (``engine._fetch``: a fused chunk's ``Pruned`` buffer or the torch
+    epilogue's four tensors), against the reference's (seg_cost, seg_left,
+    ev, ccp): integers exact, costs within a
     relative 1e-5; returns the largest ULP distance of the costs.  Given
     the port's pruned ``lanes`` (``PruneLanes.last``), a segment may keep
     another left bitmap than the reference only in a tie broken by
     rounding: the reference's left is one of the port's own candidates of
     the segment, at a cost within 1e-5 of the port's minimum (counted in
     ``ties``)."""
-    sc, sl, ev, cc = (np.asarray(x).reshape(-1) for x in got)
+    sc, sl, ev, cc = (np.asarray(x).reshape(-1) for x in teng._fetch(got))
     wsc, wsl, wev, wcc = (np.asarray(x).reshape(-1) for x in want)
     for a, b in ((ev, wev), (cc, wcc)):
         np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=label)
