@@ -272,7 +272,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch.core import batch, dpccp, engine, faults, service  # noqa: E402
-from repro_torch.core import blocks, lattice, shard  # noqa: E402
+from repro_torch.core import blocks, chunks, lattice, shard  # noqa: E402
 from repro_torch.core import bitset as bs  # noqa: E402
 from repro_torch.core import unrank as ur  # noqa: E402
 from repro_torch.core.config import MAX_FLIGHT, OptimizerConfig  # noqa: E402
@@ -594,7 +594,7 @@ def dpsub_decode_inputs(graphs, bcap: int, nmax: int, chunk: int, seed: int,
         loff[B - 1] = len(all_sets) - ns[B - 1] // 2 + 1
         lane0 = int(rng.integers(max(0, eoff[-1] - max(chunk // 2, 1)),
                                  eoff[-1]))
-    epad = batch._offset_rows(eoff, np.array([lane0]), bcap)[0]
+    epad = chunks._offset_rows(eoff, np.array([lane0]), bcap)[0]
     p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0), B - 1)
     seg0 = int(soff[p0] + ((lane0 - eoff[p0]) >> i)) + 3 * head
     card = [torch.from_numpy(a).to(DEV) for a in (all_sets, epad, loff, spad,
@@ -625,7 +625,7 @@ def solo_tree_inputs(g, nmax: int, chunk: int, seed: int):
 
 def pair_inputs(ns, adj, nmax: int, chunk: int, seed: int, clamp: bool):
     """bgeneral_eval_decode arguments laid out as the engines' general
-    dispatch lays them out (``engine._pair_table``) over queries of ``ns``
+    dispatch lays them out (``chunks._pair_table``) over queries of ``ns``
     relations: per query up to 600 random (set, block) pairs sorted by set
     (blocks subsets of their set with two members or more), the chunk at a
     random lane of the level (for chunk 32767 in the level's last half
@@ -652,7 +652,7 @@ def pair_inputs(ns, adj, nmax: int, chunk: int, seed: int, clamp: bool):
     lane1 = min(lane0 + chunk, int(offs[-1]))
     p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
     p1 = int(np.searchsorted(offs, lane1, side="left"))
-    pairs = engine._pair_table(ps, pb, pq, offs, p0, p1, lane0)
+    pairs = chunks._pair_table(ps, pb, pq, offs, p0, p1, lane0)
     n_pairs = p1 - p0
     if clamp:
         pairs[3, :n_pairs] += np.int32(rng.integers(1, chunk // 2 + 2))
@@ -1120,9 +1120,9 @@ def time_fused(name, args, row: dict, at: str) -> None:
                              f"{at}")
     measure(name, args, row, prune_work(name, args))
     row["epilogue_ms"] = event_ms(lambda: torch_epilogue(name, args), 20)
-    row["host_us"] = host_us(lambda: engine._fetch(engine.Pruned(
+    row["host_us"] = host_us(lambda: chunks._fetch(chunks.Pruned(
         call(name, args)[0], bcap)))
-    row["epilogue_host_us"] = host_us(lambda: engine._fetch(engine.Pruned(
+    row["epilogue_host_us"] = host_us(lambda: chunks._fetch(chunks.Pruned(
         torch_epilogue(name, args), bcap)))
     log_row(name, row, at)
     log(f"kernel {name}: the decode kernel and torch epilogue it replaced "
@@ -1497,7 +1497,7 @@ def run_stream(label, graphs, algorithm, n_cpu):
 
 class ChunkCalls:
     """Counts, while it is entered, the calls on card tensors of the chunk
-    bodies that launch ``bgeneral_eval_decode`` (the MPDP-general ones),
+    layer's bodies (``chunks._beval_*``) that launch ``bgeneral_eval_decode`` (the MPDP-general ones),
     ``btree_eval_decode`` (the MPDP:Tree ones) and ``bccp_eval_decode``
     (the batched DPSUB one), as the batched, lattice and solo engines
     call them; an MPDP-general or MPDP:Tree call without conflict arrays
@@ -1506,14 +1506,9 @@ class ChunkCalls:
     ``blocks.np_pairs_for_sets`` on card tensors that take its sparse path
     (cyclomatic number <= cyc_cap) with sets; the CPU runs that the checks
     make are not counted."""
-    BODIES = {"bgeneral_eval_decode": ((batch, "_beval_general_chunk"),
-                                       (lattice, "_beval_general_chunk"),
-                                       (engine, "_eval_general_chunk")),
-              "btree_eval_decode": ((batch, "_beval_tree_chunk"),
-                                    (lattice, "_beval_tree_chunk"),
-                                    (engine, "_eval_tree_chunk")),
-              "bccp_eval_decode": ((batch, "_beval_dpsub_chunk"),
-                                   (lattice, "_beval_dpsub_chunk"))}
+    BODIES = {"bgeneral_eval_decode": ((chunks, "_beval_general_chunk"),),
+              "btree_eval_decode": ((chunks, "_beval_tree_chunk"),),
+              "bccp_eval_decode": ((chunks, "_beval_dpsub_chunk"),)}
 
     def __init__(self):
         self.count = {k: 0 for k in (*self.BODIES, *FUSED_FORMS)}

@@ -16,13 +16,13 @@ MPDP-general (block prefix-sum over phase-A (set, block) pairs); all three
 enumerate the same CCP candidates.  The per-lane bit-twiddling goes
 through ``kernels.ops`` — the CUDA kernels on the card, their plain
 PyTorch versions for CPU tensors; the filter's unrank
-(``bconnectivity_span``, one launch per level) and the DPSUB, MPDP:Tree
-and MPDP-general lane decodes (``bccp_eval_decode``,
-``btree_eval_decode``, ``bgeneral_eval_decode``) run inside the kernels;
-the MPDP:Tree and MPDP-general chunks of an inner-join flight run their
-cost, prune and counts there as well (``btree_eval_prune``,
-``bgeneral_eval_prune``), one launch and one copy a chunk.  The memo
-tensors are updated in place.
+(``bconnectivity_span``, one launch per level) runs inside its kernel,
+and the evaluate chunks run the chunk layer's bodies
+(``chunks._beval_dpsub_chunk``, ``_beval_tree_chunk``,
+``_beval_general_chunk``: the lane decodes, and for an inner-join
+flight's MPDP:Tree and MPDP-general chunks the cost, prune and counts
+too, in the kernels), read back and folded by ``chunks.ChunkResults``.
+The memo tensors are updated in place.
 
 The level loop (``_LevelLoop``) is the reference's: the synchronous driver,
 or with ``pipeline=True`` the pipelined one, which dispatches level i's
@@ -46,15 +46,11 @@ Typed queries (a LEFT, FULL, SEMI or ANTI edge) fly apart from inner ones
 (``bucket_pending`` keys on ``typed``); a typed flight carries the stacked
 ``(bcap, emax)`` conflict arrays, and its chunk bodies cost both operand
 orientations of each lane under the conflict mask
-(``engine._typed_lane_cost``).  Inner-only flights carry none and run
+(``chunks._typed_lane_cost``).  Inner-only flights carry none and run
 exactly as before.
 
-Where the reference's array semantics and torch differ, this module
-spells them out: out-of-range gather indices are clamped
-(``kernels.ref.take``), ``mode="drop"`` scatters drop their padding
-explicitly, ``segment_min``/``segment_max`` start from the reference's
-empty-segment identities (``kernels.ref.prune``) and ``searchsorted(side="right")`` is
-``right=True``.
+``mode="drop"`` scatters drop their padding explicitly
+(``chunks._scatter_into``).
 
 ``optimize_many`` is the public entry point.  It consults an optional
 ``plancache.PlanCache`` first, batches queries with ``nmax_bucket(n) <=
@@ -73,6 +69,7 @@ instead of the solo engine.  The stream-admission steps
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import deque
 from math import comb
@@ -82,19 +79,19 @@ import torch
 
 from . import bitset as bs
 from . import blocks as bl
+from . import chunks as _ch
 from . import cost as cm
 from . import engine as _eng
 from . import faults
 from . import telemetry as _telemetry
 from . import unrank as ur
-from ..kernels import ops, ref
-from ..kernels.ref import memo_reads, segment_sum as _segment_sum
+from ..kernels import ops
+from .chunks import (_CLIP, INF, ChunkResults, _LevelHooks, _cap,
+                     _offset_rows, _pair_offsets, _pair_window,
+                     _scatter_into)
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
-from .engine import (_CLIP, INF, SPAN, Pruned, _cap, _fetch, _fused,
-                     _merge_best, _merge_scattered, _pair_table, _prune,
-                     _scatter_into, _typed_lane_cost, _use_pipeline,
-                     resolve_device)
+from .engine import SPAN, resolve_device
 from .joingraph import JoinGraph, typed_edge_arrays
 from .plancache import canonical_signature
 from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
@@ -106,118 +103,6 @@ _I32 = torch.int32
 
 def _bcap(b: int) -> int:
     return _cap(b, 4)
-
-
-def _offset_rows(off: np.ndarray, lane0s: np.ndarray, bcap: int) -> np.ndarray:
-    """``int32[len(lane0s), bcap+1]``: row j holds the chunk-local offsets
-    ``off - lane0s[j]`` of the chunk at lane ``lane0s[j]`` (``off`` the
-    level's int64 per-query prefix, B + 1 entries), clipped to ``+-_CLIP``
-    and padded with its last value; one copy to the device serves a
-    level."""
-    B = len(off) - 1
-    el = np.clip(off[None, :] - lane0s[:, None], -_CLIP, _CLIP)
-    rows = np.empty((len(lane0s), bcap + 1), np.int32)
-    rows[:, : B + 1] = el
-    rows[:, B + 1:] = el[:, B: B + 1]
-    return rows
-
-
-# ================================================================= kernels ==
-# Chunk bodies: every tensor lives on the engine's device.  ``targs`` are a
-# typed flight's stacked (bcap, emax) conflict arrays (kind, operand masks,
-# TES bitmaps), empty for an inner-only one.
-
-def _lane_cost(S, S_left, S_right, ccp, qid, nmax: int, memo_cost, memo_rows,
-               targs=()):
-    """Candidate cost of each lane's (S_left, S_right) split (INF off-CCP)
-    and the left bitmap the prune keeps; a typed flight costs both operand
-    orientations under the conflict mask of the lane's query; an
-    inner-only one is ``kernels.ref.lane_cost``."""
-    if not targs:
-        return ref.lane_cost(S, S_left, S_right, ccp, qid, nmax, memo_cost,
-                             memo_rows)
-    cl, cr, rl, rr, rows_S = memo_reads(S, S_left, S_right, qid, nmax,
-                                        memo_cost, memo_rows)
-    return _typed_lane_cost(S_left, S_right, rows_S, ccp, cl, cr, rl, rr,
-                            *[a[qid] for a in targs])
-
-
-def _beval_dpsub_chunk(all_sets, eoff, loff, soff, seg0, i, adj_b, memo_cost,
-                       memo_rows, targs=(), *, nmax: int, chunk: int,
-                       nseg: int, bcap: int):
-    """Batched DPSUB evaluate: the ``bccp_eval_decode`` kernel decodes each
-    lane's (query, set, subset), splits S and tests the pair; the cost, the
-    prune and the segment sums stay here.
-
-    eoff: i32[bcap+1] chunk-local per-query lane offsets (prefix of ns_q<<i,
-                      ``eoff[0] <= 0``).
-    loff: i32[bcap]   per-query base into all_sets (region + level offset).
-    soff: i32[bcap]   per-query global set-index prefix (segment ids).
-    The evaluated lanes of query q are its live lanes, ``[eoff[q],
-    eoff[q+1])`` inside the chunk.
-    """
-    lb, rb, ccp_i, qid, seg = ops.bccp_eval_decode(
-        all_sets, eoff, loff, soff, seg0, i, adj_b, nmax, nseg, chunk)
-    ccp = ccp_i != 0
-    cand, lbx = _lane_cost(lb | rb, lb, rb, ccp, qid, nmax, memo_cost,
-                           memo_rows, targs)
-    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
-    ev_q = eoff[1:].clamp(0, chunk) - eoff[:-1].clamp(0, chunk)
-    return seg_cost, seg_left, ev_q, _segment_sum(ccp, qid, bcap)
-
-
-def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
-                      emv_b, memo_cost, memo_rows, targs=(), *, nmax: int,
-                      chunk: int, nseg: int, bcap: int):
-    """Batched MPDP:Tree evaluate: the ``btree_eval_decode`` kernel decodes
-    each lane's (query, set, edge) and splits S; the cost and the prune
-    stay here.  An inner-join flight runs them in the kernel as well: one
-    ``btree_eval_prune`` launch (``Pruned``).
-
-    m_b: i32[bcap] per-query edge count (lane-minor dimension);
-    emu_b/emv_b: i32[bcap, emax] per-query edge endpoint bitmaps (0 pad).
-    Every enumerated in-set edge IS a CCP pair (Theorem 3).
-    """
-    if _fused(targs):
-        return Pruned(ops.btree_eval_prune(
-            all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b,
-            memo_cost, memo_rows, nmax, nseg, chunk), bcap)
-    S, S_left, in_i, qid, seg = ops.btree_eval_decode(
-        all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax,
-        nseg, chunk)
-    edge_in = in_i != 0
-    cand, lbx = _lane_cost(S, S_left, S & ~S_left, edge_in, qid, nmax,
-                           memo_cost, memo_rows, targs)
-    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
-    ev_q = _segment_sum(edge_in, qid, bcap)              # Theorem 3: all CCP
-    return seg_cost, seg_left, ev_q, ev_q.clone()
-
-
-def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
-                         memo_rows, targs=(), *, nmax: int, chunk: int,
-                         bcap: int):
-    """Batched MPDP-general evaluate: the ``bgeneral_eval_decode`` kernel
-    decodes each lane's (query, set, block, rank) and splits S; the cost
-    and the prune stay here.  An inner-join flight runs them in the kernel
-    as well: one ``bgeneral_eval_prune`` launch (``Pruned``).
-
-    Phase A compacted every set's blocks into sorted (set, block) pairs;
-    the fused lane space is the block prefix-sum over all queries' pairs,
-    and ``pairs`` is the chunk's ``int32[4, pcap]`` (set, block, query,
-    chunk-local lane offset) table (``engine._pair_table``), one segment
-    per pair.
-    """
-    if _fused(targs):
-        return Pruned(ops.bgeneral_eval_prune(
-            pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows, nmax,
-            chunk), bcap)
-    S, S_left, enum_i, ccp_i, qid, p = ops.bgeneral_eval_decode(
-        pairs, n_pairs, lane_count, adj_b, nmax, chunk)
-    cand, lbx = _lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid, nmax,
-                           memo_cost, memo_rows, targs)
-    seg_cost, seg_left = _prune(p, cand, lbx, pairs.shape[1])
-    return (seg_cost, seg_left, _segment_sum(enum_i, qid, bcap),
-            _segment_sum(ccp_i, qid, bcap))
 
 
 # ============================================================== host driver ==
@@ -263,38 +148,26 @@ class _Streams:
             main.wait_stream(side)
 
 
-class _LevelLoop:
+class _LevelLoop(_LevelHooks):
     """The level-loop drivers of the batched engine: the synchronous loop
     and the reference's pipelined rotation (ref ``batch.py:343-401``),
     over the engine's per-level hooks (``_filter_dispatch`` /
     ``_filter_collect``, ``_register_level``, ``_pairs_level``,
-    ``_eval[_general]_dispatch`` / ``_eval[_general]_finalize``).
+    ``_eval[_general]_dispatch`` / ``_eval_finalize``).
 
-    Both drivers honour the engine's ``deadline_s``: ``faults.now`` is
-    read once when ``run_levels`` starts and once at the top of every
-    level, as in the reference, so a fake clock expires both packages at
-    the same level."""
+    Both drivers honour the engine's ``deadline_s`` (``_LevelHooks``):
+    ``faults.now`` is read once when ``run_levels`` starts and once at the
+    top of every level, as in the reference, so a fake clock expires both
+    packages at the same level."""
 
-    def _arm_deadline(self) -> None:
-        self._deadline_at = (None if self.deadline_s is None
-                             else faults.now() + self.deadline_s)
-
-    def _count_chunk(self) -> None:
-        """One filter span or evaluate chunk dispatched (the recorder's
-        ``engine.chunks`` counter beside ``chunks_dispatched``)."""
-        self.chunks_dispatched += 1
-        _telemetry.count("engine.chunks")
-
-    def _expired(self, i: int, max_n: int) -> bool:
-        """One check per DP level; with ``deadline_s=None`` a single
-        attribute test."""
-        if self._deadline_at is None:
-            return False
-        if faults.now() < self._deadline_at:
-            return False
-        self.degraded = {"reason": "deadline", "deadline_s": self.deadline_s,
-                         "levels_done": i - 1, "levels_total": max_n}
-        return True
+    @staticmethod
+    def _use_pipeline() -> bool:
+        """``REPRO_PIPELINE=1`` makes the engines run pipelined when the
+        caller passes ``pipeline=None`` (the reference's switch, by the
+        same name): level i's evaluate runs on the device while the host
+        compacts, rows-costs and block-decomposes level i+1.  Results are
+        bit-identical to the synchronous default."""
+        return os.environ.get("REPRO_PIPELINE", "0") == "1"
 
     def run_levels(self) -> None:
         """Run the level-synchronous DP; the memo stays on the device
@@ -315,9 +188,9 @@ class _LevelLoop:
                 if general:
                     ctx = self._eval_general_dispatch(
                         i, sets, self._pairs_level(sets))
-                    self._eval_general_finalize(i, sets, ctx)
                 else:
-                    self._eval_finalize(i, sets, self._eval_dispatch(i, sets))
+                    ctx = self._eval_dispatch(i, sets)
+                self._eval_finalize(i, sets, ctx)
         self._wall += time.perf_counter() - t0
 
     def _run_levels_pipelined(self, max_n: int, general: bool) -> None:
@@ -374,10 +247,7 @@ class _LevelLoop:
                         self._register_level(i + 1, nxt)
                         if general:
                             nxt_pairs = self._pairs_level(nxt)
-                if general:
-                    self._eval_general_finalize(i, sets, ctx)
-                else:
-                    self._eval_finalize(i, sets, ctx)
+                self._eval_finalize(i, sets, ctx)
                 st.join()               # level i+1's evaluate reads its rows
                 sets, pairs = nxt, nxt_pairs
         finally:
@@ -443,7 +313,8 @@ class BatchEngine(_LevelLoop):
         self.graphs = graphs
         self.algorithm = algorithm
         self.cyc_cap = cyc_cap
-        self.pipeline = _use_pipeline() if pipeline is None else bool(pipeline)
+        self.pipeline = (self._use_pipeline() if pipeline is None
+                         else bool(pipeline))
         self.pend_window = (PEND_WINDOW if pend_window is None
                             else int(pend_window))
         self.deadline_s = deadline_s
@@ -651,12 +522,12 @@ class BatchEngine(_LevelLoop):
                     self._eval_step(ctx, i, j)
                     faults.fire("chunk")
                     self._count_chunk()
-                    self._eval_drain(ctx, self.pend_window)
+                    ctx["acc"].drain(self.pend_window)
         return ctx
 
     def _eval_begin(self, i: int, sets_by_q: list[np.ndarray]):
         """Level i's evaluate context (offset tables on the device, the
-        chunk grid, the best arrays), or None when the level has no lane."""
+        chunk grid, the accumulator), or None when the level has no lane."""
         ns = np.array([len(s) for s in sets_by_q], np.int64)
         if self.algorithm == "mpdp_tree":
             mult = np.array([g.m for g in self.graphs], np.int64)
@@ -677,11 +548,7 @@ class BatchEngine(_LevelLoop):
         spad[: self.B] = soff[: self.B]
         soff_d = self._dev(spad.astype(np.int32))
         lane0s = np.arange(0, total, self.chunk, dtype=np.int64)
-        return {"pend": deque(),
-                "best_cost": np.full(int(soff[-1]), INF, np.float32),
-                "best_left": np.zeros(int(soff[-1]), np.int32),
-                "ev": np.zeros(self.B, np.int64),
-                "ccp": np.zeros(self.B, np.int64),
+        return {"acc": ChunkResults(int(soff[-1]), self.B),
                 "eoff": eoff, "soff": soff, "mult": mult, "lane0s": lane0s,
                 "eoff_d": self._dev(_offset_rows(eoff, lane0s, self.bcap)),
                 "loff_d": loff_d, "soff_d": soff_d}
@@ -696,40 +563,29 @@ class BatchEngine(_LevelLoop):
         statics = dict(nmax=self.nmax, chunk=self.chunk, nseg=self.chunk + 2,
                        bcap=self.bcap)
         if self.algorithm == "mpdp_tree":
-            out = _beval_tree_chunk(
+            out = _ch._beval_tree_chunk(
                 self.all_sets, ctx["eoff_d"][j], ctx["loff_d"],
                 ctx["soff_d"], seg0, self.m_b, self.adj_b, self.emu_b,
                 self.emv_b, self.memo_cost, self.memo_rows, **self._tkw,
                 **statics)
         else:
-            out = _beval_dpsub_chunk(
+            out = _ch._beval_dpsub_chunk(
                 self.all_sets, ctx["eoff_d"][j], ctx["loff_d"],
                 ctx["soff_d"], seg0, i, self.adj_b, self.memo_cost,
                 self.memo_rows, **self._tkw, **statics)
-        ctx["pend"].append((seg0, out))
-
-    def _eval_drain(self, ctx: dict, limit: int) -> None:
-        """Fetch pending chunk results down to ``limit``, folding them into
-        the level's best arrays in chunk order."""
-        pend = ctx["pend"]
-        while len(pend) > limit:
-            seg0, out = pend.popleft()
-            sc, sl, ev_q, ccp_q = _fetch(out)
-            ctx["ev"] += ev_q[: self.B]
-            ctx["ccp"] += ccp_q[: self.B]
-            _merge_best(ctx["best_cost"], ctx["best_left"], seg0, sc, sl)
+        ctx["acc"].add(seg0, out)
 
     def _eval_finalize(self, i: int, sets_by_q: list[np.ndarray], ctx) -> None:
-        """Drain the level's remaining chunk results and commit the level's
-        best (cost, left) per set to the memo."""
+        """Drain the level's remaining chunk results (either lane space)
+        and commit the level's best (cost, left) per set to the memo."""
         if ctx is None:
             return
         with _telemetry.stage(self.timings, "evaluate"):
-            self._eval_drain(ctx, 0)
+            best_cost, best_left, ev, ccp = ctx["acc"].finish()
             for q in range(self.B):
-                self.counters[q].evaluated += int(ctx["ev"][q])
-                self.counters[q].ccp += int(ctx["ccp"][q])
-            self._commit_best(sets_by_q, ctx["best_cost"], ctx["best_left"])
+                self.counters[q].evaluated += int(ev[q])
+                self.counters[q].ccp += int(ccp[q])
+            self._commit_best(sets_by_q, best_cost, best_left)
 
     # ------------------------------------------------- MPDP-general phase --
     def _pairs_level(self, sets_by_q: list[np.ndarray]):
@@ -771,7 +627,7 @@ class BatchEngine(_LevelLoop):
                     self._eval_general_step(ctx, lane0)
                     faults.fire("chunk")
                     self._count_chunk()
-                    self._eval_general_drain(ctx, self.pend_window)
+                    ctx["acc"].drain(self.pend_window)
         return ctx
 
     def _eval_general_begin(self, sets_by_q: list[np.ndarray], pairs):
@@ -779,62 +635,20 @@ class BatchEngine(_LevelLoop):
         ps, pb, pq, pk = pairs
         if not len(ps):
             return None
-        lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
-        offs = np.zeros(len(ps) + 1, np.int64)
-        np.cumsum(lane_sz, out=offs[1:])
-        return {"pend": deque(), "pairs": pairs, "pk": pk, "offs": offs,
-                "total": int(offs[-1]),
-                "total_sets": sum(len(s) for s in sets_by_q),
-                "ev": np.zeros(self.B, np.int64),
-                "ccp": np.zeros(self.B, np.int64),
-                "k": [], "c": [], "l": []}
+        offs = _pair_offsets(pb)
+        return {"acc": ChunkResults(sum(len(s) for s in sets_by_q), self.B,
+                                    pk),
+                "pairs": pairs, "offs": offs, "total": int(offs[-1])}
 
     def _eval_general_step(self, ctx: dict, lane0: int) -> None:
         """Launch the level's MPDP-general chunk at lane ``lane0``."""
         ps, pb, pq, _ = ctx["pairs"]
-        offs = ctx["offs"]
         lane1 = min(lane0 + self.chunk, ctx["total"])
-        p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
-        p1 = int(np.searchsorted(offs, lane1, side="left"))
-        pairs = _pair_table(ps, pb, pq, offs, p0, p1, lane0)
-        out = _beval_general_chunk(
-            self._dev(pairs), p1 - p0, lane1 - lane0, self.adj_b,
+        p0, npair, pairs = _pair_window(ps, pb, pq, ctx["offs"], lane0, lane1)
+        ctx["acc"].add((p0, npair), _ch._beval_general_chunk(
+            self._dev(pairs), npair, lane1 - lane0, self.adj_b,
             self.memo_cost, self.memo_rows, nmax=self.nmax,
-            chunk=self.chunk, bcap=self.bcap, **self._tkw)
-        ctx["pend"].append((p0, p1 - p0, out))
-
-    def _eval_general_drain(self, ctx: dict, limit: int) -> None:
-        """Fetch pending pair chunks down to ``limit``, collecting finite
-        per-pair candidates for the scattered merge."""
-        pend, pk = ctx["pend"], ctx["pk"]
-        while len(pend) > limit:
-            p0, npair, out = pend.popleft()
-            sc, sl, ev_q, ccp_q = _fetch(out)
-            ctx["ev"] += ev_q[: self.B]
-            ctx["ccp"] += ccp_q[: self.B]
-            scn = sc[:npair]
-            fin = np.isfinite(scn)
-            ctx["k"].append(pk[p0: p0 + npair][fin])
-            ctx["c"].append(scn[fin])
-            ctx["l"].append(sl[:npair][fin])
-
-    def _eval_general_finalize(self, i: int, sets_by_q: list[np.ndarray],
-                               ctx) -> None:
-        if ctx is None:
-            return
-        with _telemetry.stage(self.timings, "evaluate"):
-            self._eval_general_drain(ctx, 0)
-            best_cost = np.full(ctx["total_sets"], INF, np.float32)
-            best_left = np.zeros(ctx["total_sets"], np.int32)
-            for q in range(self.B):
-                self.counters[q].evaluated += int(ctx["ev"][q])
-                self.counters[q].ccp += int(ctx["ccp"][q])
-            if ctx["k"]:
-                _merge_scattered(best_cost, best_left,
-                                 np.concatenate(ctx["k"]),
-                                 np.concatenate(ctx["c"]),
-                                 np.concatenate(ctx["l"]))
-            self._commit_best(sets_by_q, best_cost, best_left)
+            chunk=self.chunk, bcap=self.bcap, **self._tkw))
 
     # ------------------------------------------------------------ driver ---
     def collect(self) -> list[OptimizeResult]:

@@ -1,5 +1,4 @@
-"""Level-synchronous exact DP over one query (paper Alg. 5), and the helpers
-the batched engine shares.
+"""Level-synchronous exact DP over one query (paper Alg. 5).
 
 The port of ``repro.core.engine``.  The pipeline *unrank -> filter ->
 evaluate -> prune -> scatter* runs on the engine's torch device:
@@ -11,43 +10,33 @@ evaluate -> prune -> scatter* runs on the engine's torch device:
             previous level's sets by one neighbour instead)
   evaluate  one flat lane space per DP level, in fixed-size chunks: DPSUB
             ``sets x 2^i`` (``ccp_eval_dpsub``, which decodes the chunk's
-            lanes itself), MPDP:Tree ``sets x m``
-            (``btree_eval_decode`` on a one-row table, which decodes the
-            chunk's lanes itself), MPDP-general over the
-            block prefix-sum of phase-A (set, block) pairs
-            (``bgeneral_eval_decode`` on a one-row table, which decodes the
-            chunk's lanes itself), DPSIZE over level pairs
+            lanes itself), MPDP:Tree ``sets x m`` and MPDP-general over
+            the block prefix-sum of phase-A (set, block) pairs (the chunk
+            layer's batched bodies ``chunks._beval_tree_chunk`` and
+            ``_beval_general_chunk`` at ``bcap = 1``, on one-row tables),
+            DPSIZE over level pairs
   prune     in-chunk segment-min per set + max left bitmap among ties
   scatter   dense memo tables indexed by subset bitmap
 
 Each evaluate chunk comes back to the host in one device-to-host copy
-(``_fetch``).  The MPDP:Tree and MPDP-general chunks of an inner-join
-graph run their epilogue (the memo gathers, the join cost, the prune and
-the counts) inside the kernel too (``ops.btree_eval_prune``,
-``ops.bgeneral_eval_prune``): one launch and one copy a chunk; typed
-graphs and DPSUB keep the epilogue in torch ops (``_fused``), those of
-the kernels' plain versions (``kernels.ref``).  ``_fetch`` counts every
-evaluate chunk it reads (``engine.eval_chunks``) and each fused one
-(``engine.fused_chunks``).  Where the reference's array semantics and
-torch differ, this module spells them out: out-of-range gathers clamp
-(``_take``), memo
-scatters drop indices outside the table (``_scatter_into``),
-``searchsorted(side="right")`` is ``right=True``, and ``_prune`` starts its
-segments from the reference's empty-segment identities (``+inf`` for cost,
-int32 min for the left bitmap).  Min and max do not depend on the order of
-the reduction, so ``_prune`` gives the same result on the CPU and on the
-card, run after run.
+before the next launches, and folds into the level's best arrays through
+the chunk layer's accumulator (``chunks.ChunkResults``, drained to 0 after
+every launch); an inner-join graph's MPDP:Tree and MPDP-general chunks
+run their epilogue inside the kernel (``chunks._fused``).  DPSIZE keeps
+its own read-back and scattered merge.
 
 A typed graph (a LEFT, FULL, SEMI or ANTI edge) carries its conflict
-arrays into the DPSUB, tree and general chunk bodies, which cost both
-operand orientations of each lane under the conflict mask
-(``_typed_lane_cost``); an inner-only graph passes none and runs exactly
-as before.  DPSIZE refuses typed graphs, as the reference does.
+arrays, stacked ``(1, emax)`` as a one-query flight's, into the DPSUB,
+tree and general chunk bodies, which cost both operand orientations of
+each lane under the conflict mask (``chunks._typed_lane_cost``); an
+inner-only graph passes none.  DPSIZE refuses typed graphs, as the
+reference does.
 
 ``ExactEngine`` honours a cooperative ``deadline_s`` as the reference's
-does: ``faults.now`` is read once when a run starts and once at the top of
-every level; past the deadline ``result`` stitches a best-effort plan from
-the committed memo levels (``heuristics.idp.stitch_partial_memo``).
+does (``chunks._LevelHooks``): ``faults.now`` is read once when a run
+starts and once at the top of every level; past the deadline ``result``
+stitches a best-effort plan from the committed memo levels
+(``heuristics.idp.stitch_partial_memo``).
 
 ``optimize`` is the solo entry point (``lattice=True`` sends it to
 ``lattice.optimize_lattice``); ``optimize_many`` forwards to
@@ -56,40 +45,30 @@ the committed memo levels (``heuristics.idp.stitch_partial_memo``).
 """
 from __future__ import annotations
 
-import os
 import time
 from math import comb
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import bitset as bs
 from . import blocks as bl
-from . import conflicts as cf
+from . import chunks as _ch
 from . import cost as cm
 from . import dpccp as _dpccp
-from . import faults
 from . import telemetry as _telemetry
 from . import unrank as ur
 from ..kernels import ops
 from ..kernels.ref import prune as _prune, take as _take
+from .chunks import (INF, ChunkResults, _I32, _LevelHooks, _cap, _lane_cost,
+                     _merge_scattered, _pair_offsets, _pair_window,
+                     _scatter_into)
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .joingraph import DeviceGraph, JoinGraph
 from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
-INF = np.float32(np.inf)
-_I32 = torch.int32
-_CLIP = 1 << 30          # offset clip keeps chunk-local offsets int32
 SPAN = 1 << 24           # ranks per filter launch (S and conn: 128 MiB)
-
-
-def _cap(n: int, lo: int = 1024) -> int:
-    c = lo
-    while c < n:
-        c <<= 1
-    return c
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,84 +79,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("repro_torch runs on a CUDA device and none is "
                            "available; pass device='cpu' to run on the CPU")
     return dev
-
-
-def _use_pipeline() -> bool:
-    """``REPRO_PIPELINE=1`` makes the batched engines run pipelined when the
-    caller passes ``pipeline=None`` (the reference's switch, by the same
-    name): level i's evaluate runs on the device while the host compacts,
-    rows-costs and block-decomposes level i+1.  Results are bit-identical
-    to the synchronous default."""
-    return os.environ.get("REPRO_PIPELINE", "0") == "1"
-
-
-def _scatter_into(buf: torch.Tensor, idx_np: np.ndarray, val_np) -> None:
-    """``buf[idx] = val`` in place; indices outside ``buf`` are dropped (the
-    reference's ``mode="drop"``)."""
-    idx_np = np.asarray(idx_np)
-    keep = (idx_np >= 0) & (idx_np < buf.shape[0])
-    idx = torch.from_numpy(idx_np[keep].astype(np.int64))
-    val = torch.from_numpy(np.asarray(val_np)[keep]).to(buf.dtype)
-    buf[idx.to(buf.device)] = val.to(buf.device)
-
-
-class Pruned(NamedTuple):
-    """A fused chunk's result on the device: the buffer of
-    ``ops.btree_eval_prune`` or ``ops.bgeneral_eval_prune`` and its
-    number of query rows."""
-    buf: torch.Tensor
-    bcap: int
-
-
-def _fused(targs) -> bool:
-    """Whether an MPDP:Tree or MPDP-general chunk runs the fused evaluate
-    epilogue: on a flight without conflict arrays.  A typed flight costs
-    both operand orientations of a lane and keeps the epilogue in torch
-    ops."""
-    return not targs
-
-
-def _fetch(out):
-    """One device->host copy of a chunk's results -> (seg_cost, seg_left,
-    ev_q, ccp_q) numpy arrays; ``out`` is a fused chunk's ``Pruned`` or the
-    four tensors of the torch epilogue.  Counts the chunk in the
-    recorder's ``engine.eval_chunks``, and a fused one in
-    ``engine.fused_chunks``."""
-    _telemetry.count("engine.eval_chunks")
-    with _telemetry.span("engine.fetch"):
-        if isinstance(out, Pruned):
-            _telemetry.count("engine.fused_chunks")
-            return ops.unpack_pruned(out.buf.cpu().numpy(), out.bcap)
-        seg_cost, seg_left, ev_q, ccp_q = out
-        n = seg_cost.shape[0]
-        k = ev_q.numel()
-        buf = torch.cat([seg_cost.view(_I32), seg_left, ev_q.reshape(-1),
-                         ccp_q.reshape(-1)]).cpu().numpy()
-    return (buf[:n].view(np.float32), buf[n: 2 * n], buf[2 * n: 2 * n + k],
-            buf[2 * n + k:])
-
-
-def _merge_best(best_cost, best_left, base, seg_cost, seg_left):
-    """Fold a chunk's per-segment minima into the level's host-side best
-    arrays (min cost, ties broken by max left bitmap)."""
-    nseg = len(seg_cost)
-    idx = base + np.arange(nseg)
-    ok = (idx >= 0) & (idx < len(best_cost))
-    idx = idx[ok]
-    sc = seg_cost[ok]
-    sl = seg_left[ok]
-    better = (sc < best_cost[idx]) | ((sc == best_cost[idx]) & (sl > best_left[idx]))
-    upd = idx[better]
-    best_cost[upd] = sc[better]
-    best_left[upd] = sl[better]
-
-
-def _merge_scattered(best_cost, best_left, ks, cs, ls):
-    """Fold scattered per-key candidate (cost, left) pairs into host-side
-    best arrays: min cost per key, ties broken by max left bitmap."""
-    np.minimum.at(best_cost, ks, cs)
-    tie = cs == best_cost[ks]
-    np.maximum.at(best_left, ks[tie], ls[tie])
 
 
 # ============================================================ chunk bodies ==
@@ -199,53 +100,19 @@ def _expand_chunk(sets_pad, n_valid: int, adj, *, nmax: int, cap: int):
     return torch.where(live, cand, 0)
 
 
-def _lane_cost(S_left, S_right, S_rows, memo_cost, memo_rows):
-    cl = memo_cost[S_left]
-    cr = memo_cost[S_right]
-    jc = cm.join_cost(memo_rows[S_left], memo_rows[S_right], S_rows)
-    return cl + cr + jc
-
-
-def _typed_lane_cost(lb, rb, S_rows, ccp, cl, cr, rl, rr,
-                     ekind, elm, erm, etes_l, etes_r):
-    """Typed twin of ``_lane_cost``: costs both operand orientations of the
-    (lb, rb) split under the conflict mask and returns the cheaper valid
-    candidate and its left bitmap (a tie keeps lb, the enumeration-order
-    operand).  ``cl``/``cr``/``rl``/``rr`` are the lanes' memo costs and
-    rows of lb/rb, gathered by the caller; the addition order is
-    ``_lane_cost``'s, ``(cl + cr) + jc``."""
-    va, vb, lk = cf.lane_valid_kinds(lb, rb, ekind, elm, erm, etes_l, etes_r)
-    base = cl + cr
-    cand_a = torch.where(ccp & va, base + cm.join_cost_kind(rl, rr, S_rows, lk),
-                         float(INF))
-    cand_b = torch.where(ccp & vb, base + cm.join_cost_kind(rr, rl, S_rows, lk),
-                         float(INF))
-    return torch.minimum(cand_a, cand_b), torch.where(cand_b < cand_a, rb, lb)
-
-
-def _split_cost(S, S_left, S_right, ccp, memo_cost, memo_rows, targs):
-    """Candidate cost of each lane's split (INF off-CCP) and the left
-    bitmap the prune keeps; ``targs``, a typed graph's conflict arrays,
-    select ``_typed_lane_cost``."""
-    if targs is None:
-        return torch.where(ccp, _lane_cost(S_left, S_right, memo_rows[S],
-                                           memo_cost, memo_rows),
-                           float(INF)), S_left
-    return _typed_lane_cost(S_left, S_right, memo_rows[S], ccp,
-                            memo_cost[S_left], memo_cost[S_right],
-                            memo_rows[S_left], memo_rows[S_right], *targs)
-
-
 def _eval_dpsub_chunk(all_sets, level_off: int, base_set: int, base_sub: int,
                       i: int, lane_count: int, adj, memo_cost, memo_rows,
-                      targs=None, *, nmax: int, chunk: int, nseg: int):
+                      targs=(), *, nmax: int, chunk: int, nseg: int):
+    """Solo DPSUB lanes through ``ccp_eval_dpsub``, costed by the chunk
+    layer's ``_lane_cost`` at query 0."""
     t = _lanes(chunk, adj)
     seg = (base_sub + t) >> i                   # lane's set index - base_set
     live = t < lane_count
     lb, rb, ccp_i = ops.ccp_eval_dpsub(all_sets, level_off, base_set,
                                        base_sub, i, adj, nmax, chunk)
     ccp = live & (ccp_i != 0)
-    cand, lbx = _split_cost(lb | rb, lb, rb, ccp, memo_cost, memo_rows, targs)
+    cand, lbx = _lane_cost(lb | rb, lb, rb, ccp, 0, nmax, memo_cost,
+                           memo_rows, targs)
     seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
     return (seg_cost, seg_left, live.sum(dtype=_I32).reshape(1),
             ccp.sum(dtype=_I32).reshape(1))
@@ -259,68 +126,6 @@ def _tree_offsets(level_off: int, base_set: int, base_e: int,
     its segment is its set index minus ``base_set``.  Every entry stays
     inside int32 at nmax 30, where the level's lane index need not."""
     return np.array([-base_e, lane_count, level_off + base_set, 0], np.int32)
-
-
-def _eval_tree_chunk(all_sets, offs, m1, emu1, emv1, adj1, memo_cost,
-                     memo_rows, targs=None, *, nmax: int, chunk: int,
-                     nseg: int):
-    """MPDP:Tree lanes through ``btree_eval_decode`` on the one-row tables
-    ``adj1``, ``m1``, ``emu1``, ``emv1`` and ``offs`` (``_tree_offsets``):
-    the same function as the reference's decode and ``grow_excl_edge`` on
-    one query.  An inner-join graph's chunk is one ``btree_eval_prune``
-    launch (``Pruned``)."""
-    if _fused(targs):
-        return Pruned(ops.btree_eval_prune(
-            all_sets, offs[0:2], offs[2:3], offs[3:4], 0, m1, emu1, emv1,
-            adj1, memo_cost, memo_rows, nmax, nseg, chunk), 1)
-    S, S_left, in_i, _, seg = ops.btree_eval_decode(
-        all_sets, offs[0:2], offs[2:3], offs[3:4], 0, m1, emu1, emv1, adj1,
-        nmax, nseg, chunk)
-    # MPDP:Tree — every enumerated pair IS a CCP pair (Theorem 3)
-    edge_in = in_i != 0
-    cand, lbx = _split_cost(S, S_left, S & ~S_left, edge_in, memo_cost,
-                            memo_rows, targs)
-    seg_cost, seg_left = _prune(seg, cand, lbx, nseg)
-    ev = edge_in.sum(dtype=_I32).reshape(1)
-    return seg_cost, seg_left, ev, ev
-
-
-def _pair_table(ps, pb, pq, offs, p0: int, p1: int, lane0: int) -> np.ndarray:
-    """The ``int32[4, pcap]`` pair table of the MPDP-general chunk at lane
-    ``lane0``: rows (set, block, query, chunk-local lane offset) of pairs
-    ``p0 .. p1 - 1`` (``pq`` None: query 0), padded to ``pcap = _cap(p1 -
-    p0, 256)`` with zeros and offset ``_CLIP``; offsets clipped to
-    ``+-_CLIP``, so every entry stays inside int32."""
-    npair = p1 - p0
-    pairs = np.zeros((4, _cap(npair, 256)), np.int64)
-    pairs[0, :npair] = ps[p0:p1]
-    pairs[1, :npair] = pb[p0:p1]
-    if pq is not None:
-        pairs[2, :npair] = pq[p0:p1]
-    pairs[3] = _CLIP
-    pairs[3, :npair] = np.clip(offs[p0:p1] - lane0, -_CLIP, _CLIP)
-    return pairs.astype(np.int32)
-
-
-def _eval_general_chunk(pairs, n_pairs: int, lane_count: int, adj1, memo_cost,
-                        memo_rows, targs=None, *, nmax: int, chunk: int):
-    """MPDP-general lanes through ``bgeneral_eval_decode`` on the one-row
-    table ``adj1`` and the chunk's pair table ``pairs`` (``_pair_table``,
-    query row 0): the same function as the reference's decode, ccp test
-    and ``grow`` on one query (Alg.3 lines 6/7 and 17).  One segment per
-    pair of the table.  An inner-join graph's chunk is one
-    ``bgeneral_eval_prune`` launch (``Pruned``)."""
-    if _fused(targs):
-        return Pruned(ops.bgeneral_eval_prune(
-            pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows, nmax,
-            chunk), 1)
-    S, S_left, enum_i, ccp_i, _, p = ops.bgeneral_eval_decode(
-        pairs, n_pairs, lane_count, adj1, nmax, chunk)
-    cand, lbx = _split_cost(S, S_left, S & ~S_left, ccp_i != 0, memo_cost,
-                            memo_rows, targs)
-    seg_cost, seg_left = _prune(p, cand, lbx, pairs.shape[1])
-    return (seg_cost, seg_left, enum_i.sum(dtype=_I32).reshape(1),
-            ccp_i.sum(dtype=_I32).reshape(1))
 
 
 def _eval_dpsize_chunk(all_sets, off_a: int, off_b: int, count_b: int,
@@ -345,14 +150,15 @@ def _eval_dpsize_chunk(all_sets, off_a: int, off_b: int, count_b: int,
               & ((S[:, None] & dg.emask_v[None, :]) != 0))
     rows = torch.clamp(rows + torch.where(inside, dg.esel_l2[None, :], 0.0)
                        .sum(dim=1), min=0.0)
-    cand = torch.where(ccp, _lane_cost(A, B, rows, memo_cost, memo_rows),
+    cand = torch.where(ccp, memo_cost[A] + memo_cost[B]
+                       + cm.join_cost(memo_rows[A], memo_rows[B], rows),
                        float(INF))
     return S, cand, A, live.sum(dtype=_I32), ccp.sum(dtype=_I32)
 
 
 # ============================================================== host driver ==
 
-class ExactEngine:
+class ExactEngine(_LevelHooks):
     """Runs one exact algorithm (dpsub / mpdp / dpsize) over a JoinGraph on
     ``device`` (``cuda`` by default), within ``deadline_s`` if given."""
 
@@ -390,14 +196,15 @@ class ExactEngine:
         self.emu1 = self.dg.emask_u.reshape(1, -1).contiguous()
         self.emv1 = self.dg.emask_v.reshape(1, -1).contiguous()
         self.m1 = self._dev(np.array([g.m], np.int32))
-        # typed-edge conflict arrays, passed to the chunk bodies as
-        # ``targs`` only for a typed graph
+        # typed-edge conflict arrays, stacked (1, emax) as a one-query
+        # flight's, passed to the chunk bodies as ``targs`` only for a
+        # typed graph
         self.typed = g.typed
         self._tkw = {}
         if self.typed:
             dg = self.dg
-            self._tkw = {"targs": (dg.ekind, dg.elm, dg.erm, dg.etes_l,
-                                   dg.etes_r)}
+            self._tkw = {"targs": tuple(a.reshape(1, -1) for a in (
+                dg.ekind, dg.elm, dg.erm, dg.etes_l, dg.etes_r))}
         self.counters = Counters()
         self.timings: dict[str, float] = {}
         self.chunks_dispatched = 0        # filter spans + evaluate chunks
@@ -497,90 +304,56 @@ class ExactEngine:
         self.counters.evaluated += int(ev[0])
         self.counters.ccp += int(cc[0])
 
-    def _count_chunk(self) -> None:
-        """One filter span or evaluate chunk dispatched (the recorder's
-        ``engine.chunks`` counter beside ``chunks_dispatched``)."""
-        self.chunks_dispatched += 1
-        _telemetry.count("engine.chunks")
+    def _finish_level(self, sets_np, acc: ChunkResults) -> None:
+        best_cost, best_left, ev, ccp = acc.finish()
+        self._count(ev, ccp)
+        self._commit_level(sets_np, best_cost, best_left)
 
-    # ---------------------------------------------------------- deadline ---
-    def _arm_deadline(self) -> None:
-        """Start the cooperative deadline clock (one ``faults.now()`` call;
-        nothing without ``deadline_s``)."""
-        self._deadline_at = (None if self.deadline_s is None
-                             else faults.now() + self.deadline_s)
-
-    def _expired(self, i: int) -> bool:
-        """Checked once at the top of every DP level: past the deadline the
-        run abandons levels >= i and ``result`` stitches a best-effort plan
-        from the committed memo levels."""
-        if self._deadline_at is None:
-            return False
-        if faults.now() < self._deadline_at:
-            return False
-        self.degraded = {"reason": "deadline", "deadline_s": self.deadline_s,
-                         "levels_done": i - 1, "levels_total": self.n}
-        return True
-
-    # -------------------------------------------------------------- DPSUB --
-    def run_dpsub(self) -> None:
+    # ----------------------------------------------------- DPSUB and tree --
+    def _run_segments(self, mult, launch) -> None:
+        """The DPSUB and MPDP:Tree level loop: level i's ``sets x
+        mult(i)`` lanes in chunks, ``launch(i, lane0, lane_count)`` the
+        chunk at lane ``lane0``, each read back before the next launch."""
         self._arm_deadline()
         for i in range(2, self.n + 1):
-            if self._expired(i):
+            if self._expired(i, self.n):
                 break
             sets_np = self._level_sets(i)
             if not len(sets_np):
                 continue
             with _telemetry.stage(self.timings, "evaluate"):
-                ns = len(sets_np)
-                lanes = ns << i
-                best_cost = np.full(ns, INF, np.float32)
-                best_left = np.zeros(ns, np.int32)
-                off = self.level_off[i]
+                mul = mult(i)
+                lanes = len(sets_np) * mul
+                acc = ChunkResults(len(sets_np), 1)
                 for lane0 in range(0, lanes, self.chunk):
                     with _telemetry.leaf("engine.chunk"):
                         self._count_chunk()
-                        cnt = min(self.chunk, lanes - lane0)
-                        sc, sl, ev, cc = _fetch(_eval_dpsub_chunk(
-                            self.all_sets, off, lane0 >> i,
-                            lane0 & ((1 << i) - 1), i, cnt, self.dg.adj,
-                            self.memo_cost, self.memo_rows, nmax=self.nmax,
-                            chunk=self.chunk, nseg=self.chunk + 1,
-                            **self._tkw))
-                        self._count(ev, cc)
-                        _merge_best(best_cost, best_left, lane0 >> i, sc, sl)
-                self._commit_level(sets_np, best_cost, best_left)
+                        acc.add(lane0 // mul, launch(
+                            i, lane0, min(self.chunk, lanes - lane0)))
+                        acc.drain(0)
+                self._finish_level(sets_np, acc)
 
-    # ---------------------------------------------------------- MPDP tree --
+    def run_dpsub(self) -> None:
+        def launch(i, lane0, cnt):
+            return _eval_dpsub_chunk(
+                self.all_sets, self.level_off[i], lane0 >> i,
+                lane0 & ((1 << i) - 1), i, cnt, self.dg.adj, self.memo_cost,
+                self.memo_rows, nmax=self.nmax, chunk=self.chunk,
+                nseg=self.chunk + 1, **self._tkw)
+        self._run_segments(lambda i: 1 << i, launch)
+
     def run_mpdp_tree(self) -> None:
         m = self.g.m
-        self._arm_deadline()
-        for i in range(2, self.n + 1):
-            if self._expired(i):
-                break
-            sets_np = self._level_sets(i)
-            if not len(sets_np):
-                continue
-            with _telemetry.stage(self.timings, "evaluate"):
-                ns = len(sets_np)
-                lanes = ns * m
-                best_cost = np.full(ns, INF, np.float32)
-                best_left = np.zeros(ns, np.int32)
-                off = self.level_off[i]
-                for lane0 in range(0, lanes, self.chunk):
-                    with _telemetry.leaf("engine.chunk"):
-                        self._count_chunk()
-                        cnt = min(self.chunk, lanes - lane0)
-                        offs = self._dev(_tree_offsets(off, lane0 // m,
-                                                       lane0 % m, cnt))
-                        sc, sl, ev, cc = _fetch(_eval_tree_chunk(
-                            self.all_sets, offs, self.m1, self.emu1,
-                            self.emv1, self.adj1, self.memo_cost,
-                            self.memo_rows, nmax=self.nmax, chunk=self.chunk,
-                            nseg=self.chunk + 1, **self._tkw))
-                        self._count(ev, cc)
-                        _merge_best(best_cost, best_left, lane0 // m, sc, sl)
-                self._commit_level(sets_np, best_cost, best_left)
+
+        def launch(i, lane0, cnt):
+            offs = self._dev(_tree_offsets(self.level_off[i], lane0 // m,
+                                           lane0 % m, cnt))
+            return _ch._beval_tree_chunk(
+                self.all_sets, offs[0:2], offs[2:3], offs[3:4], 0, self.m1,
+                self.adj1, self.emu1, self.emv1, self.memo_cost,
+                self.memo_rows, nmax=self.nmax, chunk=self.chunk,
+                nseg=self.chunk + 1, bcap=1, **self._tkw)
+        self._run_segments(lambda i: m, launch)
 
     # ------------------------------------------------------- MPDP general --
     def _find_blocks_host(self, sets_np):
@@ -596,7 +369,7 @@ class ExactEngine:
     def run_mpdp_general(self) -> None:
         self._arm_deadline()
         for i in range(2, self.n + 1):
-            if self._expired(i):
+            if self._expired(i, self.n):
                 break
             sets_np = self._level_sets(i)
             if not len(sets_np):
@@ -605,42 +378,26 @@ class ExactEngine:
             if not len(ps):
                 continue
             with _telemetry.stage(self.timings, "evaluate"):
-                lane_sz = np.int64(1) << bs.np_popcount(pb).astype(np.int64)
-                offs = np.zeros(len(ps) + 1, np.int64)
-                np.cumsum(lane_sz, out=offs[1:])
+                offs = _pair_offsets(pb)
                 total = int(offs[-1])
                 # sets_np is ascending (colex rank order == ascending
                 # bitmap), so pair -> local set index is a vectorised
                 # searchsorted
-                pk = np.searchsorted(sets_np, ps).astype(np.int64)
-                best_cost = np.full(len(sets_np), INF, np.float32)
-                best_left = np.zeros(len(sets_np), np.int32)
-                k_all, c_all, l_all = [], [], []
+                acc = ChunkResults(len(sets_np), 1, np.searchsorted(
+                    sets_np, ps).astype(np.int64))
                 for lane0 in range(0, total, self.chunk):
                     with _telemetry.leaf("engine.chunk"):
                         self._count_chunk()
                         lane1 = min(lane0 + self.chunk, total)
-                        p0 = int(np.searchsorted(offs, lane0,
-                                                 side="right")) - 1
-                        p1 = int(np.searchsorted(offs, lane1, side="left"))
-                        npair = p1 - p0
-                        pairs = _pair_table(ps, pb, None, offs, p0, p1, lane0)
-                        sc, sl, ev, cc = _fetch(_eval_general_chunk(
+                        p0, npair, pairs = _pair_window(ps, pb, None, offs,
+                                                        lane0, lane1)
+                        acc.add((p0, npair), _ch._beval_general_chunk(
                             self._dev(pairs), npair, lane1 - lane0,
                             self.adj1, self.memo_cost, self.memo_rows,
-                            nmax=self.nmax, chunk=self.chunk, **self._tkw))
-                        self._count(ev, cc)
-                        scn = sc[:npair]
-                        fin = np.isfinite(scn)
-                        k_all.append(pk[p0:p1][fin])
-                        c_all.append(scn[fin])
-                        l_all.append(sl[:npair][fin])
-                if k_all:
-                    _merge_scattered(best_cost, best_left,
-                                     np.concatenate(k_all),
-                                     np.concatenate(c_all),
-                                     np.concatenate(l_all))
-                self._commit_level(sets_np, best_cost, best_left)
+                            nmax=self.nmax, chunk=self.chunk, bcap=1,
+                            **self._tkw))
+                        acc.drain(0)
+                self._finish_level(sets_np, acc)
 
     # ------------------------------------------------------------- DPSIZE --
     def run_dpsize(self) -> None:
@@ -650,7 +407,7 @@ class ExactEngine:
                 "mpdp / dpccp — the conflict-masked lane spaces)")
         self._arm_deadline()
         for i in range(2, self.n + 1):
-            if self._expired(i):
+            if self._expired(i, self.n):
                 break
             self._level_sets(i)
             with _telemetry.stage(self.timings, "evaluate"):

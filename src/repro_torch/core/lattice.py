@@ -11,7 +11,8 @@ of a **single** query is partitioned over the shards of a
     (set, block, rank) lanes, and the filter's colex ranks) are split into
     contiguous balanced ranges by ``distributed.sharding.partition_lanes``;
     shard ``d`` evaluates only its range, through the unchanged chunk
-    bodies of ``core.batch`` at ``bcap = 1``;
+    bodies of ``core.chunks`` at ``bcap = 1``, and folds its results in
+    its own ``chunks.ChunkResults``;
   * the memo is **replicated**: every shard holds the full ``1 << nmax``
     cost, rows, left and ``all_sets`` tables on its device;
   * shards exchange data **only at level commit**: one
@@ -52,8 +53,8 @@ from math import comb
 import numpy as np
 import torch
 
-from . import bitset as bs
 from . import blocks as bl
+from . import chunks as _ch
 from . import cost as cm
 from . import faults
 from . import telemetry as _telemetry
@@ -61,12 +62,11 @@ from . import unrank as ur
 from ..distributed import collectives as coll
 from ..distributed.sharding import partition_lanes
 from ..kernels import ops
-from .batch import (PEND_WINDOW, _beval_dpsub_chunk, _beval_general_chunk,
-                    _beval_tree_chunk, _lane_space, _LevelLoop, _memo_result,
-                    _offset_rows)
+from .batch import PEND_WINDOW, _lane_space, _LevelLoop, _memo_result
+from .chunks import (INF, ChunkResults, _cap, _offset_rows, _pair_offsets,
+                     _pair_window, _scatter_into)
 from .config import CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig, resolve_config
-from .engine import (INF, SPAN, _cap, _fetch, _merge_best, _merge_scattered,
-                     _pair_table, _scatter_into, _use_pipeline, resolve_device)
+from .engine import SPAN, resolve_device
 from .joingraph import JoinGraph, typed_edge_arrays
 from .plan import Counters, OptimizeResult, leaf_plan
 from .shard import batch_mesh
@@ -122,7 +122,8 @@ class LatticeShardedEngine(_LevelLoop):
         self.algorithm = algorithm
         self.cyc_cap = cyc_cap
         self.chunk = chunk
-        self.pipeline = _use_pipeline() if pipeline is None else bool(pipeline)
+        self.pipeline = (self._use_pipeline() if pipeline is None
+                         else bool(pipeline))
         self.nmax = lattice_bucket(g.n)
         self.flat = 1 << self.nmax         # bcap = 1: one query per replica
         self.deadline_s = deadline_s
@@ -294,7 +295,8 @@ class LatticeShardedEngine(_LevelLoop):
     def _eval_dispatch(self, i: int, sets_np: np.ndarray):
         """Segmented lane spaces (DPSUB ``sets x 2^i``, tree ``sets x m``):
         the level's lanes partitioned over the shards, each shard's chunks
-        through the batched chunk bodies with global-offset windows."""
+        through the batched chunk bodies with global-offset windows, into
+        one ``ChunkResults`` a shard."""
         ns = len(sets_np)
         if ns == 0:
             return None
@@ -306,11 +308,7 @@ class LatticeShardedEngine(_LevelLoop):
             statics = dict(nmax=self.nmax, chunk=self.chunk,
                            nseg=self.chunk + 2, bcap=1)
             lvl = np.array([self._level_off[i]], np.int32)
-            ctx = {"pend": [deque() for _ in self.devs],
-                   "best_cost": [np.full(ns, INF, np.float32)
-                                 for _ in self.devs],
-                   "best_left": [np.zeros(ns, np.int32) for _ in self.devs],
-                   "ev": 0, "ccp": 0}
+            accs = [ChunkResults(ns, 1) for _ in self.devs]
             tabs = []
             for d, dev in enumerate(self.devs):
                 if not sizes[d]:
@@ -329,41 +327,34 @@ class LatticeShardedEngine(_LevelLoop):
                         # the global set index
                         seg0 = int((lane_off[d] + c0) // mult)
                         if self.algorithm == "mpdp_tree":
-                            out = _beval_tree_chunk(
+                            out = _ch._beval_tree_chunk(
                                 self.all_sets[d], eoff_d[j], loff_d, soff_d,
                                 seg0, self.m_b[d], self.adj_b[d],
                                 self.emu_b[d], self.emv_b[d],
                                 self.memo_cost[d], self.memo_rows[d],
                                 **self._tkw[d], **statics)
                         else:
-                            out = _beval_dpsub_chunk(
+                            out = _ch._beval_dpsub_chunk(
                                 self.all_sets[d], eoff_d[j], loff_d, soff_d,
                                 seg0, i, self.adj_b[d], self.memo_cost[d],
                                 self.memo_rows[d], **self._tkw[d], **statics)
-                        ctx["pend"][d].append((seg0, out))
+                        accs[d].add(seg0, out)
                     faults.fire("chunk")
                     self._count_chunk()
-                    self._eval_drain(ctx, PEND_WINDOW)
-        return ctx
+                    for acc in accs:
+                        acc.drain(PEND_WINDOW)
+        return accs
 
-    def _eval_drain(self, ctx: dict, limit: int) -> None:
-        for d, pend in enumerate(ctx["pend"]):
-            while len(pend) > limit:
-                seg0, out = pend.popleft()
-                sc, sl, ev_q, ccp_q = _fetch(out)
-                ctx["ev"] += int(ev_q[0])
-                ctx["ccp"] += int(ccp_q[0])
-                _merge_best(ctx["best_cost"][d], ctx["best_left"][d], seg0,
-                            sc, sl)
-
-    def _eval_finalize(self, i: int, sets_np: np.ndarray, ctx) -> None:
-        if ctx is None:
+    def _eval_finalize(self, i: int, sets_np: np.ndarray, accs) -> None:
+        """Drain every shard's chunk results (either lane space) and commit
+        the level through the collective."""
+        if accs is None:
             return
         with _telemetry.stage(self.timings, "evaluate"):
-            self._eval_drain(ctx, 0)
-            self.counters[0].evaluated += ctx["ev"]
-            self.counters[0].ccp += ctx["ccp"]
-            self._commit_level(sets_np, ctx["best_cost"], ctx["best_left"])
+            cost, left, ev, ccp = zip(*(acc.finish() for acc in accs))
+            self.counters[0].evaluated += int(sum(e[0] for e in ev))
+            self.counters[0].ccp += int(sum(c[0] for c in ccp))
+            self._commit_level(sets_np, cost, left)
 
     # ------------------------------------------------- MPDP-general phase --
     def _pairs_level(self, sets_np: np.ndarray):
@@ -386,13 +377,9 @@ class LatticeShardedEngine(_LevelLoop):
         if not len(ps):
             return None
         with _telemetry.stage(self.timings, "evaluate"):
-            offs = np.zeros(len(ps) + 1, np.int64)
-            np.cumsum(np.int64(1) << bs.np_popcount(pb).astype(np.int64),
-                      out=offs[1:])
+            offs = _pair_offsets(pb)
             lane_off = partition_lanes(int(offs[-1]), self.D)
-            ctx = {"pend": [deque() for _ in self.devs], "pk": pk, "ev": 0,
-                   "ccp": 0, "k": [[] for _ in self.devs],
-                   "c": [[] for _ in self.devs], "l": [[] for _ in self.devs]}
+            accs = [ChunkResults(len(sets_np), 1, pk) for _ in self.devs]
             for c0 in range(0, int(np.diff(lane_off).max()), self.chunk):
                 with _telemetry.leaf("engine.chunk"):
                     for d, dev in enumerate(self.devs):
@@ -400,52 +387,19 @@ class LatticeShardedEngine(_LevelLoop):
                         lane1 = min(base + self.chunk, int(lane_off[d + 1]))
                         if lane1 <= base:
                             continue
-                        p0 = int(np.searchsorted(offs, base, side="right")) - 1
-                        p1 = int(np.searchsorted(offs, lane1, side="left"))
-                        table = _pair_table(ps, pb, None, offs, p0, p1, base)
-                        out = _beval_general_chunk(
-                            _put(table, dev), p1 - p0, lane1 - base,
+                        p0, npair, table = _pair_window(ps, pb, None, offs,
+                                                        base, lane1)
+                        accs[d].add((p0, npair), _ch._beval_general_chunk(
+                            _put(table, dev), npair, lane1 - base,
                             self.adj_b[d], self.memo_cost[d],
                             self.memo_rows[d],
                             nmax=self.nmax, chunk=self.chunk, bcap=1,
-                            **self._tkw[d])
-                        ctx["pend"][d].append((p0, p1 - p0, out))
+                            **self._tkw[d]))
                     faults.fire("chunk")
                     self._count_chunk()
-                    self._eval_general_drain(ctx, PEND_WINDOW)
-        return ctx
-
-    def _eval_general_drain(self, ctx: dict, limit: int) -> None:
-        pk = ctx["pk"]
-        for d, pend in enumerate(ctx["pend"]):
-            while len(pend) > limit:
-                p0, npair, out = pend.popleft()
-                sc, sl, ev_q, ccp_q = _fetch(out)
-                ctx["ev"] += int(ev_q[0])
-                ctx["ccp"] += int(ccp_q[0])
-                scn = sc[:npair]
-                fin = np.isfinite(scn)
-                ctx["k"][d].append(pk[p0: p0 + npair][fin])
-                ctx["c"][d].append(scn[fin])
-                ctx["l"][d].append(sl[:npair][fin])
-
-    def _eval_general_finalize(self, i: int, sets_np: np.ndarray, ctx) -> None:
-        if ctx is None:
-            return
-        with _telemetry.stage(self.timings, "evaluate"):
-            self._eval_general_drain(ctx, 0)
-            ns = len(sets_np)
-            best_cost = [np.full(ns, INF, np.float32) for _ in self.devs]
-            best_left = [np.zeros(ns, np.int32) for _ in self.devs]
-            for d in range(self.D):
-                if ctx["k"][d]:
-                    _merge_scattered(best_cost[d], best_left[d],
-                                     np.concatenate(ctx["k"][d]),
-                                     np.concatenate(ctx["c"][d]),
-                                     np.concatenate(ctx["l"][d]))
-            self.counters[0].evaluated += ctx["ev"]
-            self.counters[0].ccp += ctx["ccp"]
-            self._commit_level(sets_np, best_cost, best_left)
+                    for acc in accs:
+                        acc.drain(PEND_WINDOW)
+        return accs
 
     # ------------------------------------------------------------- driver --
     # (run / run_levels / the pipelined rotation come from _LevelLoop)

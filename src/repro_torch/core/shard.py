@@ -22,9 +22,10 @@ them over the shards of a ``DeviceMesh`` as well, each shard one
         so a padded batch returns the results of the unpadded one;
   * each shard's memo, ``all_sets``, adjacency and edge tables and typed
     conflict arrays live on its device, and each shard runs the unchanged
-    chunk bodies of ``core.batch`` and ``ops.bconnectivity_span`` on them;
-  * host compaction, phase A and the per-level ``_merge_best`` /
-    ``_merge_scattered`` stay per shard; shards never exchange data.
+    chunk bodies of ``core.chunks`` and ``ops.bconnectivity_span`` on them;
+  * host compaction, phase A and the per-level fold of the chunk results
+    (each shard's ``chunks.ChunkResults``) stay per shard; shards never
+    exchange data.
 
 One step over all shards (a filter span, an evaluate chunk) counts as one
 dispatch, as one ``shard_map`` call does in the reference: it passes the
@@ -59,7 +60,7 @@ from ..kernels import ops
 from .batch import (NMAX_BATCH, SPAN, BatchEngine, _bcap, _LevelLoop,
                     _memo_result)
 from .config import CHUNK, CYC_CAP_DEFAULT
-from .engine import _use_pipeline, resolve_device
+from .engine import resolve_device
 from .joingraph import JoinGraph
 from .plan import OptimizeResult
 
@@ -175,7 +176,8 @@ class ShardedBatchEngine(_LevelLoop):
         self.graphs = list(graphs)
         self.algorithm = algorithm
         self.chunk = chunk
-        self.pipeline = _use_pipeline() if pipeline is None else bool(pipeline)
+        self.pipeline = (self._use_pipeline() if pipeline is None
+                         else bool(pipeline))
         self.pend_window = pend_window
         self.deadline_s = deadline_s
         self._deadline_at: float | None = None
@@ -255,11 +257,13 @@ class ShardedBatchEngine(_LevelLoop):
                             sh._eval_step(c, i, j)
                     faults.fire("chunk")
                     self._count_chunk()
-                    for sh, c in live:
-                        sh._eval_drain(c, self.pend_window)
+                    for _, c in live:
+                        c["acc"].drain(self.pend_window)
         return ctxs
 
     def _eval_finalize(self, i: int, sets, ctxs) -> None:
+        """Each shard's ``BatchEngine._eval_finalize`` (either lane
+        space)."""
         if ctxs is None:
             return
         for sh, sets_d, c in zip(self.shards, sets, ctxs):
@@ -287,15 +291,9 @@ class ShardedBatchEngine(_LevelLoop):
                             sh._eval_general_step(c, lane0)
                     faults.fire("chunk")
                     self._count_chunk()
-                    for sh, c in live:
-                        sh._eval_general_drain(c, self.pend_window)
+                    for _, c in live:
+                        c["acc"].drain(self.pend_window)
         return ctxs
-
-    def _eval_general_finalize(self, i: int, sets, ctxs) -> None:
-        if ctxs is None:
-            return
-        for sh, sets_d, c in zip(self.shards, sets, ctxs):
-            sh._eval_general_finalize(i, sets_d, c)
 
     # ------------------------------------------------------------ driver ---
     # (run / run_levels / the pipelined rotation come from _LevelLoop)

@@ -55,7 +55,7 @@ def min_left_commit(memo_cost, memo_left, idx, cost, left, *, flat: int):
     ``cost``/``left``: each shard's partial best over its slice of the
     level's lanes, float32 / int32 tensors of length ``cap`` on the shard's
     device, padded with (INF, 0).  The combine is the semiring of the host
-    merges (``engine._merge_best``): ``best`` the minimum cost over shards,
+    merges (``chunks._merge_best``): ``best`` the minimum cost over shards,
     then the maximum left bitmap among the shards achieving a finite
     ``best`` (0 where ``best`` is INF), so any partition of the lanes
     gives the same memo contents.  Returns the replicas.

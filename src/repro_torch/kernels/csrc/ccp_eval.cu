@@ -752,14 +752,14 @@ bgeneral_eval_decode_kernel(const int* __restrict__ pairs, int pcap,
 // ------------------------------------------- fused evaluate epilogue --
 
 // The MPDP:Tree and MPDP-general evaluates of inner-join flights end in
-// the epilogue of their chunk bodies (core/batch._lane_cost,
-// core/engine._prune and batch._segment_sum), which torch runs as about
+// the epilogue of their chunk bodies (core/chunks._lane_cost, _prune and
+// _segment_sum), which torch runs as about
 // 73 eager ops a chunk.  btree_eval_prune_kernel and
 // bgeneral_eval_prune_kernel build the lanes as the two decode kernels do
 // and run that epilogue in registers, so that a chunk is one launch and
 // one copy:
 //   1. the memo gathers at (q << nmax) | x for x = S_left, S_right, S,
-//      each index clamped into the memo as core/engine._take clamps;
+//      each index clamped into the memo as kernels/ref.take clamps;
 //   2. cost.join_cost and the split's cost (cl + cr) + jc, INF off the ccp
 //      mask, in torch's order of operations with every operation rounded
 //      on its own (__fmul_rn, __fadd_rn: no contraction into an FMA), the

@@ -542,7 +542,7 @@ def bgeneral_eval_decode(pairs, n_pairs: int, lane_count: int, adj_b,
     """The ``chunk`` lanes of an MPDP-general chunk -> (S, S_left, enum_ok,
     ccp, qid, p int32[chunk]).  ``pairs`` int32[4, pcap] stacks the
     chunk's (set, block, query, chunk-local lane offset) rows, the offset
-    row non-decreasing (padding ``engine._CLIP``); the first ``n_pairs``
+    row non-decreasing (padding ``chunks._CLIP``); the first ``n_pairs``
     are real.  Lane t is rank ``t - off[p]`` of the block of pair ``p =
     searchsorted(off, t, side="right") - 1`` (clamped to ``[0,
     n_pairs)``), on the adjacency row of its query (clamped to ``[0,

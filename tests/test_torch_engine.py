@@ -13,15 +13,20 @@ reference, on the CPU.
 * ``optimize_many`` routes the queries no batched lane space serves to the
   solo engine, as the reference does;
 * the options once refused (a typed graph, a deadline, the lattice) now
-  equal the reference, and no card without ``device="cpu"`` raises.
+  equal the reference, and no card without ``device="cpu"`` raises;
+* the chunk layer's accumulator (``chunks.ChunkResults``), under every
+  engine's level loop, equals a direct NumPy fold of the same chunk
+  results in both of its modes and at drain limits 0, 1 and 8.
 """
+import numpy as np
 import pytest
 import torch
 
 from repro.core import batch as rbatch, engine as reng
 from repro.workloads import generators as rgen
-from repro_torch.core import engine as teng
+from repro_torch.core import chunks as tchunks, engine as teng
 from repro_torch.core.config import OptimizerConfig
+from repro_torch.kernels import ref as tref
 from tests.helpers import rand_graph
 from tests.test_torch_batch import (assert_same_results, one_torch_thread,  # noqa: F401
                                     port)
@@ -171,3 +176,89 @@ def test_no_card_raises_without_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         teng.optimize(G6)
+
+
+# ------------------------------------------------------- chunk results --
+
+def _made_up_chunk(rng, nseg: int, bcap: int):
+    """One chunk body's results as the torch epilogue returns them:
+    segment minima with ties (costs from a few values) and all-``INF``
+    segments (left 0 or the empty segment's int32 min, as ``_prune``
+    leaves them), and per-query counts of ``bcap`` rows."""
+    cost = rng.choice(np.float32([1.0, 2.0, 3.0, np.inf]), nseg)
+    left = rng.integers(1, 1 << 20, nseg).astype(np.int32)
+    inf = ~np.isfinite(cost)
+    left[inf] = rng.choice(np.int32([0, -(1 << 31)]), int(inf.sum()))
+    ev, ccp = (rng.integers(0, 1 << 16, bcap).astype(np.int32)
+               for _ in range(2))
+    return cost, left, ev, ccp
+
+
+@pytest.mark.parametrize("limit", [0, 1, 8])
+@pytest.mark.parametrize("mode", ["contiguous", "pair"])
+def test_chunk_results_equal_a_direct_fold(mode, limit, monkeypatch):
+    """``chunks.ChunkResults`` over random chunk results (torch epilogue
+    tensors and fused ``Pruned`` buffers alternately): fetched in launch
+    order down to the drain limit, and its best arrays and per-query
+    counts equal a direct lexicographic (min cost, then max left) fold of
+    the same candidates, where a set with no finite candidate keeps
+    (``INF``, 0).  Contiguous chunks start at random segments, some
+    partly outside the level; pair chunks cover overlapping windows of
+    pairs, several pairs a set, padded past their last pair; set 7 gets
+    only ``INF`` candidates."""
+    rng = np.random.default_rng(limit * 2 + (mode == "pair"))
+    nsets, nq, bcap = 40, 3, 4
+    pk = np.sort(rng.integers(0, nsets, 120)).astype(np.int64)
+    acc = tchunks.ChunkResults(nsets, nq, pk if mode == "pair" else None)
+    fetched, real = [], tchunks._fetch
+    monkeypatch.setattr(tchunks, "_fetch",
+                        lambda out: fetched.append(id(out)) or real(out))
+    keys, costs, lefts, launched = [], [], [], []
+    ev, ccp = np.zeros(nq, np.int64), np.zeros(nq, np.int64)
+    p0 = 0
+    for c in range(30):
+        if mode == "contiguous":
+            nseg = 10
+            key = int(rng.integers(-3, nsets - 4))
+            seg = key + np.arange(nseg)
+            ok = (seg >= 0) & (seg < nsets)
+        else:
+            npair = int(rng.integers(1, 12))
+            if p0 + npair > len(pk):
+                p0 = 0
+            nseg = tchunks._cap(npair, 16)
+            key = (p0, npair)
+            seg = np.full(nseg, -1)
+            seg[:npair] = pk[p0: p0 + npair]
+            ok = seg >= 0
+            p0 += npair - int(rng.integers(0, 2))      # a pair may straddle
+        sc, sl, e, cc = _made_up_chunk(rng, nseg, bcap)
+        if mode == "pair":
+            sc[npair:], sl[npair:] = np.inf, -(1 << 31)
+        sc[seg == 7], sl[seg == 7] = np.inf, 0     # set 7: all-INF segments
+        keys.append(seg[ok])
+        costs.append(sc[ok])
+        lefts.append(sl[ok])
+        ev += e[:nq]
+        ccp += cc[:nq]
+        t = [torch.from_numpy(x) for x in (sc, sl, e, cc)]
+        out = (tchunks.Pruned(tref.pack_pruned(*t), bcap) if c % 2
+               else tuple(t))
+        launched.append(id(out))
+        acc.add(key, out)
+        acc.drain(limit)
+        assert fetched == launched[: max(0, len(launched) - limit)]
+    best_cost, best_left, got_ev, got_ccp = acc.finish()
+    assert fetched == launched
+    want_cost = np.full(nsets, np.inf, np.float32)
+    want_left = np.zeros(nsets, np.int32)
+    for k, c, lf in zip(*map(np.concatenate, (keys, costs, lefts))):
+        if np.isfinite(c) and (c, -lf) < (want_cost[k], -want_left[k]):
+            want_cost[k], want_left[k] = c, lf
+    assert best_cost.dtype == np.float32 and best_left.dtype == np.int32
+    np.testing.assert_array_equal(best_cost, want_cost)
+    np.testing.assert_array_equal(best_left, want_left)
+    assert np.isinf(want_cost[7]) and (want_left[np.isfinite(want_cost)]
+                                       > 0).all()
+    np.testing.assert_array_equal(got_ev, ev)
+    np.testing.assert_array_equal(got_ccp, ccp)

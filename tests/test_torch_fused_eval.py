@@ -5,10 +5,10 @@ epilogue after them.
 
 * on the CPU each wrapper's buffer equals the chunk bodies' torch
   epilogue, packed by ``ref.pack_pruned`` (the decode's plain version,
-  then ``ref.tree_epilogue`` or ``ref.general_epilogue``, or on one-row
-  tables the solo bodies' ``engine._split_cost``, sums and
-  ``engine._prune``), bit for bit: on every chunk of batched and solo
-  tree and general runs
+  then ``ref.tree_epilogue`` or ``ref.general_epilogue``, the epilogue of
+  ``chunks._beval_tree_chunk`` and ``_beval_general_chunk`` on stacked
+  and on the solo engine's one-row tables), bit for bit: on every chunk
+  of batched and solo tree and general runs
   over snowflake, musicbrainz and clique graphs, and on made-up chunks
   with dead lanes, clamped gathers and pair indices, padding pairs, empty
   and all-INF segments, ties of equal cost with different left bitmaps,
@@ -33,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import batch as tbatch, engine as teng, lattice as tlat
+from repro_torch.core import batch as tbatch, chunks as tchunks
+from repro_torch.core import engine as teng, lattice as tlat
 from repro_torch.core import bitset as bs, shard as tshard, telemetry
 from repro_torch.kernels import ops, ref
 from repro_torch.workloads import generators as gen
@@ -59,37 +60,23 @@ def needs_card():
 def plain_tree(all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b,
                memo_cost, memo_rows, nmax, nseg, chunk):
     """What ``btree_eval_prune`` replaces, packed: the decode and the
-    epilogue of ``batch._beval_tree_chunk`` (``ref.tree_epilogue``), or of
-    ``engine._eval_tree_chunk`` on a one-row table."""
+    epilogue of ``chunks._beval_tree_chunk`` (``ref.tree_epilogue``), on
+    stacked tables or the solo engine's one-row ones."""
     lanes = ref.btree_eval_decode_ref(all_sets, eoff, loff, soff, seg0, m_b,
                                       emu_b, emv_b, adj_b, nmax, nseg, chunk)
-    if adj_b.shape[0] > 1:
-        return ref.tree_epilogue(lanes, adj_b, memo_cost, memo_rows, nmax,
-                                 nseg)
-    S, S_left, in_i, _, seg = lanes
-    edge_in = in_i != 0
-    cand, lbx = teng._split_cost(S, S_left, S & ~S_left, edge_in, memo_cost,
-                                 memo_rows, None)
-    ev = edge_in.sum(dtype=torch.int32).reshape(1)
-    return ref.pack_pruned(*teng._prune(seg, cand, lbx, nseg), ev, ev)
+    return ref.tree_epilogue(lanes, adj_b, memo_cost, memo_rows, nmax, nseg)
 
 
 def plain_general(pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows,
                   nmax, chunk):
     """What ``bgeneral_eval_prune`` replaces, packed: the decode and the
-    epilogue of ``batch._beval_general_chunk`` (``ref.general_epilogue``),
-    or of ``engine._eval_general_chunk`` on a one-row table."""
+    epilogue of ``chunks._beval_general_chunk``
+    (``ref.general_epilogue``), on stacked tables or the solo engine's
+    one-row one."""
     lanes = ref.bgeneral_eval_decode_ref(pairs, n_pairs, lane_count, adj_b,
                                          nmax, chunk)
-    if adj_b.shape[0] > 1:
-        return ref.general_epilogue(lanes, pairs.shape[1], adj_b, memo_cost,
-                                    memo_rows, nmax)
-    S, S_left, enum_i, ccp_i, _, p = lanes
-    cand, lbx = teng._split_cost(S, S_left, S & ~S_left, ccp_i != 0,
-                                 memo_cost, memo_rows, None)
-    return ref.pack_pruned(*teng._prune(p, cand, lbx, pairs.shape[1]),
-                           enum_i.sum(dtype=torch.int32).reshape(1),
-                           ccp_i.sum(dtype=torch.int32).reshape(1))
+    return ref.general_epilogue(lanes, pairs.shape[1], adj_b, memo_cost,
+                                memo_rows, nmax)
 
 
 PLAIN = {"btree_eval_prune": plain_tree, "bgeneral_eval_prune": plain_general}
@@ -245,7 +232,7 @@ def tree_case(chunk: int, seed: int, memo: str, device):
     eoff = np.zeros(B + 1, np.int64)
     np.cumsum(ns * m[:B], out=eoff[1:])
     lane0 = int(rng.integers(0, eoff[-1]))
-    epad = tbatch._offset_rows(eoff, np.array([lane0]), bcap)[0]
+    epad = tchunks._offset_rows(eoff, np.array([lane0]), bcap)[0]
     p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0),
              B - 1)
     seg0 = int(soff[p0] + (lane0 - eoff[p0]) // m[p0])
@@ -259,7 +246,7 @@ def tree_case(chunk: int, seed: int, memo: str, device):
 def general_case(chunk: int, seed: int, memo: str, clamp: bool, device,
                  bcap: int = 4):
     """bgeneral_eval_prune arguments laid out as the engines' general
-    dispatch lays them out (``engine._pair_table``): per query up to 300
+    dispatch lays them out (``chunks._pair_table``): per query up to 300
     (set, block) pairs sorted by set, half of them a block of the whole set
     (up to 2^16 lanes: a segment across many warps and blocks), the rest a
     part of it; the pair table padded (empty segments).  ``bcap`` 1: the
@@ -286,7 +273,7 @@ def general_case(chunk: int, seed: int, memo: str, clamp: bool, device,
     lane1 = min(lane0 + chunk, int(offs[-1]))
     p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
     p1 = int(np.searchsorted(offs, lane1, side="left"))
-    pairs = teng._pair_table(ps, pb, pq if bcap > 1 else None, offs, p0, p1,
+    pairs = tchunks._pair_table(ps, pb, pq if bcap > 1 else None, offs, p0, p1,
                              lane0)
     n_pairs = p1 - p0
     if clamp:
@@ -412,11 +399,9 @@ COUNTER_RUNS = {
         TYPED[:1], mesh=MESH, chunk=256, algorithm="mpdp_general").run()),
 }
 
-BODIES = ((tbatch, "_beval_dpsub_chunk"), (tbatch, "_beval_tree_chunk"),
-          (tbatch, "_beval_general_chunk"), (tlat, "_beval_dpsub_chunk"),
-          (tlat, "_beval_tree_chunk"), (tlat, "_beval_general_chunk"),
-          (teng, "_eval_dpsub_chunk"), (teng, "_eval_tree_chunk"),
-          (teng, "_eval_general_chunk"), (teng, "_eval_dpsize_chunk"))
+BODIES = ((tchunks, "_beval_dpsub_chunk"), (tchunks, "_beval_tree_chunk"),
+          (tchunks, "_beval_general_chunk"), (teng, "_eval_dpsub_chunk"),
+          (teng, "_eval_dpsize_chunk"))
 
 
 def spy_bodies(mp) -> dict:
@@ -428,7 +413,7 @@ def spy_bodies(mp) -> dict:
         def body(*args, **kw):
             out = real(*args, **kw)
             seen["calls"] += 1
-            seen["fused"] += isinstance(out, teng.Pruned)
+            seen["fused"] += isinstance(out, tchunks.Pruned)
             return out
         return body
     for m, name in BODIES:
@@ -522,8 +507,7 @@ def test_cuda_general_made_up_chunks_match_torch_epilogue(chunk, memo, clamp,
 
 def unfused(mp):
     """Send every chunk body to the torch epilogue."""
-    for m in (teng, tbatch):
-        mp.setattr(m, "_fused", lambda targs: False)
+    mp.setattr(tchunks, "_fused", lambda targs: False)
 
 
 @pytest.mark.gpu

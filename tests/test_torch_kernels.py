@@ -26,17 +26,20 @@
   body against the reference's (``_beval_dpsub_chunk``) call for call, as
   for the tree; the level's offset rows, copied once, against the
   per-chunk tables they replaced;
-* the port's batched and solo MPDP:Tree chunk bodies against the
-  reference's (``_beval_tree_chunk``, ``_eval_tree_chunk``) on the memo
-  of a run, call for call: integers exact, costs within a relative 1e-5
-  (largest ULP distance printed); the solo one-row offset tables against
-  the decode they replaced, lane for lane;
+* the port's MPDP:Tree chunk body (``chunks._beval_tree_chunk``, which
+  the batched and the solo engines call, the solo one at ``bcap = 1`` on
+  one-row tables) against the reference's batched and solo bodies
+  (``_beval_tree_chunk``, ``_eval_tree_chunk``) on the memo of a run,
+  call for call: integers exact, costs within a relative 1e-5 (largest
+  ULP distance printed); the solo one-row offset tables against the
+  decode they replaced, lane for lane;
 * ``bgeneral_eval_decode`` against a jnp restatement of the reference's
   batched MPDP-general decode (stacked tables) and of its solo one (one
   table), dead lanes, ranks past the block and both clamps of the pair
-  index included; the port's batched and solo MPDP-general chunk bodies
-  against the reference's (``_beval_general_chunk``,
-  ``_eval_general_chunk``) call for call, as for the tree;
+  index included; the port's MPDP-general chunk body, batched and solo
+  (``chunks._beval_general_chunk``), against the reference's
+  (``_beval_general_chunk``, ``_eval_general_chunk``) call for call, as
+  for the tree;
 * ``gpu``-marked tests hold each CUDA kernel against its plain version on
   the card (they skip without one).
 """
@@ -55,7 +58,8 @@ from repro.core import unrank as rur
 from repro.daemon.protocol import graph_to_wire
 from repro.kernels import ccp_eval as rpallas, ref as rref
 from repro.workloads import generators as rgen
-from repro_torch.core import batch as tbatch, engine as teng
+from repro_torch.core import batch as tbatch, chunks as tchunks
+from repro_torch.core import engine as teng
 from repro_torch.core import joingraph as tjg, unrank as tur
 from repro_torch.kernels import ops, ref as tref
 
@@ -739,7 +743,7 @@ class PruneLanes:
 
     def __init__(self, mp):
         self.last = None
-        for m in (tbatch, teng):
+        for m in (tchunks, teng):
             mp.setattr(m, "_prune", self._recording(m._prune))
 
     def _recording(self, real):
@@ -751,7 +755,7 @@ class PruneLanes:
 
 def _hold_chunk(got, want, label, lanes=None, ties=None):
     """A chunk body's result, read back as the level loops read it
-    (``engine._fetch``: a fused chunk's ``Pruned`` buffer or the torch
+    (``chunks._fetch``: a fused chunk's ``Pruned`` buffer or the torch
     epilogue's four tensors), against the reference's (seg_cost, seg_left,
     ev, ccp): integers exact, costs within a
     relative 1e-5; returns the largest ULP distance of the costs.  Given
@@ -760,7 +764,7 @@ def _hold_chunk(got, want, label, lanes=None, ties=None):
     rounding: the reference's left is one of the port's own candidates of
     the segment, at a cost within 1e-5 of the port's minimum (counted in
     ``ties``)."""
-    sc, sl, ev, cc = (np.asarray(x).reshape(-1) for x in teng._fetch(got))
+    sc, sl, ev, cc = (np.asarray(x).reshape(-1) for x in tchunks._fetch(got))
     wsc, wsl, wev, wcc = (np.asarray(x).reshape(-1) for x in want)
     for a, b in ((ev, wev), (cc, wcc)):
         np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=label)
@@ -790,7 +794,7 @@ def test_beval_tree_chunk_matches_reference(nmax, monkeypatch):
     bcap = rbatch._bcap(len(graphs))
     want_fn = jax.jit(partial(rbatch._beval_tree_chunk, nmax=nmax, chunk=chunk,
                               nseg=chunk + 2, bcap=bcap, pallas=False))
-    real = tbatch._beval_tree_chunk
+    real = tchunks._beval_tree_chunk
     worst = [0, 0]
 
     def held(*args, **kw):
@@ -801,7 +805,7 @@ def test_beval_tree_chunk_matches_reference(nmax, monkeypatch):
         worst[1] += 1
         return got
 
-    monkeypatch.setattr(tbatch, "_beval_tree_chunk", held)
+    monkeypatch.setattr(tchunks, "_beval_tree_chunk", held)
     tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
                        algorithm="mpdp_tree", device="cpu").run()
     assert worst[1] > max(g.n for g in graphs)      # several chunks a level
@@ -812,28 +816,32 @@ def test_beval_tree_chunk_matches_reference(nmax, monkeypatch):
 @pytest.mark.parametrize("g", [rgen.chain(8, 3), rgen.snowflake(13, 2)],
                          ids=["chain8", "snowflake13"])
 def test_eval_tree_chunk_matches_reference(g, monkeypatch):
-    """Every chunk of a solo MPDP:Tree run on the CPU (one-row tables),
-    held against the reference's ``_eval_tree_chunk`` on the same memo."""
+    """Every chunk of a solo MPDP:Tree run on the CPU (the chunk layer's
+    body at bcap 1 on one-row tables), held against the reference's
+    ``_eval_tree_chunk`` on the same memo."""
     chunk = 512
-    real = teng._eval_tree_chunk
+    real = tchunks._beval_tree_chunk
     worst = [0, 0]
 
-    def held(all_sets, offs, m1, emu1, emv1, adj1, memo_cost, memo_rows, **kw):
-        got = real(all_sets, offs, m1, emu1, emv1, adj1, memo_cost, memo_rows,
-                   **kw)
-        o = offs.numpy()
+    def held(all_sets, eoff, loff, soff, seg0, m1, adj1, emu1, emv1,
+             memo_cost, memo_rows, **kw):
+        got = real(all_sets, eoff, loff, soff, seg0, m1, adj1, emu1, emv1,
+                   memo_cost, memo_rows, **kw)
+        assert (kw["bcap"], seg0, int(soff[0])) == (1, 0, 0)
         j = [jnp.asarray(a.numpy()) for a in
              (all_sets, adj1[0], emu1[0], emv1[0], memo_cost, memo_rows)]
         want = reng._eval_tree_chunk(
-            j[0], jnp.int32(o[2]), jnp.int32(0), jnp.int32(-o[0]),
-            jnp.int32(m1[0]), jnp.int32(o[1]), *j[1:], **kw)
+            j[0], jnp.int32(int(loff[0])), jnp.int32(0),
+            jnp.int32(-int(eoff[0])), jnp.int32(int(m1[0])),
+            jnp.int32(int(eoff[1])), *j[1:], nmax=kw["nmax"],
+            chunk=kw["chunk"], nseg=kw["nseg"])
         worst[0] = max(worst[0], _hold_chunk(
             got, [want[0], want[1], np.asarray(want[2]).reshape(()),
                   np.asarray(want[3]).reshape(())], f"call {worst[1]}"))
         worst[1] += 1
         return got
 
-    monkeypatch.setattr(teng, "_eval_tree_chunk", held)
+    monkeypatch.setattr(tchunks, "_beval_tree_chunk", held)
     teng.optimize(port(g), "mpdp_tree", chunk=chunk, device="cpu")
     assert worst[1] >= g.n - 1
     print(f"n={g.n}: {worst[1]} chunks, largest cost difference {worst[0]} ulp")
@@ -916,7 +924,7 @@ def random_pairs(ns, rng):
 def make_general_case(ns, adj_b, nmax: int, chunk: int, seed: int,
                       clamp: bool = False, tail: bool = False):
     """bgeneral_eval_decode arguments as the engines' general dispatch lays
-    them out (``engine._pair_table``): random pairs of queries with ``ns``
+    them out (``chunks._pair_table``): random pairs of queries with ``ns``
     relations, the chunk at a random lane of the level (``tail``: in the
     level's last half chunk, so that its lanes run past the level's end:
     dead lanes, whose ranks run past their block).  ``clamp``: the offsets
@@ -932,7 +940,7 @@ def make_general_case(ns, adj_b, nmax: int, chunk: int, seed: int,
     lane1 = min(lane0 + chunk, int(offs[-1]))
     p0 = int(np.searchsorted(offs, lane0, side="right")) - 1
     p1 = int(np.searchsorted(offs, lane1, side="left"))
-    pairs = teng._pair_table(ps, pb, pq, offs, p0, p1, lane0)
+    pairs = tchunks._pair_table(ps, pb, pq, offs, p0, p1, lane0)
     n_pairs = p1 - p0
     if clamp:
         pairs[3, :n_pairs] += np.int32(rng.integers(1, chunk // 2 + 2))
@@ -1067,7 +1075,7 @@ def test_beval_general_chunk_matches_reference(nmax, monkeypatch):
     chunk = 64 if nmax == 8 else 1024
     want_fn = jax.jit(rbatch._beval_general_chunk,
                       static_argnames=("nmax", "chunk", "pcap", "bcap"))
-    real = tbatch._beval_general_chunk
+    real = tchunks._beval_general_chunk
     worst = [0, 0]
 
     def held(pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows, **kw):
@@ -1081,7 +1089,7 @@ def test_beval_general_chunk_matches_reference(nmax, monkeypatch):
         worst[1] += 1
         return got
 
-    monkeypatch.setattr(tbatch, "_beval_general_chunk", held)
+    monkeypatch.setattr(tchunks, "_beval_general_chunk", held)
     tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
                        algorithm="mpdp_general", device="cpu").run()
     assert worst[1] > max(g.n for g in graphs)      # several chunks a level
@@ -1093,29 +1101,30 @@ def test_beval_general_chunk_matches_reference(nmax, monkeypatch):
                                rgen.cycle(9, 2)],
                          ids=["musicbrainz12", "clique7", "cycle9"])
 def test_eval_general_chunk_matches_reference(g, monkeypatch):
-    """Every chunk of a solo MPDP-general run on the CPU (one-row table),
-    held against the reference's ``_eval_general_chunk`` on the same
-    memo."""
+    """Every chunk of a solo MPDP-general run on the CPU (the chunk layer's
+    body at bcap 1 on the one-row table), held against the reference's
+    ``_eval_general_chunk`` on the same memo."""
     chunk = 512
-    real = teng._eval_general_chunk
+    real = tchunks._beval_general_chunk
     worst = [0, 0]
 
     def held(pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows, **kw):
         got = real(pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows,
                    **kw)
+        assert kw["bcap"] == 1 and not pairs[2].any()
         rows = [jnp.asarray(x) for x in pairs.numpy()]
         want = reng._eval_general_chunk(
             rows[0], rows[1], rows[3], jnp.int32(n_pairs),
             jnp.int32(lane_count), *[jnp.asarray(a.numpy()) for a in
                                      (adj1[0], memo_cost, memo_rows)],
-            pcap=pairs.shape[1], **kw)
+            nmax=kw["nmax"], chunk=kw["chunk"], pcap=pairs.shape[1])
         worst[0] = max(worst[0], _hold_chunk(
             got, [want[0], want[1], np.asarray(want[2]).reshape(()),
                   np.asarray(want[3]).reshape(())], f"call {worst[1]}"))
         worst[1] += 1
         return got
 
-    monkeypatch.setattr(teng, "_eval_general_chunk", held)
+    monkeypatch.setattr(tchunks, "_beval_general_chunk", held)
     teng.optimize(port(g), "mpdp_general", chunk=chunk, device="cpu")
     assert worst[1] >= g.n - 1
     print(f"n={g.n}: {worst[1]} chunks, largest cost difference {worst[0]} ulp")
@@ -1359,7 +1368,7 @@ def make_dpsub_decode_case(graphs, nmax: int, i: int, chunk: int, seed: int,
     spad[:B] = soff[:B]
     eoff = soff << i
     lane0 = int(rng.integers(max(0, eoff[-1] - max(chunk // 2, 1)), eoff[-1]))
-    epad = tbatch._offset_rows(eoff, np.array([lane0]), bcap)[0]
+    epad = tchunks._offset_rows(eoff, np.array([lane0]), bcap)[0]
     p0 = min(max(int(np.searchsorted(eoff, lane0, side="right")) - 1, 0), B - 1)
     seg0 = int(soff[p0] + ((lane0 - eoff[p0]) >> i))
     nseg = chunk + 2
@@ -1423,7 +1432,7 @@ def test_beval_dpsub_chunk_matches_reference(nmax, monkeypatch):
     want_fn = jax.jit(partial(rbatch._beval_dpsub_chunk, nmax=nmax,
                               chunk=chunk, nseg=chunk + 2, bcap=bcap,
                               pallas=False))
-    real = tbatch._beval_dpsub_chunk
+    real = tchunks._beval_dpsub_chunk
     lanes = PruneLanes(monkeypatch)
     worst, ties = [0, 0], []
 
@@ -1436,7 +1445,7 @@ def test_beval_dpsub_chunk_matches_reference(nmax, monkeypatch):
         worst[1] += 1
         return got
 
-    monkeypatch.setattr(tbatch, "_beval_dpsub_chunk", held)
+    monkeypatch.setattr(tchunks, "_beval_dpsub_chunk", held)
     tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
                        algorithm="dpsub", device="cpu").run()
     assert worst[1] > max(g.n for g in graphs)      # several chunks a level
@@ -1457,7 +1466,7 @@ def test_offset_rows_equal_the_per_chunk_tables():
         chunk = 32768
         lane0s = np.arange(0, max(int(eoff[-1]), 1), chunk * scale,
                            dtype=np.int64)
-        rows = tbatch._offset_rows(eoff, lane0s, bcap)
+        rows = tchunks._offset_rows(eoff, lane0s, bcap)
         assert rows.dtype == np.int32 and rows.shape == (len(lane0s), bcap + 1)
         for row, lane0 in zip(rows, lane0s):
             el = np.clip(eoff - lane0, -(1 << 30), 1 << 30)

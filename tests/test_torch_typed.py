@@ -6,10 +6,12 @@
 * ``cost.join_cost_kind`` (costs to a relative 1e-5, largest ULP distance
   printed), ``conflicts.lane_valid_kinds``, ``joingraph.typed_edge_arrays``
   and the typed ``DeviceGraph`` fields (exact), and
-  ``engine._typed_lane_cost`` (costs to 1e-5, chosen left bitmaps exact)
+  ``chunks._typed_lane_cost`` (costs to 1e-5, chosen left bitmaps exact)
   against the reference's on the same numpy-seeded inputs;
-* the typed branches of the six chunk bodies (batched and solo DPSUB,
-  MPDP:Tree, MPDP-general) against the reference's call for call on
+* the typed branches of the chunk bodies (``chunks._beval_*``, batched
+  and, MPDP:Tree and MPDP-general, solo on one-row tables, and the solo
+  DPSUB ``engine._eval_dpsub_chunk``) against the reference's six
+  (batched and solo DPSUB, MPDP:Tree, MPDP-general) call for call on
   ``typed_pool`` and ``mixed_joins_stream`` graphs: integers exact, costs
   within a relative 1e-5, largest ULP distance printed;
 * ``optimize`` and ``optimize_many`` on ``device="cpu"`` against the
@@ -38,7 +40,8 @@ from repro.core.joingraph import DeviceGraph as RefDeviceGraph
 from repro.core.joingraph import typed_edge_arrays as ref_typed_edge_arrays
 from repro.daemon.protocol import graph_to_wire
 from repro.workloads import generators as rgen
-from repro_torch.core import batch as tbatch, bitset as tbs, conflicts as tcf
+from repro_torch.core import batch as tbatch, bitset as tbs, chunks as tchunks
+from repro_torch.core import conflicts as tcf
 from repro_torch.core import cost as tcost
 from repro_torch.core import dpccp as tdpccp, engine as teng
 from repro_torch.core import joingraph as tjg
@@ -185,7 +188,7 @@ def test_typed_lane_cost_matches_reference():
         rl, rr = (rng.uniform(0.0, 50.0, L).astype(np.float32) for _ in range(2))
         args = (lb, rb, rows_S, ccp, cl, cr, rl, rr, *arrs)
         want = reng._typed_lane_cost(*map(jnp.asarray, args))
-        got = teng._typed_lane_cost(*map(torch.from_numpy, args))
+        got = tchunks._typed_lane_cost(*map(torch.from_numpy, args))
         worst = max(worst, max_ulps(got[0].numpy(), want[0]))
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         assert (got[1].numpy() == rb).any()      # some lanes turn around
@@ -260,7 +263,7 @@ def test_batched_typed_chunk_bodies_match_reference(space, which):
             return ref_fn(*map(_j, args), *map(_j, kw["targs"]))
 
     calls, worst, ties = run_held(
-        tbatch, name, want_fn, lambda: tbatch.BatchEngine(
+        tchunks, name, want_fn, lambda: tbatch.BatchEngine(
             pgraphs, chunk=chunk, algorithm=space, device="cpu").run())
     assert calls >= max(g.n for g in graphs) - 1
     print(f"{space} {which}: {calls} typed chunks, largest cost difference "
@@ -278,38 +281,42 @@ SOLO_CASES = [("dpsub", POOL[5]), ("dpsub", STREAM[4]), ("mpdp_tree", TREES[3]),
 def test_solo_typed_chunk_bodies_match_reference(space, g):
     chunk = 256
     tg = port(g)
+    module = tchunks
     if space == "dpsub":
-        name = "_eval_dpsub_chunk"
+        module, name = teng, "_eval_dpsub_chunk"
 
         def want_fn(args, kw):
-            return reng._eval_dpsub_chunk(*map(_j, args), *map(_j, kw["targs"]),
+            return reng._eval_dpsub_chunk(*map(_j, args),
+                                          *[_j(a[0]) for a in kw["targs"]],
                                           nmax=kw["nmax"], chunk=kw["chunk"],
                                           nseg=kw["nseg"], typed=True)
     elif space == "mpdp_tree":
-        name = "_eval_tree_chunk"
+        name = "_beval_tree_chunk"
 
         def want_fn(args, kw):
-            all_sets, offs, m1, emu1, emv1, adj1, mc, mr = args
-            o = offs.numpy()
+            all_sets, eoff, loff, soff, seg0, m1, adj1, emu1, emv1, mc, mr = args
+            assert (kw["bcap"], seg0, int(soff[0])) == (1, 0, 0)
             return reng._eval_tree_chunk(
-                _j(all_sets), jnp.int32(o[2]), jnp.int32(0), jnp.int32(-o[0]),
-                jnp.int32(m1[0]), jnp.int32(o[1]),
+                _j(all_sets), jnp.int32(int(loff[0])), jnp.int32(0),
+                jnp.int32(-int(eoff[0])), jnp.int32(int(m1[0])),
+                jnp.int32(int(eoff[1])),
                 *map(_j, (adj1[0], emu1[0], emv1[0], mc, mr)),
-                *map(_j, kw["targs"]), nmax=kw["nmax"], chunk=kw["chunk"],
-                nseg=kw["nseg"], typed=True)
+                *[_j(a[0]) for a in kw["targs"]], nmax=kw["nmax"],
+                chunk=kw["chunk"], nseg=kw["nseg"], typed=True)
     else:
-        name = "_eval_general_chunk"
+        name = "_beval_general_chunk"
 
         def want_fn(args, kw):
             pairs, n_pairs, lane_count, adj1, mc, mr = args
+            assert kw["bcap"] == 1
             rows = [jnp.asarray(x) for x in pairs.numpy()]
             return reng._eval_general_chunk(
                 rows[0], rows[1], rows[3], jnp.int32(n_pairs),
                 jnp.int32(lane_count), *map(_j, (adj1[0], mc, mr)),
-                *map(_j, kw["targs"]), nmax=kw["nmax"], chunk=kw["chunk"],
-                pcap=pairs.shape[1], typed=True)
+                *[_j(a[0]) for a in kw["targs"]], nmax=kw["nmax"],
+                chunk=kw["chunk"], pcap=pairs.shape[1], typed=True)
 
-    calls, worst, ties = run_held(teng, name, want_fn, lambda: teng.optimize(
+    calls, worst, ties = run_held(module, name, want_fn, lambda: teng.optimize(
         tg, space, chunk=chunk, device="cpu"))
     assert calls >= g.n - 1
     print(f"solo {space} n={g.n}: {calls} typed chunks, largest cost "
