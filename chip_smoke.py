@@ -704,10 +704,10 @@ def spied_calls(names, run, where: str):
     seen = {k: [] for k in names}
 
     def spy(name):
-        def launch(*args):
+        def launch(*args, **kw):
             check(name, args, f"{where} call", fn=real[name])
             seen[name].append(args)
-            return real[name](*args)
+            return real[name](*args, **kw)
         return launch
 
     try:
@@ -1056,7 +1056,8 @@ def prune_work(name, args):
     *assumed*: its decode form's walks and table reads, without the lane
     outputs; on each ccp lane MEMO_INDEX_OPS and COST_FLOPS, and each
     distinct memo entry the ccp lanes read, read once; REDUCE_OPS a live
-    lane; one 8-byte key a segment and two counts a query written once."""
+    lane; one 8-byte key a segment and two 8-byte counts a query written
+    once."""
     d = decode_args(args)
     cost, rows = memo_of(args)
     if name == "btree_eval_prune":
@@ -1079,7 +1080,7 @@ def prune_work(name, args):
     n_rows = torch.unique(torch.cat([sides, base | S[on]]).clamp(
         0, rows.numel() - 1)).numel()
     ccp = int(on.sum())
-    return (nbytes + 4 * (n_cost + n_rows) + 8 * (nseg + bcap),
+    return (nbytes + 4 * (n_cost + n_rows) + 8 * (nseg + 2 * bcap),
             n_ops + MEMO_INDEX_OPS * ccp + REDUCE_OPS * live,
             COST_FLOPS * ccp)
 
@@ -1129,6 +1130,82 @@ def time_fused(name, args, row: dict, at: str) -> None:
         f"{row['epilogue_ms'] * 1e3:.2f} us on the card; a chunk with its "
         f"fetch {row['host_us']:.1f} us on the host, "
         f"{row['epilogue_host_us']:.1f} us before, at {at}")
+    level_fold(name, args, row, at)
+
+
+def level_fold(name, args, row: dict, at: str) -> None:
+    """The chunk in the level-buffer form (``chunks.DeviceFold``): its call
+    into a level's key buffer and a flight's counts, timed on the card (us
+    a launch) and on the host (a chunk without a fetch), and the level's
+    commit (``ops.commit_keys``) beside the host fold it replaced
+    (``ChunkResults``: the fetch, the merge and the memo scatter), each on
+    scratch memo tables.  The memo the two commits write and the counts
+    are held bit for bit against each other; the keys are the chunk's
+    segments (tree: one a set) or its pairs, keyed by their (query, set)
+    (general: the pairs of one set consecutive)."""
+    tree = name == "btree_eval_prune"
+    bcap = args[8 if tree else 3].shape[0]
+    nmax = args[11 if tree else 6]
+    if tree:
+        nkeys = args[12]
+        idx = np.arange(nkeys, dtype=np.int64)
+        key0, pk, sets = 0, None, idx
+    else:
+        table = args[0].cpu().numpy().astype(np.int64)
+        nkeys = int(args[1])
+        idx = (table[2, :nkeys] << nmax) | table[0, :nkeys]
+        head = np.r_[True, idx[1:] != idx[:-1]]
+        key0, pk, sets = (0, nkeys), np.cumsum(head) - 1, idx[head]
+    size = bcap << nmax
+    slack = nkeys if tree else args[0].shape[1]
+
+    def memo():
+        return (torch.full((size,), float("inf"), device=DEV),
+                torch.zeros(size, dtype=torch.int32, device=DEV))
+
+    def host_fold(cost, left):
+        acc = chunks.ChunkResults(len(sets), bcap, pk, idx=sets)
+        acc.add(key0, chunks.Pruned(call(name, args)[0], bcap))
+        return acc.commit(cost, left)
+
+    def device_fold(cost, left):
+        fold = chunks.DeviceFold(bcap, DEV).level(idx, slack)
+        fold.add(key0, chunks.Pruned(getattr(ops, name)(
+            *args, **fold.into(0)), bcap))
+        counts = fold.counts
+        fold.commit(cost, left)
+        return counts
+
+    hc, hl = memo()
+    ev, ccp = host_fold(hc, hl)
+    dc, dl = memo()
+    counts = device_fold(dc, dl).cpu().numpy()
+    torch.cuda.synchronize()
+    if not (torch.equal(hc.view(torch.int32), dc.view(torch.int32))
+            and torch.equal(hl, dl) and np.array_equal(counts[:bcap], ev)
+            and np.array_equal(counts[bcap:], ccp)):
+        raise AssertionError(f"{name}: the device fold disagrees with the "
+                             f"host fold at {at}")
+    keys = torch.zeros(nkeys + slack, dtype=torch.int64, device=DEV)
+    cnt = torch.zeros(2 * bcap, dtype=torch.int64, device=DEV)
+    idx_d = torch.from_numpy(idx.astype(np.int32)).to(DEV)
+
+    def launch():
+        return getattr(ops, name)(*args, keys=keys, counts=cnt)
+    row["fold_ms"] = event_ms(launch, 100)
+    row["fold_host_us"] = host_us(launch)
+    row["commit_ms"] = event_ms(lambda: ops.commit_keys(keys, idx_d, dc, dl),
+                                100)
+    row["commit_host_us"] = host_us(lambda: device_fold(dc, dl))
+    row["host_fold_us"] = host_us(lambda: host_fold(hc, hl))
+    log(f"kernel {name}: level-buffer form {row['fold_ms'] * 1e3:.2f} "
+        f"us/launch on the card, a chunk {row['fold_host_us']:.1f} us on the "
+        f"host without a fetch ({row['host_us']:.1f} us with it); the "
+        f"level's commit {row['commit_ms'] * 1e3:.2f} us on the card, a "
+        f"one-chunk level folded and committed {row['commit_host_us']:.1f} us "
+        f"on the host, {row['host_fold_us']:.1f} us by the host fold; device "
+        f"fold == host fold bit for bit ({len(sets)} sets, {nkeys} keys) at "
+        f"{at}")
 
 
 def phase_fused(rows, tree_p, general_p) -> None:
@@ -1157,7 +1234,8 @@ def phase_fused(rows, tree_p, general_p) -> None:
                      f" ({at}'s busiest chunk)")
         time_fused(name, args, row, row["at"])
     log("fused kernels ok on every chunk of clique(15, 1), "
-        "musicbrainz_query(16, 1) and snowflake(16, 1)")
+        "musicbrainz_query(16, 1) and snowflake(16, 1); device fold == host "
+        "fold at each timed chunk")
 
 
 def measure(name, args, row: dict, work) -> None:

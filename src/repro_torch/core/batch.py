@@ -21,8 +21,11 @@ and the evaluate chunks run the chunk layer's bodies
 (``chunks._beval_dpsub_chunk``, ``_beval_tree_chunk``,
 ``_beval_general_chunk``: the lane decodes, and for an inner-join
 flight's MPDP:Tree and MPDP-general chunks the cost, prune and counts
-too, in the kernels), read back and folded by ``chunks.ChunkResults``.
-The memo tensors are updated in place.
+too, in the kernels).  Those fused chunks fold on the device
+(``chunks.DeviceFold``: one key buffer a level, one ``ops.commit_keys``
+launch to commit it, the counts fetched with the memo in ``collect``);
+typed and DPSUB chunks are read back and folded by
+``chunks.ChunkResults``.  The memo tensors are updated in place.
 
 The level loop (``_LevelLoop``) is the reference's: the synchronous driver,
 or with ``pipeline=True`` the pipelined one, which dispatches level i's
@@ -86,8 +89,8 @@ from . import faults
 from . import telemetry as _telemetry
 from . import unrank as ur
 from ..kernels import ops
-from .chunks import (_CLIP, INF, ChunkResults, _LevelHooks, _cap,
-                     _offset_rows, _pair_offsets, _pair_window,
+from .chunks import (_CLIP, _I32, INF, ChunkResults, DeviceFold, _LevelHooks,
+                     _cap, _offset_rows, _pair_offsets, _pair_window,
                      _scatter_into)
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
@@ -98,7 +101,6 @@ from .plan import Counters, OptimizeResult, extract_plan, leaf_plan
 
 NMAX_BATCH = 16          # memo is (bcap << NMAX): larger queries go solo
 PEND_WINDOW = 8          # un-fetched chunk results kept in flight per level
-_I32 = torch.int32
 
 
 def _bcap(b: int) -> int:
@@ -372,6 +374,8 @@ class BatchEngine(_LevelLoop):
         self.counters = [Counters() for _ in graphs]
         self.timings: dict[str, float] = {}
         self._launch0 = dict(ops.LAUNCHES)
+        self._fold = DeviceFold(self.bcap, self.device)
+        self._fold_here = _ch._folds(algorithm, self._tkw.get("targs"))
         self._init_memo()
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -491,23 +495,25 @@ class BatchEngine(_LevelLoop):
                                    np.concatenate(set_l))
 
     # ---------------------------------------------------------- evaluate ---
-    def _commit_best(self, sets_by_q, best_cost, best_left) -> None:
-        """Commit a level: per-query slices of the fused best arrays."""
-        idx_l, cost_l, left_l = [], [], []
-        off = 0
-        for q, sets_q in enumerate(sets_by_q):
-            nsq = len(sets_q)
-            bc = best_cost[off: off + nsq]
-            blft = best_left[off: off + nsq]
-            off += nsq
-            fin = np.isfinite(bc)
-            if fin.any():
-                idx_l.append((q << self.nmax) + sets_q[fin].astype(np.int64))
-                cost_l.append(bc[fin])
-                left_l.append(blft[fin])
-        if idx_l:
-            self._scatter(np.concatenate(idx_l), cost=np.concatenate(cost_l),
-                          left=np.concatenate(left_l))
+    def _memo_index(self, sets_by_q: list[np.ndarray]) -> np.ndarray:
+        """The flat memo index ``(q << nmax) | S`` of each of the level's
+        sets, in the level's set order (query by query)."""
+        return np.concatenate([(q << self.nmax) + s.astype(np.int64)
+                               for q, s in enumerate(sets_by_q)])
+
+    def _level_acc(self, sets_by_q, slack: int, pairs=None):
+        """The level's accumulator: the device fold (``DeviceFold``, its
+        keys one a set, or with ``pairs`` one a (set, block) pair) for
+        fused chunks, else ``ChunkResults``."""
+        if not self._fold_here:
+            return ChunkResults(sum(len(s) for s in sets_by_q), self.B,
+                                None if pairs is None else pairs[3],
+                                idx=self._memo_index(sets_by_q))
+        if pairs is None:
+            return self._fold.level(self._memo_index(sets_by_q), slack)
+        ps, _, pq, _ = pairs
+        return self._fold.level((pq.astype(np.int64) << self.nmax) | ps,
+                                slack)
 
     def _eval_dispatch(self, i: int, sets_by_q: list[np.ndarray]):
         """Segmented lane spaces (DPSUB ``sets x 2^i``, tree ``sets x m``):
@@ -548,7 +554,7 @@ class BatchEngine(_LevelLoop):
         spad[: self.B] = soff[: self.B]
         soff_d = self._dev(spad.astype(np.int32))
         lane0s = np.arange(0, total, self.chunk, dtype=np.int64)
-        return {"acc": ChunkResults(int(soff[-1]), self.B),
+        return {"acc": self._level_acc(sets_by_q, self.chunk + 2),
                 "eoff": eoff, "soff": soff, "mult": mult, "lane0s": lane0s,
                 "eoff_d": self._dev(_offset_rows(eoff, lane0s, self.bcap)),
                 "loff_d": loff_d, "soff_d": soff_d}
@@ -567,7 +573,7 @@ class BatchEngine(_LevelLoop):
                 self.all_sets, ctx["eoff_d"][j], ctx["loff_d"],
                 ctx["soff_d"], seg0, self.m_b, self.adj_b, self.emu_b,
                 self.emv_b, self.memo_cost, self.memo_rows, **self._tkw,
-                **statics)
+                **statics, **ctx["acc"].into(seg0))
         else:
             out = _ch._beval_dpsub_chunk(
                 self.all_sets, ctx["eoff_d"][j], ctx["loff_d"],
@@ -576,16 +582,18 @@ class BatchEngine(_LevelLoop):
         ctx["acc"].add(seg0, out)
 
     def _eval_finalize(self, i: int, sets_by_q: list[np.ndarray], ctx) -> None:
-        """Drain the level's remaining chunk results (either lane space)
-        and commit the level's best (cost, left) per set to the memo."""
+        """Commit the level's best (cost, left) per set to the memo (either
+        lane space): on the device, or after draining the remaining chunk
+        results, whose counts then go to ``counters``."""
         if ctx is None:
             return
         with _telemetry.stage(self.timings, "evaluate"):
-            best_cost, best_left, ev, ccp = ctx["acc"].finish()
-            for q in range(self.B):
-                self.counters[q].evaluated += int(ev[q])
-                self.counters[q].ccp += int(ccp[q])
-            self._commit_best(sets_by_q, best_cost, best_left)
+            got = ctx["acc"].commit(self.memo_cost, self.memo_left)
+            if got is not None:
+                ev, ccp = got
+                for q in range(self.B):
+                    self.counters[q].evaluated += int(ev[q])
+                    self.counters[q].ccp += int(ccp[q])
 
     # ------------------------------------------------- MPDP-general phase --
     def _pairs_level(self, sets_by_q: list[np.ndarray]):
@@ -636,8 +644,8 @@ class BatchEngine(_LevelLoop):
         if not len(ps):
             return None
         offs = _pair_offsets(pb)
-        return {"acc": ChunkResults(sum(len(s) for s in sets_by_q), self.B,
-                                    pk),
+        return {"acc": self._level_acc(sets_by_q, _cap(self.chunk, 256),
+                                       pairs),
                 "pairs": pairs, "offs": offs, "total": int(offs[-1])}
 
     def _eval_general_step(self, ctx: dict, lane0: int) -> None:
@@ -648,9 +656,18 @@ class BatchEngine(_LevelLoop):
         ctx["acc"].add((p0, npair), _ch._beval_general_chunk(
             self._dev(pairs), npair, lane1 - lane0, self.adj_b,
             self.memo_cost, self.memo_rows, nmax=self.nmax,
-            chunk=self.chunk, bcap=self.bcap, **self._tkw))
+            chunk=self.chunk, bcap=self.bcap, **self._tkw,
+            **ctx["acc"].into(p0)))
 
     # ------------------------------------------------------------ driver ---
+    def _fetch_memo(self):
+        """The memo's cost and left tables on the host, in one copy with
+        the device fold's counts, which settle into ``counters``."""
+        got = torch.cat([self.memo_cost.view(_I32), self.memo_left,
+                         *self._fold.pending()]).cpu().numpy()
+        self._fold.settle(got[2 * self.flat:], self.counters)
+        return got[: self.flat].view(np.float32), got[self.flat: 2 * self.flat]
+
     def collect(self) -> list[OptimizeResult]:
         """Fetch the memo and extract one ``OptimizeResult`` per query (the
         streaming service defers this to after the next flight's
@@ -659,8 +676,7 @@ class BatchEngine(_LevelLoop):
         entries of later levels hold ``INF`` costs (their rows may be
         registered), which the stitch skips."""
         t0 = time.perf_counter()
-        cost_all = self.memo_cost.cpu().numpy()
-        left_all = self.memo_left.cpu().numpy()
+        cost_all, left_all = self._fetch_memo()
         wall = self._wall + time.perf_counter() - t0
         out = []
         for q, g in enumerate(self.graphs):

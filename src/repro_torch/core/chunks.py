@@ -3,7 +3,7 @@
 Every level loop of the port (``engine.ExactEngine``,
 ``batch.BatchEngine``, ``shard.ShardedBatchEngine`` and
 ``lattice.LatticeShardedEngine``) launches its evaluate chunks through the
-bodies here and reads them back through one accumulator:
+bodies here and folds them through one of two accumulators:
 
   bodies     ``_beval_dpsub_chunk``, ``_beval_tree_chunk`` and
              ``_beval_general_chunk``, the port of the ``repro.core.batch``
@@ -16,16 +16,22 @@ bodies here and reads them back through one accumulator:
              conflict mask)
   epilogue   an inner-join MPDP:Tree or MPDP-general chunk costs, prunes
              and counts inside its kernel (``ops.btree_eval_prune``,
-             ``ops.bgeneral_eval_prune``: a ``Pruned`` buffer); typed
-             flights and DPSUB keep the epilogue in torch ops (``_fused``),
-             those of the kernels' plain versions (``kernels.ref``)
-  read-back  ``_fetch``: one device-to-host copy a chunk, counted in the
-             recorder's ``engine.eval_chunks`` and, fused, in
-             ``engine.fused_chunks``
-  fold       ``ChunkResults``: one device's pending chunks in one level,
-             folded in launch order into the level's best (cost, left) per
-             set (min cost, ties to the larger left bitmap) and its
-             per-query counts
+             ``ops.bgeneral_eval_prune``: ``Pruned``); typed flights and
+             DPSUB keep the epilogue in torch ops (``_fused``), those of
+             the kernels' plain versions (``kernels.ref``)
+  fold       on the device (``DeviceFold``, the single-device engines'
+             fused chunks, ``_folds``): the kernels fold every chunk of a
+             level into one key buffer and the flight's counts, and one
+             ``ops.commit_keys`` launch a level writes the memo; nothing is
+             read back until the engine fetches its memo.  On the host
+             (``ChunkResults``: typed flights, DPSUB and the lattice, whose
+             commit is the cross-device ``min_left_commit``): ``_fetch``,
+             one device-to-host copy a chunk, then the level's best (cost,
+             left) per set (min cost, ties to the larger left bitmap) and
+             its per-query counts folded in launch order.  Both count each
+             chunk they take in the recorder's ``engine.eval_chunks``, a
+             fused one in ``engine.fused_chunks`` and one folded on the
+             device in ``engine.folded_chunks``
   tables     ``_offset_rows`` (a level's chunk-local offsets, one copy a
              level) and the MPDP-general pair windows (``_pair_offsets``,
              ``_pair_window``, ``_pair_table``)
@@ -113,12 +119,12 @@ class _LevelHooks:
         return True
 
 
-# ============================================================== read-back ==
+# =================================================================== fold ==
 
 class Pruned(NamedTuple):
-    """A fused chunk's result on the device: the buffer of
-    ``ops.btree_eval_prune`` or ``ops.bgeneral_eval_prune`` and its
-    number of query rows."""
+    """A fused chunk's result on the device: what ``ops.btree_eval_prune``
+    or ``ops.bgeneral_eval_prune`` returned (the chunk's own buffer, or the
+    level's keys it folded into) and its number of query rows."""
     buf: torch.Tensor
     bcap: int
 
@@ -131,16 +137,27 @@ def _fused(targs) -> bool:
     return not targs
 
 
+def _folds(algorithm: str, targs) -> bool:
+    """Whether a single-device engine folds a level's evaluate chunks on
+    the device (``DeviceFold``): where their body returns ``Pruned``, the
+    inner-join MPDP:Tree and MPDP-general chunks."""
+    return algorithm in ("mpdp_tree", "mpdp_general") and _fused(targs)
+
+
+def _count_eval(out) -> None:
+    """An evaluate chunk's result taken: ``engine.eval_chunks``, and for a
+    fused one ``engine.fused_chunks``."""
+    _telemetry.count("engine.eval_chunks")
+    if isinstance(out, Pruned):
+        _telemetry.count("engine.fused_chunks")
+
+
 def _fetch(out):
     """One device->host copy of a chunk's results -> (seg_cost, seg_left,
-    ev_q, ccp_q) numpy arrays; ``out`` is a fused chunk's ``Pruned`` or the
-    four tensors of the torch epilogue.  Counts the chunk in the
-    recorder's ``engine.eval_chunks``, and a fused one in
-    ``engine.fused_chunks``."""
-    _telemetry.count("engine.eval_chunks")
+    ev_q, ccp_q) numpy arrays; ``out`` is a fused chunk's ``Pruned`` (its
+    own buffer) or the four tensors of the torch epilogue."""
     with _telemetry.span("engine.fetch"):
         if isinstance(out, Pruned):
-            _telemetry.count("engine.fused_chunks")
             return ops.unpack_pruned(out.buf.cpu().numpy(), out.bcap)
         seg_cost, seg_left, ev_q, ccp_q = out
         n = seg_cost.shape[0]
@@ -176,9 +193,11 @@ def _merge_scattered(best_cost, best_left, ks, cs, ls):
 
 class ChunkResults:
     """One device's pending evaluate chunks in one level, and the level's
-    best (cost, left) per set and per-query counts they fold into.
+    best (cost, left) per set and per-query counts they fold into, on the
+    host.
 
-    ``add(key, out)`` queues a chunk body's result.  Without ``pk`` the
+    ``add(key, out)`` queues a chunk body's result (``into`` gives the body
+    no target: a fused chunk fills its own buffer).  Without ``pk`` the
     chunk's segments are contiguous and ``key`` is its first one (``seg0``);
     each fetched chunk folds through ``_merge_best``.  With ``pk`` (pair
     mode: MPDP-general's scattered per-pair candidates, ``pk`` each pair's
@@ -189,18 +208,26 @@ class ChunkResults:
     ``drain(limit)`` fetches pending results in launch order (``_fetch``)
     until ``limit`` remain, adding ``ev``/``ccp`` of the first ``nq``
     query rows; ``finish()`` drains them all and returns ``(best_cost,
-    best_left, ev, ccp)``."""
+    best_left, ev, ccp)``; ``commit(memo_cost, memo_left)`` finishes,
+    writes each set's finite best at its memo index ``idx`` (one a set)
+    and returns ``(ev, ccp)``."""
 
-    def __init__(self, nsets: int, nq: int, pk: np.ndarray | None = None):
+    def __init__(self, nsets: int, nq: int, pk: np.ndarray | None = None,
+                 idx: np.ndarray | None = None):
         self.best_cost = np.full(nsets, INF, np.float32)
         self.best_left = np.zeros(nsets, np.int32)
         self.ev = np.zeros(nq, np.int64)
         self.ccp = np.zeros(nq, np.int64)
         self.pk = pk
+        self.idx = idx
         self._pend = deque()
         self._cand = ([], [], [])                # pair mode: keys, costs, lefts
 
+    def into(self, k0: int) -> dict:
+        return {}
+
     def add(self, key, out) -> None:
+        _count_eval(out)
         self._pend.append((key, out))
 
     def drain(self, limit: int) -> None:
@@ -225,6 +252,81 @@ class ChunkResults:
             _merge_scattered(self.best_cost, self.best_left,
                              *map(np.concatenate, self._cand))
         return self.best_cost, self.best_left, self.ev, self.ccp
+
+    def commit(self, memo_cost, memo_left):
+        best_cost, best_left, ev, ccp = self.finish()
+        fin = np.isfinite(best_cost)
+        _scatter_into(memo_cost, self.idx[fin], best_cost[fin])
+        _scatter_into(memo_left, self.idx[fin], best_left[fin])
+        return ev, ccp
+
+
+class DeviceFold:
+    """A single-device engine's fused evaluate chunks (``_folds``), folded
+    on its device: the host fetches, merges and scatters nothing a chunk
+    or a level.
+
+    ``level(idx, slack)`` starts a level: one zeroed int64 key buffer of
+    ``len(idx) + slack`` keys and one upload of ``idx``, the memo index
+    ``(q << nmax) | S`` of each of the first ``len(idx)`` keys (a
+    contiguous level: one a set, and ``slack`` keys past them for the
+    clamped segments of its last chunk; MPDP-general: one a (set, block)
+    pair, the pairs sorted by set, and ``slack`` for a chunk's padding
+    pairs).  ``into(k0)`` is the ``keys``/``counts`` the chunk body
+    launches into, the chunk's first segment or pair at key ``k0``: its
+    kernel folds its keys there with ``atomicMax`` and its per-query
+    counts into one int64 ``counts[2 * bcap]`` (enumerated, then ccp)
+    kept for the whole flight.  ``add(key, out)`` only counts the chunk,
+    ``drain`` does nothing, and ``commit(memo_cost, memo_left)`` writes
+    the level's best to the memo in one ``ops.commit_keys`` launch: for
+    each set the largest key of its segment or of its pairs, where it
+    holds a finite cost.  The counts reach the host with the engine's
+    memo fetch: ``pending()`` is what to fetch with it, ``settle(words,
+    counters)`` adds the fetched counts to each query's ``Counters``, once.
+    The maximum does not depend on the order of the chunks, so the memo
+    and counts are ``ChunkResults``' bit for bit."""
+
+    def __init__(self, bcap: int, device):
+        self.bcap = bcap
+        self.device = device
+        self.counts = None
+        self.keys = self.idx = None
+
+    def level(self, idx: np.ndarray, slack: int) -> "DeviceFold":
+        if self.counts is None:
+            self.counts = torch.zeros(2 * self.bcap, dtype=torch.int64,
+                                      device=self.device)
+        self.keys = torch.zeros(len(idx) + slack, dtype=torch.int64,
+                                device=self.device)
+        self.idx = torch.from_numpy(
+            np.ascontiguousarray(idx, np.int32)).to(self.device)
+        return self
+
+    def into(self, k0: int) -> dict:
+        return {"keys": self.keys[k0:], "counts": self.counts}
+
+    def add(self, key, out) -> None:
+        _count_eval(out)
+        _telemetry.count("engine.folded_chunks")
+
+    def drain(self, limit: int) -> None:
+        pass
+
+    def commit(self, memo_cost, memo_left) -> None:
+        ops.commit_keys(self.keys, self.idx, memo_cost, memo_left)
+        self.keys = self.idx = None
+
+    def pending(self) -> list:
+        return [] if self.counts is None else [self.counts.view(_I32)]
+
+    def settle(self, words: np.ndarray, counters) -> None:
+        if self.counts is None:
+            return
+        got = np.ascontiguousarray(words).view(np.int64)
+        for q, c in enumerate(counters):
+            c.evaluated += int(got[q])
+            c.ccp += int(got[self.bcap + q])
+        self.counts = None
 
 
 # ================================================================= tables ==
@@ -343,11 +445,13 @@ def _beval_dpsub_chunk(all_sets, eoff, loff, soff, seg0, i, adj_b, memo_cost,
 
 def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
                       emv_b, memo_cost, memo_rows, targs=(), *, nmax: int,
-                      chunk: int, nseg: int, bcap: int):
+                      chunk: int, nseg: int, bcap: int, keys=None,
+                      counts=None):
     """Batched MPDP:Tree evaluate: the ``btree_eval_decode`` kernel decodes
     each lane's (query, set, edge) and splits S; the cost and the prune
     stay here.  An inner-join flight runs them in the kernel as well: one
-    ``btree_eval_prune`` launch (``Pruned``).
+    ``btree_eval_prune`` launch (``Pruned``), into ``keys``/``counts``
+    where the accumulator gives them (``DeviceFold.into``).
 
     m_b: i32[bcap] per-query edge count (lane-minor dimension);
     emu_b/emv_b: i32[bcap, emax] per-query edge endpoint bitmaps (0 pad).
@@ -357,7 +461,8 @@ def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
     if _fused(targs):
         return Pruned(ops.btree_eval_prune(
             all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b,
-            memo_cost, memo_rows, nmax, nseg, chunk), bcap)
+            memo_cost, memo_rows, nmax, nseg, chunk, keys=keys,
+            counts=counts), bcap)
     S, S_left, in_i, qid, seg = ops.btree_eval_decode(
         all_sets, eoff, loff, soff, seg0, m_b, emu_b, emv_b, adj_b, nmax,
         nseg, chunk)
@@ -371,11 +476,12 @@ def _beval_tree_chunk(all_sets, eoff, loff, soff, seg0, m_b, adj_b, emu_b,
 
 def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
                          memo_rows, targs=(), *, nmax: int, chunk: int,
-                         bcap: int):
+                         bcap: int, keys=None, counts=None):
     """Batched MPDP-general evaluate: the ``bgeneral_eval_decode`` kernel
     decodes each lane's (query, set, block, rank) and splits S; the cost
     and the prune stay here.  An inner-join flight runs them in the kernel
-    as well: one ``bgeneral_eval_prune`` launch (``Pruned``).
+    as well: one ``bgeneral_eval_prune`` launch (``Pruned``), into
+    ``keys``/``counts`` where the accumulator gives them.
 
     Phase A compacted every set's blocks into sorted (set, block) pairs;
     the fused lane space is the block prefix-sum over all queries' pairs,
@@ -386,7 +492,7 @@ def _beval_general_chunk(pairs, n_pairs, lane_count, adj_b, memo_cost,
     if _fused(targs):
         return Pruned(ops.bgeneral_eval_prune(
             pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows, nmax,
-            chunk), bcap)
+            chunk, keys=keys, counts=counts), bcap)
     S, S_left, enum_i, ccp_i, qid, p = ops.bgeneral_eval_decode(
         pairs, n_pairs, lane_count, adj_b, nmax, chunk)
     cand, lbx = _lane_cost(S, S_left, S & ~S_left, ccp_i != 0, qid, nmax,

@@ -18,12 +18,15 @@ evaluate -> prune -> scatter* runs on the engine's torch device:
   prune     in-chunk segment-min per set + max left bitmap among ties
   scatter   dense memo tables indexed by subset bitmap
 
-Each evaluate chunk comes back to the host in one device-to-host copy
-before the next launches, and folds into the level's best arrays through
-the chunk layer's accumulator (``chunks.ChunkResults``, drained to 0 after
-every launch); an inner-join graph's MPDP:Tree and MPDP-general chunks
-run their epilogue inside the kernel (``chunks._fused``).  DPSIZE keeps
-its own read-back and scattered merge.
+An inner-join graph's MPDP:Tree and MPDP-general chunks run their
+epilogue inside the kernel (``chunks._fused``) and fold on the device
+(``chunks.DeviceFold``: one key buffer a level, committed by one
+``ops.commit_keys`` launch; the counts come back with ``result``'s memo
+read).  Any other evaluate chunk comes back to the host in one
+device-to-host copy before the next launches, and folds into the level's
+best arrays through the chunk layer's ``chunks.ChunkResults``, drained to
+0 after every launch.  DPSIZE keeps its own read-back and scattered
+merge.
 
 A typed graph (a LEFT, FULL, SEMI or ANTI edge) carries its conflict
 arrays, stacked ``(1, emax)`` as a one-query flight's, into the DPSUB,
@@ -60,9 +63,9 @@ from . import telemetry as _telemetry
 from . import unrank as ur
 from ..kernels import ops
 from ..kernels.ref import prune as _prune, take as _take
-from .chunks import (INF, ChunkResults, _I32, _LevelHooks, _cap, _lane_cost,
-                     _merge_scattered, _pair_offsets, _pair_window,
-                     _scatter_into)
+from .chunks import (INF, ChunkResults, DeviceFold, _I32, _LevelHooks, _cap,
+                     _lane_cost, _merge_scattered, _pair_offsets,
+                     _pair_window, _scatter_into)
 from .config import (CHUNK, CYC_CAP_DEFAULT, UNSET, OptimizerConfig,
                      alias_kwarg, resolve_config)
 from .joingraph import DeviceGraph, JoinGraph
@@ -208,6 +211,7 @@ class ExactEngine(_LevelHooks):
         self.counters = Counters()
         self.timings: dict[str, float] = {}
         self.chunks_dispatched = 0        # filter spans + evaluate chunks
+        self._fold = DeviceFold(1, self.device)
         self._init_memo()
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -296,24 +300,29 @@ class ExactEngine(_LevelHooks):
         return np.unique(np.concatenate(cand_l)) if cand_l else np.zeros(0, np.int32)
 
     # ----------------------------------------------------------- merging ---
-    def _commit_level(self, sets_np, best_cost, best_left):
-        fin = np.isfinite(best_cost)
-        self._scatter(sets_np[fin], cost=best_cost[fin], left=best_left[fin])
-
     def _count(self, ev, cc) -> None:
         self.counters.evaluated += int(ev[0])
         self.counters.ccp += int(cc[0])
 
-    def _finish_level(self, sets_np, acc: ChunkResults) -> None:
-        best_cost, best_left, ev, ccp = acc.finish()
-        self._count(ev, ccp)
-        self._commit_level(sets_np, best_cost, best_left)
+    def _level_acc(self, algorithm: str, idx: np.ndarray, slack: int,
+                   sets_np, pk=None):
+        """The level's accumulator: the device fold for fused chunks (keys
+        at memo indices ``idx``), else ``ChunkResults`` over ``sets_np``."""
+        if _ch._folds(algorithm, self._tkw.get("targs")):
+            return self._fold.level(idx, slack)
+        return ChunkResults(len(sets_np), 1, pk, idx=sets_np)
+
+    def _finish_level(self, acc) -> None:
+        got = acc.commit(self.memo_cost, self.memo_left)
+        if got is not None:
+            self._count(*got)
 
     # ----------------------------------------------------- DPSUB and tree --
-    def _run_segments(self, mult, launch) -> None:
+    def _run_segments(self, algorithm: str, mult, launch) -> None:
         """The DPSUB and MPDP:Tree level loop: level i's ``sets x
-        mult(i)`` lanes in chunks, ``launch(i, lane0, lane_count)`` the
-        chunk at lane ``lane0``, each read back before the next launch."""
+        mult(i)`` lanes in chunks, ``launch(i, lane0, lane_count, into)``
+        the chunk at lane ``lane0`` into the accumulator's targets, each
+        read back before the next launch where it is read back at all."""
         self._arm_deadline()
         for i in range(2, self.n + 1):
             if self._expired(i, self.n):
@@ -324,36 +333,39 @@ class ExactEngine(_LevelHooks):
             with _telemetry.stage(self.timings, "evaluate"):
                 mul = mult(i)
                 lanes = len(sets_np) * mul
-                acc = ChunkResults(len(sets_np), 1)
+                acc = self._level_acc(algorithm, sets_np, self.chunk + 1,
+                                      sets_np)
                 for lane0 in range(0, lanes, self.chunk):
                     with _telemetry.leaf("engine.chunk"):
                         self._count_chunk()
-                        acc.add(lane0 // mul, launch(
-                            i, lane0, min(self.chunk, lanes - lane0)))
+                        key = lane0 // mul
+                        acc.add(key, launch(i, lane0,
+                                            min(self.chunk, lanes - lane0),
+                                            acc.into(key)))
                         acc.drain(0)
-                self._finish_level(sets_np, acc)
+                self._finish_level(acc)
 
     def run_dpsub(self) -> None:
-        def launch(i, lane0, cnt):
+        def launch(i, lane0, cnt, into):
             return _eval_dpsub_chunk(
                 self.all_sets, self.level_off[i], lane0 >> i,
                 lane0 & ((1 << i) - 1), i, cnt, self.dg.adj, self.memo_cost,
                 self.memo_rows, nmax=self.nmax, chunk=self.chunk,
                 nseg=self.chunk + 1, **self._tkw)
-        self._run_segments(lambda i: 1 << i, launch)
+        self._run_segments("dpsub", lambda i: 1 << i, launch)
 
     def run_mpdp_tree(self) -> None:
         m = self.g.m
 
-        def launch(i, lane0, cnt):
+        def launch(i, lane0, cnt, into):
             offs = self._dev(_tree_offsets(self.level_off[i], lane0 // m,
                                            lane0 % m, cnt))
             return _ch._beval_tree_chunk(
                 self.all_sets, offs[0:2], offs[2:3], offs[3:4], 0, self.m1,
                 self.adj1, self.emu1, self.emv1, self.memo_cost,
                 self.memo_rows, nmax=self.nmax, chunk=self.chunk,
-                nseg=self.chunk + 1, bcap=1, **self._tkw)
-        self._run_segments(lambda i: m, launch)
+                nseg=self.chunk + 1, bcap=1, **self._tkw, **into)
+        self._run_segments("mpdp_tree", lambda i: m, launch)
 
     # ------------------------------------------------------- MPDP general --
     def _find_blocks_host(self, sets_np):
@@ -382,9 +394,10 @@ class ExactEngine(_LevelHooks):
                 total = int(offs[-1])
                 # sets_np is ascending (colex rank order == ascending
                 # bitmap), so pair -> local set index is a vectorised
-                # searchsorted
-                acc = ChunkResults(len(sets_np), 1, np.searchsorted(
-                    sets_np, ps).astype(np.int64))
+                # searchsorted; the device fold keys each pair by its set
+                acc = self._level_acc(
+                    "mpdp_general", ps, _cap(self.chunk, 256), sets_np,
+                    np.searchsorted(sets_np, ps).astype(np.int64))
                 for lane0 in range(0, total, self.chunk):
                     with _telemetry.leaf("engine.chunk"):
                         self._count_chunk()
@@ -395,9 +408,9 @@ class ExactEngine(_LevelHooks):
                             self._dev(pairs), npair, lane1 - lane0,
                             self.adj1, self.memo_cost, self.memo_rows,
                             nmax=self.nmax, chunk=self.chunk, bcap=1,
-                            **self._tkw))
+                            **self._tkw, **acc.into(p0)))
                         acc.drain(0)
-                self._finish_level(sets_np, acc)
+                self._finish_level(acc)
 
     # ------------------------------------------------------------- DPSIZE --
     def run_dpsize(self) -> None:
@@ -471,7 +484,10 @@ class ExactEngine(_LevelHooks):
 
     def result(self, algorithm: str, t0: float) -> OptimizeResult:
         full = self.g.full_set
-        cost = float(self.memo_cost[full])
+        got = torch.cat([self.memo_cost[full: full + 1].view(_I32),
+                         *self._fold.pending()]).cpu().numpy()
+        self._fold.settle(got[1:], [self.counters])
+        cost = float(got[:1].view(np.float32)[0])
         if np.isfinite(cost):
             p = extract_plan(full, self._plan_lefts(full), self.g)
             return OptimizeResult(plan=p, cost=cost, counters=self.counters,

@@ -24,8 +24,8 @@ them over the shards of a ``DeviceMesh`` as well, each shard one
     conflict arrays live on its device, and each shard runs the unchanged
     chunk bodies of ``core.chunks`` and ``ops.bconnectivity_span`` on them;
   * host compaction, phase A and the per-level fold of the chunk results
-    (each shard's ``chunks.ChunkResults``) stay per shard; shards never
-    exchange data.
+    (each shard's ``chunks.DeviceFold``, or ``chunks.ChunkResults`` for
+    typed and DPSUB flights) stay per shard; shards never exchange data.
 
 One step over all shards (a filter span, an evaluate chunk) counts as one
 dispatch, as one ``shard_map`` call does in the reference: it passes the
@@ -301,8 +301,7 @@ class ShardedBatchEngine(_LevelLoop):
         """Fetch every shard's memo and extract the real queries' results
         in stream order (pads are dropped)."""
         t0 = time.perf_counter()
-        memo = [(sh.memo_cost.cpu().numpy(), sh.memo_left.cpu().numpy())
-                for sh in self.shards]
+        memo = [sh._fetch_memo() for sh in self.shards]
         wall = self._wall + time.perf_counter() - t0
         out = []
         for qi, g in enumerate(self.graphs):

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "rt_bgeneral_eval_prune": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                                _I, _I, _P],
     "rt_phase_a_blocks": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_commit_keys": [_P, _P, _I, _P, _P, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -85,14 +85,21 @@
 //                            inner-join tree and general evaluates, batched
 //                            and solo)
 //
-// One more replaces no Pallas kernel but the reference's jitted XLA phase A
-// (src/repro/core/blocks.py:236, vmapped over a chunk of sets), which the
-// port had run as about 1,900-4,500 eager torch ops a (query, level):
+// Two more replace no Pallas kernel.  One is the reference's jitted XLA
+// phase A (src/repro/core/blocks.py:236, vmapped over a chunk of sets),
+// which the port had run as about 1,900-4,500 eager torch ops a (query,
+// level); the other the host's fold and memo scatter of a level's chunk
+// results (the reference's _commit_best, src/repro/core/batch.py:659, and
+// _commit_level, src/repro/core/engine.py:457):
 //
 //   phase_a_blocks_kernel <- blocks_chunk (core/blocks.py:236) and the
 //                            (set, block) compaction of np_pairs_for_sets
 //                            (core/blocks.py:274): one thread a set, its
 //                            blocks left-justified in a fixed-width row
+//   commit_keys_kernel    <- the level commit after the two prune kernels
+//                            folded a level's chunks into one key buffer:
+//                            one thread a run of keys of one memo entry,
+//                            the run's maximum written to the memo
 //
 // What bounds them on this card.  A lane reads 4-16 bytes and writes 4-12
 // (int32 in and out, each once); the int32 work per lane is a handful of
@@ -773,8 +780,15 @@ bgeneral_eval_decode_kernel(const int* __restrict__ pairs, int pcap,
 //      not depend on the order of the blocks;
 //   4. the per-query enumerated and ccp counts (_segment_sum), one
 //      atomicAdd of a popcount a query and warp: integer sums, exact.
-// Output: keys uint64[nseg] then counts int32[2 * bcap] (enumerated, ccp),
-// zeroed by the caller; kernels/ops.unpack_pruned reads them back.
+// Output, both the caller's and both folded into, never overwritten:
+// keys uint64[nseg] (atomicMax) and counts uint64[2 * bcap] (atomicAdd;
+// enumerated, then ccp).  A chunk's own zeroed buffer is one target
+// (kernels/ops.unpack_pruned reads it back); a level's key buffer at the
+// chunk's first segment and a flight's counts are the other
+// (core/chunks.DeviceFold), which commit_keys_kernel commits.  As the
+// maximum does not depend on the order of the chunks either, both give
+// the same keys.  A split costs (cl + cr) + jc with jc >= +0, so a zero
+// cost is always +0.0 and every zero packs alike.
 
 constexpr float kLog2Cap = static_cast<float>(100.0);       // cost.LOG2_CAP
 constexpr float kHashBuild = static_cast<float>(1.8);       // C_HASH_BUILD
@@ -859,15 +873,16 @@ __device__ __forceinline__ void prune_warp(unsigned long long* keys, int nseg,
 }
 
 // Add the warp's enumerated (a) and ccp (b) lanes of each query q into
-// counts[q] and counts[bcap + q].  Lanes past the chunk pass q = -1.
-__device__ __forceinline__ void count_warp(int* counts, int bcap, int q,
-                                           bool a, bool b) {
+// counts[q] and counts[bcap + q], 64-bit so that a flight's sums do not
+// wrap.  Lanes past the chunk pass q = -1.
+__device__ __forceinline__ void count_warp(unsigned long long* counts,
+                                           int bcap, int q, bool a, bool b) {
   const unsigned same = __match_any_sync(0xffffffffu, q);
-  const int na = __popc(__ballot_sync(0xffffffffu, a) & same);
-  const int nb = __popc(__ballot_sync(0xffffffffu, b) & same);
+  const unsigned na = __popc(__ballot_sync(0xffffffffu, a) & same);
+  const unsigned nb = __popc(__ballot_sync(0xffffffffu, b) & same);
   if (q >= 0 && static_cast<int>(threadIdx.x & 31) == __ffs(same) - 1) {
-    if (na) atomicAdd(counts + q, na);
-    if (nb) atomicAdd(counts + bcap + q, nb);
+    if (na) atomicAdd(counts + q, static_cast<unsigned long long>(na));
+    if (nb) atomicAdd(counts + bcap + q, static_cast<unsigned long long>(nb));
   }
 }
 
@@ -886,8 +901,8 @@ btree_eval_prune_kernel(const int* __restrict__ all_sets, int n_sets,
                         const float* __restrict__ memo_cost,
                         const float* __restrict__ memo_rows, int memo_size,
                         unsigned long long* __restrict__ keys,
-                        int* __restrict__ counts, int L, int bcap, int nmax,
-                        int nseg) {
+                        unsigned long long* __restrict__ counts, int L,
+                        int bcap, int nmax, int nseg) {
   extern __shared__ int smem[];
   const TreeTables tb = stage_tree(smem, eoff, loff, soff, m_b, adj_b, bcap,
                                    nmax);
@@ -925,8 +940,8 @@ bgeneral_eval_prune_kernel(const int* __restrict__ pairs, int pcap,
                            const float* __restrict__ memo_rows,
                            int memo_size,
                            unsigned long long* __restrict__ keys,
-                           int* __restrict__ counts, int L, int bcap,
-                           int nmax) {
+                           unsigned long long* __restrict__ counts, int L,
+                           int bcap, int nmax) {
   extern __shared__ int sadj[];
   stage(sadj, adj_b, bcap * nmax);
   __syncthreads();
@@ -952,6 +967,36 @@ bgeneral_eval_prune_kernel(const int* __restrict__ pairs, int pcap,
   }
   prune_warp(keys, pcap, seg, key);
   count_warp(counts, bcap, q, en, cc);
+}
+
+// The commit of a level whose chunks folded into one key buffer
+// (core/chunks.DeviceFold), in place of the host's fetch, merge and memo
+// scatter: key t belongs to memo entry idx[t], and the keys of one entry
+// are consecutive (a contiguous level: one key a set; an MPDP-general
+// level: one a (set, block) pair, the pairs sorted by set).  The first
+// thread of each run takes the run's largest key (the cheapest split,
+// ties to the larger left bitmap) and, where its cost is finite, writes
+// the cost and the left bitmap at idx[t]; an index outside the memo is
+// dropped, as the host's scatter drops it.
+__global__ void __launch_bounds__(kWideThreads)
+commit_keys_kernel(const unsigned long long* __restrict__ keys,
+                   const int* __restrict__ idx, int n,
+                   float* __restrict__ memo_cost, int* __restrict__ memo_left,
+                   int memo_size) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int i = idx[t];
+  if (t > 0 && idx[t - 1] == i) return;
+  unsigned long long key = keys[t];
+  for (int u = t + 1; u < n && idx[u] == i; ++u) {
+    const unsigned long long k = keys[u];
+    if (k > key) key = k;
+  }
+  const float cost = __uint_as_float(
+      0x7F800000u - static_cast<unsigned>(key >> 32));
+  if (!isfinite(cost) || i < 0 || i >= memo_size) return;
+  memo_cost[i] = cost;
+  memo_left[i] = static_cast<int>(static_cast<unsigned>(key) ^ 0x80000000u);
 }
 
 // ------------------------------------------------------- phase A (blocks) --
@@ -1277,8 +1322,8 @@ int rt_btree_eval_prune(const int* all_sets, int n_sets, const int* eoff,
                         const int* m_b, const int* emu_b, const int* emv_b,
                         int emax, const int* adj_b, const float* memo_cost,
                         const float* memo_rows, int memo_size,
-                        unsigned long long* keys, int* counts, int L,
-                        int bcap, int nmax, int nseg, void* stream) {
+                        unsigned long long* keys, unsigned long long* counts,
+                        int L, int bcap, int nmax, int nseg, void* stream) {
   size_t smem = static_cast<size_t>(4 * bcap + 1 + bcap * nmax) * sizeof(int);
   btree_eval_prune_kernel<<<(L + kWideThreads - 1) / kWideThreads,
                             kWideThreads, smem,
@@ -1292,13 +1337,22 @@ int rt_bgeneral_eval_prune(const int* pairs, int pcap, int n_pairs,
                            int lane_count, const int* adj_b,
                            const float* memo_cost, const float* memo_rows,
                            int memo_size, unsigned long long* keys,
-                           int* counts, int L, int bcap, int nmax,
-                           void* stream) {
+                           unsigned long long* counts, int L, int bcap,
+                           int nmax, void* stream) {
   bgeneral_eval_prune_kernel<<<(L + kWideThreads - 1) / kWideThreads,
                                kWideThreads, smem_for(bcap, nmax),
                                static_cast<cudaStream_t>(stream)>>>(
       pairs, pcap, n_pairs, lane_count, adj_b, memo_cost, memo_rows,
       memo_size, keys, counts, L, bcap, nmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_commit_keys(const unsigned long long* keys, const int* idx, int n,
+                   float* memo_cost, int* memo_left, int memo_size,
+                   void* stream) {
+  commit_keys_kernel<<<(n + kWideThreads - 1) / kWideThreads, kWideThreads,
+                       0, static_cast<cudaStream_t>(stream)>>>(
+      keys, idx, n, memo_cost, memo_left, memo_size);
   return static_cast<int>(cudaGetLastError());
 }
 

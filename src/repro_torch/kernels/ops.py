@@ -16,11 +16,13 @@ MPDP-general chunk's (pair, rank) lanes from its pair table (the batched
 and the solo general evaluate).  ``btree_eval_prune`` and
 ``bgeneral_eval_prune`` build the same lanes as the last two and run the
 chunk bodies' epilogue in the kernel as well: the memo gathers, the join
-cost, the per-segment minimum and the per-query counts, into one buffer
-that ``unpack_pruned`` reads back (the evaluates of inner-join flights;
-typed flights keep the two decode forms).  ``phase_a_blocks`` is no lane
-kernel: it finds the blocks of a level's sets of one query (phase A of MPDP-general),
-one row of block bitmaps a set.  Tensors on the CPU go to the plain
+cost, the per-segment minimum and the per-query counts, folded into the
+caller's key and count buffers, or into a chunk's own buffer that
+``unpack_pruned`` reads back (the evaluates of inner-join flights; typed
+flights keep the two decode forms); ``commit_keys`` writes a level's
+folded keys to the memo.  ``phase_a_blocks`` is no lane kernel: it finds
+the blocks of a level's sets of one query (phase A of MPDP-general), one
+row of block bitmaps a set.  Tensors on the CPU go to the plain
 PyTorch version in ``ref``; tensors on a CUDA device go to the kernel, or
 the wrapper raises (wrong dtype, shape, layout or mixed devices, or a
 refused launch).  There is no fallback from one to the other.
@@ -47,7 +49,7 @@ LAUNCHES = {"connectivity": 0, "connectivity_span": 0, "ccp_eval": 0,
             "btree_eval": 0,
             "btree_eval_decode": 0, "bgeneral_eval": 0,
             "bgeneral_eval_decode": 0, "btree_eval_prune": 0,
-            "bgeneral_eval_prune": 0, "phase_a_blocks": 0}
+            "bgeneral_eval_prune": 0, "phase_a_blocks": 0, "commit_keys": 0}
 _SINGLE = ("connectivity", "ccp_eval", "grow_pair")   # one (nmax,) table
 _SMEM_LIMIT = 48 * 1024       # static dynamic-shared-memory budget per block
 _I32_MAX = (1 << 31) - 1
@@ -330,46 +332,102 @@ def _check_memo(name: str, memo_cost, memo_rows) -> int:
 
 
 def _pruned_buffer(nseg: int, bcap: int, device) -> torch.Tensor:
-    """The fused forms' output, zeroed: int64 keys[nseg], then int32
-    counts[2 * bcap] (two to an int64)."""
-    return torch.zeros(nseg + bcap, dtype=torch.int64, device=device)
+    """A chunk's own output of the fused forms, zeroed: int64 keys[nseg],
+    then int64 counts[2 * bcap]."""
+    return torch.zeros(nseg + 2 * bcap, dtype=torch.int64, device=device)
+
+
+def _check_int64(name: str, key: str, t, least: int, device) -> None:
+    """Check a caller's int64 buffer: contiguous, one-dimensional, at
+    least ``least`` entries, on ``device``."""
+    if t.dtype != torch.int64 or t.dim() != 1 or t.numel() < least \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: {key} must be contiguous int64 with at "
+                         f"least {least} entries on {device}, got "
+                         f"{t.dtype}{tuple(t.shape)} on {t.device}")
+
+
+def _check_targets(name: str, keys, counts, nseg: int, bcap: int,
+                   device) -> None:
+    """Check the caller's key and count buffers of a fused form: at least
+    ``nseg`` keys and ``2 * bcap`` counts (``_check_int64``)."""
+    _check_int64(name, "keys", keys, nseg, device)
+    _check_int64(name, "counts", counts, 2 * bcap, device)
+
+
+def _targets(name: str, keys, counts, nseg: int, bcap: int, device):
+    """``(out, keys, counts)``: the caller's buffers, checked (``out`` its
+    keys), or a chunk's own zeroed buffer and its two parts."""
+    if keys is None:
+        out = _pruned_buffer(nseg, bcap, device)
+        return out, out[:nseg], out[nseg:]
+    _check_targets(name, keys, counts, nseg, bcap, device)
+    return keys, keys, counts
+
+
+def _fold_cpu(name: str, buf, nseg: int, bcap: int, keys, counts):
+    """The CPU path's output: ``ref.fold_into`` after the targets' check."""
+    if keys is not None:
+        _check_targets(name, keys, counts, nseg, bcap, buf.device)
+    return ref.fold_into(buf, nseg, keys, counts)
 
 
 def _launch_tree_prune(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
                        emv_b, adj_b, memo_cost, memo_rows, nmax: int,
-                       nseg: int, chunk: int):
-    """Check the arguments, allocate the zeroed buffer and launch
+                       nseg: int, chunk: int, keys=None, counts=None):
+    """Check the arguments and the targets (``_targets``) and launch
     ``rt_btree_eval_prune``."""
     name = "btree_eval_prune"
     bcap, emax = _check_tree(name, all_sets, eoff, loff, soff, seg0, m_b,
                              emu_b, emv_b, adj_b, nmax, nseg, chunk)
     size = _check_memo(name, memo_cost, memo_rows)
-    out = _pruned_buffer(nseg, bcap, adj_b.device)
+    out, keys, counts = _targets(name, keys, counts, nseg, bcap, adj_b.device)
     if chunk:
         _run(name, adj_b.device, all_sets.data_ptr(), all_sets.numel(),
              eoff.data_ptr(), loff.data_ptr(), soff.data_ptr(), seg0,
              m_b.data_ptr(), emu_b.data_ptr(), emv_b.data_ptr(), emax,
              adj_b.data_ptr(), memo_cost.data_ptr(), memo_rows.data_ptr(),
-             size, out.data_ptr(), out.data_ptr() + 8 * nseg, chunk, bcap,
-             nmax, nseg)
+             size, keys.data_ptr(), counts.data_ptr(), chunk, bcap, nmax,
+             nseg)
     return out
 
 
 def _launch_general_prune(pairs, n_pairs: int, lane_count: int, adj_b,
-                          memo_cost, memo_rows, nmax: int, chunk: int):
-    """Check the arguments, allocate the zeroed buffer and launch
+                          memo_cost, memo_rows, nmax: int, chunk: int,
+                          keys=None, counts=None):
+    """Check the arguments and the targets (``_targets``) and launch
     ``rt_bgeneral_eval_prune``."""
     name = "bgeneral_eval_prune"
     bcap, pcap = _check_general(name, pairs, n_pairs, lane_count, adj_b, nmax,
                                 chunk)
     size = _check_memo(name, memo_cost, memo_rows)
-    out = _pruned_buffer(pcap, bcap, adj_b.device)
+    out, keys, counts = _targets(name, keys, counts, pcap, bcap, adj_b.device)
     if chunk:
         _run(name, adj_b.device, pairs.data_ptr(), pcap, n_pairs, lane_count,
              adj_b.data_ptr(), memo_cost.data_ptr(), memo_rows.data_ptr(),
-             size, out.data_ptr(), out.data_ptr() + 8 * pcap, chunk, bcap,
-             nmax)
+             size, keys.data_ptr(), counts.data_ptr(), chunk, bcap, nmax)
     return out
+
+
+def _launch_commit(keys, idx, memo_cost, memo_left) -> None:
+    """Check the arguments and launch ``rt_commit_keys``."""
+    name = "commit_keys"
+    n = idx.numel()
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be contiguous int32[n], got "
+                         f"{idx.dtype}{tuple(idx.shape)}")
+    _check_int64(name, "keys", keys, n, idx.device)
+    for key, t, dtype in (("memo_cost", memo_cost, torch.float32),
+                          ("memo_left", memo_left, torch.int32)):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() \
+                or t.shape != memo_cost.shape \
+                or not 1 <= t.numel() <= _I32_MAX:
+            raise ValueError(f"{name}: {key} must be contiguous {dtype}"
+                             f"[size], 0 < size < 2^31, as long as "
+                             f"memo_cost, got {t.dtype}{tuple(t.shape)}")
+    if n:
+        _run(name, idx.device, keys.data_ptr(), idx.data_ptr(), n,
+             memo_cost.data_ptr(), memo_left.data_ptr(), memo_cost.numel())
 
 
 def _launch_phase_a(S, adj, eu_idx, ev_idx, edge_live, nmax: int,
@@ -561,55 +619,76 @@ def bgeneral_eval_decode(pairs, n_pairs: int, lane_count: int, adj_b,
 
 def btree_eval_prune(all_sets, eoff, loff, soff, seg0: int, m_b, emu_b,
                      emv_b, adj_b, memo_cost, memo_rows, nmax: int, nseg: int,
-                     chunk: int):
-    """The ``chunk`` lanes of ``btree_eval_decode``, costed and pruned ->
-    the int64[nseg + bcap] buffer ``unpack_pruned`` reads: per segment the
-    cheapest split (ties to the larger left bitmap, a lane of ``INF`` cost
-    offering left 0, an empty segment ``INF`` and ``INT32_MIN``), per query
-    its edge_in lanes, twice (every in-set edge is a ccp pair).  A lane's
-    split costs ``(cl + cr) + cost.join_cost(rl, rr, rows_S)`` on
-    ``memo_cost``/``memo_rows`` (float32[size]) at ``(q << nmax) | x``,
-    clamped into them; ``INF`` where edge_in is 0.  On the CPU: the
-    decode form, then the chunk bodies' torch epilogue
-    (``ref.tree_epilogue``)."""
+                     chunk: int, keys=None, counts=None):
+    """The ``chunk`` lanes of ``btree_eval_decode``, costed and pruned: per
+    segment the cheapest split (ties to the larger left bitmap, a lane of
+    ``INF`` cost offering left 0, an empty segment ``INF`` and
+    ``INT32_MIN``) as one int64 key, per query its edge_in lanes, twice
+    (every in-set edge is a ccp pair).  A lane's split costs ``(cl + cr) +
+    cost.join_cost(rl, rr, rows_S)`` on ``memo_cost``/``memo_rows``
+    (float32[size]) at ``(q << nmax) | x``, clamped into them; ``INF``
+    where edge_in is 0.
+
+    The keys and counts fold into the caller's ``keys`` (int64, at least
+    ``nseg``: the maximum with what is there) and ``counts`` (int64[2 *
+    bcap]: added), and ``keys`` comes back; without them, into a chunk's
+    own zeroed int64[nseg + 2 * bcap] buffer, which comes back for
+    ``unpack_pruned``.  On the CPU: the decode form, then the chunk bodies'
+    torch epilogue (``ref.tree_epilogue``), folded by ``ref.fold_into``."""
     if _on_cpu("btree_eval_prune", (all_sets, eoff, loff, soff, m_b, emu_b,
                                     emv_b, memo_cost, memo_rows), adj_b):
-        return ref.tree_epilogue(
+        return _fold_cpu("btree_eval_prune", ref.tree_epilogue(
             btree_eval_decode(all_sets, eoff, loff, soff, seg0, m_b, emu_b,
                               emv_b, adj_b, nmax, nseg, chunk),
-            adj_b, memo_cost, memo_rows, nmax, nseg)
+            adj_b, memo_cost, memo_rows, nmax, nseg), nseg, adj_b.shape[0],
+            keys, counts)
     return _launch_tree_prune(all_sets, eoff, loff, soff, seg0, m_b, emu_b,
                               emv_b, adj_b, memo_cost, memo_rows, nmax, nseg,
-                              chunk)
+                              chunk, keys, counts)
 
 
 def bgeneral_eval_prune(pairs, n_pairs: int, lane_count: int, adj_b,
-                        memo_cost, memo_rows, nmax: int, chunk: int):
-    """The ``chunk`` lanes of ``bgeneral_eval_decode``, costed and pruned
-    -> the int64[pcap + bcap] buffer ``unpack_pruned`` reads: one segment a
-    pair of the table, as for ``btree_eval_prune``, and per query its
-    enum_ok and its ccp lanes; a lane's split is ``INF`` where ccp is 0."""
+                        memo_cost, memo_rows, nmax: int, chunk: int,
+                        keys=None, counts=None):
+    """The ``chunk`` lanes of ``bgeneral_eval_decode``, costed and pruned:
+    one key a pair of the table (``pcap`` of them), as for
+    ``btree_eval_prune``, and per query its enum_ok and its ccp lanes; a
+    lane's split is ``INF`` where ccp is 0.  Targets and the CPU path as
+    ``btree_eval_prune``'s (``ref.general_epilogue``)."""
     if _on_cpu("bgeneral_eval_prune", (pairs, memo_cost, memo_rows), adj_b):
-        return ref.general_epilogue(
+        return _fold_cpu("bgeneral_eval_prune", ref.general_epilogue(
             bgeneral_eval_decode(pairs, n_pairs, lane_count, adj_b, nmax,
                                  chunk),
-            pairs.shape[1], adj_b, memo_cost, memo_rows, nmax)
+            pairs.shape[1], adj_b, memo_cost, memo_rows, nmax),
+            pairs.shape[1], adj_b.shape[0], keys, counts)
     return _launch_general_prune(pairs, n_pairs, lane_count, adj_b, memo_cost,
-                                 memo_rows, nmax, chunk)
+                                 memo_rows, nmax, chunk, keys, counts)
+
+
+def commit_keys(keys, idx, memo_cost, memo_left) -> None:
+    """Commit a level's folded keys to the memo: key t (int64) belongs to
+    memo entry ``idx[t]`` (int32[n]; the keys of one entry consecutive), and
+    each entry whose largest key holds a finite cost gets that cost in
+    ``memo_cost`` and its left bitmap in ``memo_left``, in place; an index
+    outside the memo is dropped.  On the CPU: ``ref.commit_keys_ref``."""
+    if _on_cpu("commit_keys", (keys, memo_cost, memo_left), idx):
+        ref.commit_keys_ref(keys, idx, memo_cost, memo_left)
+        return
+    _launch_commit(keys, idx, memo_cost, memo_left)
 
 
 def unpack_pruned(buf: np.ndarray, bcap: int):
-    """A fused form's buffer, fetched to the host (int64[nseg + bcap]) ->
-    (seg_cost float32[nseg], seg_left int32[nseg], enumerated int32[bcap],
-    ccp int32[bcap]).  Key k holds ``0x7F800000 - bits(cost)`` in its high
-    word and ``left ^ INT32_MIN`` in its low one (little-endian: the low
-    word first); the key 0 of an empty segment reads ``INF`` and
-    ``INT32_MIN``."""
-    n = len(buf) - bcap
-    w = buf.view(np.int32)
-    seg_cost = (np.int32(0x7F800000) - w[1: 2 * n: 2]).view(np.float32)
-    seg_left = w[0: 2 * n: 2] ^ np.int32(_I32_MIN)
-    return seg_cost, seg_left, w[2 * n: 2 * n + bcap], w[2 * n + bcap:]
+    """A fused form's own buffer, fetched to the host (int64[nseg + 2 *
+    bcap]) -> (seg_cost float32[nseg], seg_left int32[nseg], enumerated
+    int64[bcap], ccp int64[bcap]).  Key k holds ``0x7F800000 - bits(cost)``
+    in its high word and ``left ^ INT32_MIN`` in its low one
+    (little-endian: the low word first); the key 0 of an empty segment
+    reads ``INF`` and ``INT32_MIN``."""
+    n = len(buf) - 2 * bcap
+    w = buf[:n].view(np.int32)
+    seg_cost = (np.int32(0x7F800000) - w[1::2]).view(np.float32)
+    seg_left = w[0::2] ^ np.int32(_I32_MIN)
+    return seg_cost, seg_left, buf[n: n + bcap], buf[n + bcap:]
 
 
 # -- phase A of MPDP-general ---------------------------------------------------

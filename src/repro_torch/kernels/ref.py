@@ -13,7 +13,9 @@ followed by the lane kernel, and ``phase_a_blocks`` the reference's
 followed by the eager epilogue that the chunk bodies of ``core`` run on
 typed and DPSUB chunks (``lane_cost``, ``prune``, ``segment_sum``, kept
 here), whose costs agree with the reference's to a relative 1e-5
-(``core.cost``).
+(``core.cost``), and folded into the caller's key and count buffers by
+``fold_into`` where it gives them; ``commit_keys_ref`` is the commit of
+such a buffer to the memo.
 ``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each kernel
 against these on the card.
 
@@ -272,14 +274,53 @@ def segment_sum(x: torch.Tensor, qid: torch.Tensor, bcap: int) -> torch.Tensor:
 
 
 def pack_pruned(seg_cost, seg_left, enum_q, ccp_q):
-    """The fused forms' buffer from the eager epilogue's outputs: int64
-    keys ``(0x7F800000 - bits(cost)) << 32 | (left ^ INT32_MIN)`` a
-    segment, then the int32 counts, enumerated then ccp, two to an int64
-    (``ops.unpack_pruned`` reads it back)."""
+    """A chunk's own buffer of the fused forms from the eager epilogue's
+    outputs: int64 keys ``(0x7F800000 - bits(cost)) << 32 | (left ^
+    INT32_MIN)`` a segment, then the counts as int64, enumerated then ccp
+    (``ops.unpack_pruned`` reads it back).  A finite or ``INF`` cost
+    (>= +0; a split's is never -0.0) makes a key >= 0 that orders as
+    ``prune`` does: larger is cheaper, then the larger left bitmap."""
     hi = 0x7F800000 - seg_cost.view(torch.int32)
     keys = torch.stack([seg_left ^ _I32_MIN, hi], dim=1).view(torch.int64)
-    return torch.cat([keys.reshape(-1),
-                      torch.cat([enum_q, ccp_q]).view(torch.int64)])
+    return torch.cat([keys.reshape(-1), enum_q.long(), ccp_q.long()])
+
+
+def fold_into(buf, nseg: int, keys=None, counts=None):
+    """The fused forms' output from a chunk's packed buffer
+    (``pack_pruned``, ``nseg`` keys): the buffer itself without targets;
+    else its keys folded into ``keys[:nseg]`` (the maximum with what is
+    there, as the kernels' ``atomicMax``) and its counts added to
+    ``counts`` (int64, as their ``atomicAdd``), and ``keys`` back."""
+    if keys is None:
+        return buf
+    torch.maximum(keys[:nseg], buf[:nseg], out=keys[:nseg])
+    counts[: len(buf) - nseg] += buf[nseg:]
+    return keys
+
+
+def commit_keys_ref(keys, idx, memo_cost, memo_left) -> None:
+    """``commit_keys_kernel``: the keys of one memo entry (consecutive in
+    ``idx``, int32[n]) folded to their maximum, and each entry whose
+    maximum holds a finite cost written, cost and left bitmap, to
+    ``memo_cost``/``memo_left`` in place; indices outside the memo are
+    dropped.  Raises where one entry's keys are not consecutive."""
+    n = idx.numel()
+    if not n:
+        return
+    idx = idx.long()
+    head = torch.ones(n, dtype=torch.bool, device=idx.device)
+    head[1:] = idx[1:] != idx[:-1]
+    at = idx[head]
+    if at.numel() != torch.unique(idx).numel():
+        raise ValueError("commit_keys: the keys of one memo entry must be "
+                         "consecutive")
+    best = torch.zeros(at.numel(), dtype=torch.int64, device=idx.device)
+    best.scatter_reduce_(0, torch.cumsum(head, 0) - 1, keys[:n], "amax")
+    w = best.view(torch.int32).reshape(-1, 2)        # (low, high) words
+    cost = (0x7F800000 - w[:, 1]).view(torch.float32)
+    keep = torch.isfinite(cost) & (at >= 0) & (at < memo_cost.numel())
+    memo_cost[at[keep]] = cost[keep]
+    memo_left[at[keep]] = w[keep, 0] ^ _I32_MIN
 
 
 def tree_epilogue(lanes, adj_b, memo_cost, memo_rows, nmax: int,

@@ -11,9 +11,10 @@ CPU.
   have a cut vertex and go to the oracle;
 * with the recorder on, ``blocks.dense`` lies inside ``engine.phase_a``
   with ``engine.fetch`` inside it, ``engine.chunk`` inside
-  ``engine.evaluate`` as a leaf (the fetches it times keep
-  ``engine.evaluate`` as their parent), the ``engine.chunks`` counter
-  equals the engine's
+  ``engine.evaluate``, with no fetch inside it (the fused chunks fold on
+  the device) and, where chunks are read back (the host fold), as a leaf
+  (the fetches it times keep ``engine.evaluate`` as their parent), the
+  ``engine.chunks`` counter equals the engine's
   ``chunks_dispatched``, and a clique's counters are the same for every
   seed; with it off nothing is recorded.
 
@@ -30,7 +31,7 @@ import torch
 from portbench.reference import exact
 from portbench.reference.plans import invalid_reason
 from portbench.stream import plan_shape
-from repro_torch.core import batch, engine, telemetry
+from repro_torch.core import batch, chunks as tchunks, engine, telemetry
 from repro_torch.core import blocks as bl
 from repro_torch.core.joingraph import JoinGraph, graph_to_wire
 from repro_torch.workloads import generators as gen
@@ -143,12 +144,9 @@ def under(spans, child: str, parent: str) -> bool:
         s.parent in ids and ids[s.parent].name == parent for s in kids)
 
 
-@pytest.mark.parametrize("solo", [False, True], ids=["batched", "solo"])
-def test_spans_nest_and_the_chunk_counter_is_the_engines(solo):
-    g = gen.clique(10, seed=4)
-    telemetry.enable()
-    # chunks of 1,024 lanes: several a level, so the batched loop drains
-    # (fetches) inside its chunks too
+def clique_run(g, solo: bool):
+    """One request's run of ``g`` under MPDP-general, chunks of 1,024
+    lanes (several a level); returns the engine and the spans."""
     with telemetry.span("test.request"):       # one request, as a daemon's
         if solo:
             eng = engine.ExactEngine(g, chunk=1024, device="cpu")
@@ -157,19 +155,28 @@ def test_spans_nest_and_the_chunk_counter_is_the_engines(solo):
             eng = batch.BatchEngine([g], chunk=1024,
                                     algorithm="mpdp_general", device="cpu")
             eng.run()
-    spans = telemetry.spans()
+    return eng, telemetry.spans()
+
+
+def fetches_in_chunks(spans):
+    chunks = [s for s in spans if s.name == "engine.chunk"]
+    return [f for f in spans if f.name == "engine.fetch" and any(
+        c.t0 <= f.t0 and f.t1 <= c.t1 for c in chunks)]
+
+
+@pytest.mark.parametrize("solo", [False, True], ids=["batched", "solo"])
+def test_spans_nest_and_the_chunk_counter_is_the_engines(solo, monkeypatch):
+    g = gen.clique(10, seed=4)
+    telemetry.enable()
+    eng, spans = clique_run(g, solo)
     assert under(spans, "blocks.dense", "engine.phase_a")
     assert under(spans, "engine.chunk", "engine.evaluate")
     ids = {s.id: s.name for s in spans}
     fetch_in = collections.Counter(ids.get(s.parent) for s in spans
                                    if s.name == "engine.fetch")
     assert fetch_in["blocks.dense"] > 0 and fetch_in["engine.chunk"] == 0
-    # a chunk is a leaf: the fetches inside it keep engine.evaluate as
-    # their parent, so engine.fetch_share reads them as before
-    chunks = [s for s in spans if s.name == "engine.chunk"]
-    inside = [f for f in spans if f.name == "engine.fetch" and any(
-        c.t0 <= f.t0 and f.t1 <= c.t1 for c in chunks)]
-    assert inside and {ids[f.parent] for f in inside} == {"engine.evaluate"}
+    # the fused chunks fold on the device: no read-back inside a chunk
+    assert not fetches_in_chunks(spans)
     c = totals()
     assert c["engine.chunks"] == eng.chunks_dispatched > 0
     assert c["blocks.dense_sets"] == 2**10 - 1 - 10   # sets of sizes 2..n
@@ -177,6 +184,15 @@ def test_spans_nest_and_the_chunk_counter_is_the_engines(solo):
     # every counter under the request its spans share
     (rid,) = {s.request for s in spans}
     assert {r for _, r in telemetry.counts()} == {rid}
+    # a chunk is a leaf: where chunks are read back (the host fold of
+    # typed, DPSUB and lattice flights), the fetches inside it keep
+    # engine.evaluate as their parent, so engine.fetch_share reads them
+    telemetry.clear()
+    monkeypatch.setattr(tchunks, "_folds", lambda algorithm, targs: False)
+    _, spans = clique_run(g, solo)
+    ids = {s.id: s.name for s in spans}
+    inside = fetches_in_chunks(spans)
+    assert inside and {ids[f.parent] for f in inside} == {"engine.evaluate"}
 
 
 @pytest.mark.parametrize("n", [9, 11])

@@ -98,7 +98,9 @@ def hold(name, args, label, fn=None):
 
 class Held:
     """Holds every call of the fused wrappers against the torch epilogue
-    (``hold``) for the test's life (``mp``: its monkeypatch); ``calls``
+    (``hold``, on a chunk's own buffer) for the test's life (``mp``: its
+    monkeypatch), then makes the call as the engine made it (into the
+    device fold's ``keys``/``counts`` where it gave them); ``calls``
     counts them by name."""
 
     def __init__(self, mp):
@@ -108,10 +110,11 @@ class Held:
             mp.setattr(ops, k, self._held(k, real))
 
     def _held(self, name, real):
-        def wrapper(*args):
+        def wrapper(*args, **targets):
             buf, _ = hold(name, args, f"{name} call {self.calls[name]}", real)
             self.calls[name] += 1
-            return buf
+            return real(*args, **targets) if targets.get("keys") is not None \
+                else buf
         return wrapper
 
 
@@ -334,16 +337,17 @@ def test_pack_and_unpack_are_inverses():
     cost[::11] = 0.0
     left = rng.integers(I32_MIN, 1 << 31, n, dtype=np.int64).astype(np.int32)
     left[::13] = I32_MIN
-    ev, cc = (rng.integers(0, 1 << 20, bcap).astype(np.int32)
-              for _ in range(2))
+    ev = rng.integers(0, 1 << 20, bcap).astype(np.int32)
+    cc = rng.integers(0, 1 << 40, bcap)              # int64 counts: no wrap
     buf = ref.pack_pruned(*map(torch.from_numpy, (cost, left, ev, cc)))
-    assert buf.dtype == torch.int64 and buf.shape == (n + bcap,)
+    assert buf.dtype == torch.int64 and buf.shape == (n + 2 * bcap,)
     got = ops.unpack_pruned(buf.numpy(), bcap)
     np.testing.assert_array_equal(got[0].view(np.int32), cost.view(np.int32))
+    assert got[2].dtype == got[3].dtype == np.int64
     for a, b in zip(got[1:], (left, ev, cc)):
         np.testing.assert_array_equal(a, b)
     # the key of an empty segment, all zero, reads (INF, INT32_MIN)
-    got = ops.unpack_pruned(np.zeros(3 + 1, np.int64), 1)
+    got = ops.unpack_pruned(np.zeros(3 + 2, np.int64), 1)
     assert np.isposinf(got[0]).all() and (got[1] == I32_MIN).all()
 
 

@@ -753,6 +753,16 @@ class PruneLanes:
         return prune
 
 
+def _own_buffer(real, args, kw):
+    """A chunk body's call as a held test compares it: ``(got, launched)``
+    with ``got`` its result into its own buffer (``chunks._fetch`` reads
+    it) and ``launched()`` the call as the engine made it, into the device
+    fold's ``keys``/``counts`` where it gave them."""
+    targets = {k: kw.pop(k) for k in ("keys", "counts") if k in kw}
+    got = real(*args, **kw)
+    return got, (lambda: real(*args, **kw, **targets) if targets else got)
+
+
 def _hold_chunk(got, want, label, lanes=None, ties=None):
     """A chunk body's result, read back as the level loops read it
     (``chunks._fetch``: a fused chunk's ``Pruned`` buffer or the torch
@@ -798,12 +808,12 @@ def test_beval_tree_chunk_matches_reference(nmax, monkeypatch):
     worst = [0, 0]
 
     def held(*args, **kw):
-        got = real(*args, **kw)
+        got, launched = _own_buffer(real, args, kw)
         want = want_fn(*[jnp.asarray(a.numpy()) if torch.is_tensor(a) else a
                          for a in args])
         worst[0] = max(worst[0], _hold_chunk(got, want, f"call {worst[1]}"))
         worst[1] += 1
-        return got
+        return launched()
 
     monkeypatch.setattr(tchunks, "_beval_tree_chunk", held)
     tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
@@ -825,8 +835,9 @@ def test_eval_tree_chunk_matches_reference(g, monkeypatch):
 
     def held(all_sets, eoff, loff, soff, seg0, m1, adj1, emu1, emv1,
              memo_cost, memo_rows, **kw):
-        got = real(all_sets, eoff, loff, soff, seg0, m1, adj1, emu1, emv1,
-                   memo_cost, memo_rows, **kw)
+        got, launched = _own_buffer(real, (all_sets, eoff, loff, soff, seg0,
+                                           m1, adj1, emu1, emv1, memo_cost,
+                                           memo_rows), kw)
         assert (kw["bcap"], seg0, int(soff[0])) == (1, 0, 0)
         j = [jnp.asarray(a.numpy()) for a in
              (all_sets, adj1[0], emu1[0], emv1[0], memo_cost, memo_rows)]
@@ -839,7 +850,7 @@ def test_eval_tree_chunk_matches_reference(g, monkeypatch):
             got, [want[0], want[1], np.asarray(want[2]).reshape(()),
                   np.asarray(want[3]).reshape(())], f"call {worst[1]}"))
         worst[1] += 1
-        return got
+        return launched()
 
     monkeypatch.setattr(tchunks, "_beval_tree_chunk", held)
     teng.optimize(port(g), "mpdp_tree", chunk=chunk, device="cpu")
@@ -1079,15 +1090,15 @@ def test_beval_general_chunk_matches_reference(nmax, monkeypatch):
     worst = [0, 0]
 
     def held(pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows, **kw):
-        got = real(pairs, n_pairs, lane_count, adj_b, memo_cost, memo_rows,
-                   **kw)
+        got, launched = _own_buffer(real, (pairs, n_pairs, lane_count, adj_b,
+                                           memo_cost, memo_rows), kw)
         want = want_fn(*[jnp.asarray(x) for x in pairs.numpy()], n_pairs,
                        lane_count, *[jnp.asarray(a.numpy()) for a in
                                      (adj_b, memo_cost, memo_rows)],
                        pcap=pairs.shape[1], **kw)
         worst[0] = max(worst[0], _hold_chunk(got, want, f"call {worst[1]}"))
         worst[1] += 1
-        return got
+        return launched()
 
     monkeypatch.setattr(tchunks, "_beval_general_chunk", held)
     tbatch.BatchEngine([port(g) for g in graphs], chunk=chunk,
@@ -1109,8 +1120,8 @@ def test_eval_general_chunk_matches_reference(g, monkeypatch):
     worst = [0, 0]
 
     def held(pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows, **kw):
-        got = real(pairs, n_pairs, lane_count, adj1, memo_cost, memo_rows,
-                   **kw)
+        got, launched = _own_buffer(real, (pairs, n_pairs, lane_count, adj1,
+                                           memo_cost, memo_rows), kw)
         assert kw["bcap"] == 1 and not pairs[2].any()
         rows = [jnp.asarray(x) for x in pairs.numpy()]
         want = reng._eval_general_chunk(
@@ -1122,7 +1133,7 @@ def test_eval_general_chunk_matches_reference(g, monkeypatch):
             got, [want[0], want[1], np.asarray(want[2]).reshape(()),
                   np.asarray(want[3]).reshape(())], f"call {worst[1]}"))
         worst[1] += 1
-        return got
+        return launched()
 
     monkeypatch.setattr(tchunks, "_beval_general_chunk", held)
     teng.optimize(port(g), "mpdp_general", chunk=chunk, device="cpu")
